@@ -22,20 +22,14 @@ same tensors), and writes exactly the keys its reference kernel returns:
 
 The library is built at first use with ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``build/repro_torch/`` at the root of
-the checkout and loaded with ``ctypes``; nothing is compiled at import.
+the checkout and loaded with ``ctypes`` (:mod:`repro_torch._build`);
+nothing is compiled at import.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
+from ... import _build
 from .costs import NUM_FUNCS
 from .isa import BR_BR
 from .policy import AGE_SPAN, NUM_PIDS, PRIO_CAP
@@ -51,88 +45,22 @@ ISSUE_KEYS = ("fu_busy", "fu_uid", "fu_rem", "fu_out_s", "fu_out_e",
               "fu_src", "fu_spec", "fu_pid", "tr_issue", "rs_valid")
 TRACE_KEYS = ("tr_func", "tr_dispatch", "tr_dep", "tr_pid", "tr_aborted")
 
-#: kernel launches per wrapper (plain-version calls are not counted)
-launches = {"enqueue": 0, "grant": 0, "issue": 0, "traces": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
 # ---------------------------------------------------------------------------
-# build + load
+# build + load (the port's one nvcc + ctypes route, ``repro_torch._build``)
 # ---------------------------------------------------------------------------
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "hts_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-#: what the last build did: seconds, command, and ptxas's report (-Xptxas -v)
-build_info: dict = {}
-_lib_handle = None
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_P, _I = _build.P, _build.I
+#: ``csrc/hts_step.cu``: ``LIB.build()`` compiles it, ``LIB.info`` holds the
+#: last build's report (seconds, command, ptxas's -Xptxas -v)
+LIB = _build.Library("hts_step.cu", {
     # sizes..., pointers..., stream
     "hts_enqueue": [_I] * 5 + [_P] * 13 + [_P],
     "hts_grant": [_I] * 6 + [_P] * 14 + [_P],
     "hts_issue": [_I] * 7 + [_P] * 27 + [_P],
     "hts_traces": [_I] * 4 + [_P] * 15 + [_P],
-}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
-                       "CUDA step kernels cannot be built")
-
-
-def build() -> Path:
-    """Compile ``csrc/hts_step.cu`` into a shared library (once per source
-    content) and return its path.  Raises if ``nvcc`` fails."""
-    src = SOURCE.read_bytes()
-    out = BUILD_DIR / f"libhts_step_{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{SOURCE.name}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, cmd=" ".join(cmd),
-                      ptxas=proc.stderr + proc.stdout)
-    return out
-
-
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
-
-
-def _launch(name: str, counter: str, *args) -> None:
-    lib = _lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    conv = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
-    rc = getattr(lib, name)(*conv, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    launches[counter] += 1
+}, ("enqueue", "grant", "issue", "traces"))
+SOURCE, BUILD_DIR = LIB.source, _build.BUILD_DIR
+#: kernel launches per wrapper (plain-version calls are not counted)
+launches, reset_launches = LIB.launches, LIB.reset_launches
 
 
 def _check(n: int, dev: torch.device, items) -> None:
@@ -147,15 +75,6 @@ def _check(n: int, dev: torch.device, items) -> None:
                              f"{(n,) + tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-
-
-def _route(dev: torch.device) -> bool:
-    """True for the kernel, False for the plain version (CPU tensors)."""
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {dev}")
 
 
 # ---------------------------------------------------------------------------
@@ -216,13 +135,13 @@ def enqueue(st: dict, done: torch.Tensor, completion_extra: int) -> None:
     n, C, NFU, U, items = _enqueue_shapes(st, done)
     dev = done.device
     _check(n, dev, items)
-    if not _route(dev):
+    if not _build.on_card(dev):
         return enqueue_ref(st, done, completion_extra)
-    _launch("hts_enqueue", "enqueue", n, C, NFU, U, completion_extra,
-            done, st["cdb_valid"], st["cdb_uid"], st["cdb_ticket"],
-            st["cdb_ready"], st["cdb_spec"], st["ticket"], st["overflow"],
-            st["cycle"], st["tr_complete"], st["fu_busy"], st["fu_uid"],
-            st["fu_spec"])
+    LIB.launch("hts_enqueue", "enqueue", n, C, NFU, U, completion_extra,
+               done, st["cdb_valid"], st["cdb_uid"], st["cdb_ticket"],
+               st["cdb_ready"], st["cdb_spec"], st["ticket"], st["overflow"],
+               st["cycle"], st["tr_complete"], st["fu_busy"], st["fu_uid"],
+               st["fu_spec"])
 
 
 def enqueue_ref(st: dict, done: torch.Tensor, completion_extra: int) -> None:
@@ -287,13 +206,13 @@ def grant(st: dict, br_ready: torch.Tensor, alive: torch.Tensor,
     n, C, S, T, U, items = _grant_shapes(st, br_ready, alive)
     dev = alive.device
     _check(n, dev, items)
-    if not _route(dev):
+    if not _build.on_card(dev):
         return grant_ref(st, br_ready, alive, cdb_width)
-    _launch("hts_grant", "grant", n, C, S, T, U, cdb_width,
-            st["cdb_valid"], st["cdb_ready"], st["cdb_ticket"], st["cdb_uid"],
-            st["cycle"], alive, st["rs_dep"], st["trk_valid"], st["trk_uid"],
-            st["tr_broadcast"], st["br_active"], st["br_kind"],
-            st["br_wait"], br_ready)
+    LIB.launch("hts_grant", "grant", n, C, S, T, U, cdb_width,
+               st["cdb_valid"], st["cdb_ready"], st["cdb_ticket"],
+               st["cdb_uid"], st["cycle"], alive, st["rs_dep"],
+               st["trk_valid"], st["trk_uid"], st["tr_broadcast"],
+               st["br_active"], st["br_kind"], st["br_wait"], br_ready)
 
 
 def grant_ref(st: dict, br_ready: torch.Tensor, alive: torch.Tensor,
@@ -357,18 +276,18 @@ def issue(st: dict, exists, prio, quota, cost, eft, alive,
                                         alive)
     dev = alive.device
     _check(n, dev, items)
-    if not _route(dev):
+    if not _build.on_card(dev):
         return issue_ref(st, exists, prio, quota, cost, eft, alive,
                          issue_width)
-    _launch("hts_issue", "issue", n, S, NUM_FUNCS, NFU // NUM_FUNCS, U,
-            NUM_PIDS, issue_width,
-            st["rs_valid"], st["rs_dep"], st["rs_pid"], st["rs_age"],
-            st["rs_func"], st["rs_uid"], st["rs_exec"], st["rs_out_s"],
-            st["rs_out_e"], st["rs_src"], st["rs_spec"],
-            st["fu_busy"], st["fu_uid"], st["fu_rem"], st["fu_out_s"],
-            st["fu_out_e"], st["fu_src"], st["fu_spec"], st["fu_pid"],
-            st["tr_issue"], st["cycle"], exists, prio, quota, cost, eft,
-            alive)
+    LIB.launch("hts_issue", "issue", n, S, NUM_FUNCS, NFU // NUM_FUNCS, U,
+               NUM_PIDS, issue_width,
+               st["rs_valid"], st["rs_dep"], st["rs_pid"], st["rs_age"],
+               st["rs_func"], st["rs_uid"], st["rs_exec"], st["rs_out_s"],
+               st["rs_out_e"], st["rs_src"], st["rs_spec"],
+               st["fu_busy"], st["fu_uid"], st["fu_rem"], st["fu_out_s"],
+               st["fu_out_e"], st["fu_src"], st["fu_spec"], st["fu_pid"],
+               st["tr_issue"], st["cycle"], exists, prio, quota, cost, eft,
+               alive)
 
 
 def issue_ref(st: dict, exists, prio, quota, cost, eft, alive,
@@ -455,13 +374,13 @@ def traces(st: dict, rs_uid_k, rs_kill, fu_uid_k, fu_kill, uid, acc, dep,
                                          dispatch)
     dev = dispatch.device
     _check(n, dev, items)
-    if not _route(dev):
+    if not _build.on_card(dev):
         return traces_ref(st, rs_uid_k, rs_kill, fu_uid_k, fu_kill, uid,
                           acc, dep, pid, dispatch)
-    _launch("hts_traces", "traces", n, S, NFU, U,
-            st["tr_aborted"], st["tr_func"], st["tr_dispatch"], st["tr_dep"],
-            st["tr_pid"], rs_uid_k, rs_kill, fu_uid_k, fu_kill, uid, acc,
-            dep, pid, dispatch, st["cycle"])
+    LIB.launch("hts_traces", "traces", n, S, NFU, U,
+               st["tr_aborted"], st["tr_func"], st["tr_dispatch"],
+               st["tr_dep"], st["tr_pid"], rs_uid_k, rs_kill, fu_uid_k,
+               fu_kill, uid, acc, dep, pid, dispatch, st["cycle"])
 
 
 def traces_ref(st: dict, rs_uid_k, rs_kill, fu_uid_k, fu_kill, uid, acc,

@@ -1,4 +1,4 @@
-"""Card only: the CUDA step kernels against their plain torch versions.
+"""Card only: the CUDA kernels against their plain torch versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the kernels have no CPU mode; the CPU tests hold the plain
@@ -7,12 +7,19 @@ versions to the reference).  On a machine with a card and ``nvcc``:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 This file imports only torch and the port, so it runs where JAX is not
-installed.  The state is int32/bool: tolerance zero.
+installed.  The step kernels' state is int32/bool: tolerance zero.  The
+DSP kernels are float32, held to the reference tests' tolerances (1e-5;
+1e-3 for the FFT), at ragged batches that leave part of the last block
+empty.
 """
 import pytest
 import torch
 
-from repro_torch.core.hts import batch, costs, cuda_step, machine, workloads
+from repro_torch.core.hts import (batch, costs, cuda_step, machine, programs,
+                                  workloads)
+from repro_torch.examples import dsp_pipeline
+from repro_torch.kernels import common as dsp
+from repro_torch.kernels import dsp_fir, dsp_spectral, dsp_vector, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +105,99 @@ def test_each_kernel_matches_plain_on_a_carry(card, trips):
         for x, y in zip(a1, a2):
             if torch.is_tensor(x):
                 assert torch.equal(x, y), name
+
+
+def _frames(card, seed, *shape):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(card)
+
+
+def _counted(name, fn, *args):
+    """Call a DSP wrapper once; it must launch its kernel exactly once."""
+    before = dsp.launches[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert dsp.launches[name] == before + 1, name
+    return out
+
+
+RAGGED = pytest.mark.parametrize("b", [1, 7, 300])
+WIDTHS = pytest.mark.parametrize("n", [40, 256])
+
+
+@RAGGED
+@WIDTHS
+@pytest.mark.parametrize("k", [5, 8])
+def test_real_fir_kernel_matches_plain(card, b, n, k):
+    x, h = _frames(card, b * n, b, n), _frames(card, k, k)
+    got = _counted("real_fir", dsp_fir.real_fir, x, h)
+    torch.testing.assert_close(got, ref.real_fir(x, h), rtol=1e-5, atol=1e-5)
+
+
+@RAGGED
+@WIDTHS
+def test_vector_dot_kernel_matches_plain(card, b, n):
+    x, y = _frames(card, b, b, n), _frames(card, b + 1, b, n)
+    got = _counted("vector_dot", dsp_vector.vector_dot, x, y)
+    torch.testing.assert_close(got, ref.vector_dot(x, y), rtol=1e-5,
+                               atol=1e-5)
+    # rows 4 bytes past a 16-byte boundary take the scalar loads
+    xs = _frames(card, b + 2, b * n + 1)[1:].view(b, n)
+    got = _counted("vector_dot", dsp_vector.vector_dot, xs, xs)
+    torch.testing.assert_close(got, ref.vector_dot(xs, xs), rtol=1e-5,
+                               atol=1e-5)
+
+
+@RAGGED
+@WIDTHS
+@pytest.mark.parametrize("lag", [4, 10])
+def test_correlation_kernel_matches_plain(card, b, n, lag):
+    x, y = _frames(card, b * lag, b, n), _frames(card, b * lag + 1, b, n)
+    got = _counted("correlation", dsp_vector.correlation, x, y, lag)
+    torch.testing.assert_close(got, ref.correlation(x, y, lag), rtol=1e-5,
+                               atol=1e-5)
+
+
+@RAGGED
+@pytest.mark.parametrize("n", [2, 64, 256, 4096])
+def test_fft_kernel_matches_plain(card, b, n):
+    x = _frames(card, b + n, b, n, 2)
+    got = _counted("fft", dsp_spectral.fft, x)
+    torch.testing.assert_close(got, ref.fft(x), rtol=1e-3, atol=1e-3)
+    want = torch.fft.fft(torch.view_as_complex(x))
+    torch.testing.assert_close(torch.view_as_complex(got), want, rtol=1e-3,
+                               atol=1e-3 * max(1.0, n / 256))
+
+
+def test_kernels_refuse_sizes_past_their_shared_memory(card):
+    """Past a kernel's shared-memory limit the card route raises, and
+    nothing launches; the plain versions on the CPU take these sizes."""
+    before = dict(dsp.launches)
+    n = dsp_vector.CORR_MAX_SPAN
+    x = _frames(card, 1, 1, n)
+    with pytest.raises(ValueError, match="N \\+ max_lag"):
+        dsp_vector.correlation(x, x, 1)
+    with pytest.raises(ValueError, match="at most"):
+        dsp_spectral.fft(_frames(card, 2, 1, 2 * dsp_spectral.FFT_MAX_N, 2))
+    assert dsp.launches == before
+
+
+@pytest.mark.parametrize("time_domain", [False, True])
+def test_audio_pipeline_on_card_matches_plain(card, time_domain):
+    """The schedule on the card runs each DSP kernel once per live task of
+    its function, and its output equals the plain table's within 1e-3."""
+    bench = programs.audio_compression(2, time_domain)
+    x = _frames(card, 5, 300, 256)
+    dsp.reset_launches()
+    r, executed, out = dsp_pipeline.run_pipeline(bench, x)
+    torch.cuda.synchronize()
+    counts = dict(dsp.launches)
+    live = {}
+    for _uid, name in executed:
+        kernel = "fft" if name == "fft_256" else name
+        live[kernel] = live.get(kernel, 0) + 1
+    assert counts == {k: live.get(k, 0) for k in counts}
+    plain = dsp_pipeline.execute(dsp_pipeline.issued_tasks(r), x,
+                                 ops.plain_dispatch_table())
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)

@@ -6,9 +6,10 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, started together) and drives the port's two paths on the card —
-the population scheduler machine through ``run_many``, and the audio
-pipeline, whose schedule runs the DSP kernels — then checks them:
+source, one after the other) and drives the port's paths on the card —
+the population scheduler machine through ``run_many``, and the audio,
+image and shared pipelines, whose schedules run the DSP kernels — then
+checks them:
 
 1. device and build: the card's name and power limit, the two kernel
    libraries' builds (time and ``-Xptxas -v`` report);
@@ -30,19 +31,31 @@ pipeline, whose schedule runs the DSP kernels — then checks them:
    events on a mid-run carry of the main-path population, beside its
    bound;
 6a. DSP kernels against plain: K5 ``real_fir``, K9 ``vector_dot``, K12
-   ``correlation`` and K13 ``fft`` at the pipeline's shape (65536 frames
-   of 256 samples, 8 taps, lag 4) and at ragged edge shapes, within the
-   reference tests' tolerances (1e-5; 1e-3 for the FFT);
+   ``correlation`` and K13 ``fft`` at the audio pipeline's shape (65536
+   frames of 256 samples, 8 taps, lag 4), K10 ``vector_add``, K11
+   ``vector_max`` and K14 ``dct`` at the image pipeline's (262144 tiles of
+   64 pixels), all at ragged edge shapes too, within the reference tests'
+   tolerances (1e-5; 1e-4 for the DCT, with TF32 off for its plain
+   version; 1e-3 for the FFT; K10 and K11 ``torch.equal``, also on rows 4
+   bytes off alignment, and K11 NaN where a row holds one);
 6b. audio pipeline: ``audio_compression(8)``, both arms, scheduled on the
    card (equal to golden in cycles and schedule) and executed through
    ``run_pipeline`` on 65536 × 256 float32 frames; each DSP kernel must
    launch once per live task of its function, and the output must be
    finite and within 1e-3 of the same tasks run through the plain table;
-5b. DSP kernel times: device, call, plain and library times at the
+7. image and shared pipelines: ``image_compression(40)``, and
+   ``audio_straightline(2)`` merged with it (two applications sharing one
+   accelerator pool), under ``SHARED_PARAMS``, scheduled on the card
+   (equal to golden) and executed through ``run_pipeline`` on 262144 × 64
+   float32 tiles (a 4096 × 4096 image in 8 × 8 tiles); ``audio_straightline
+   (2)`` alone is scheduled too, for the sharing gain.  Launches must
+   equal live tasks, the output must be finite and within 1e-3 of the
+   plain table's; the phase's peak device memory is printed;
+5b. DSP kernel times: device, call, plain and library times at each
    pipeline's shape, beside the bound.
 
 The last lines are the card (``nvidia-smi``), one JSON object
-``{"kernels": [...]}`` (all eight kernels), and ``{"ok": true, "device":
+``{"kernels": [...]}`` (all eleven kernels), and ``{"ok": true, "device":
 {...}}``.  Any failed
 phase exits non-zero without the last line; so does a machine without a
 card, or a directory without the rest of the repository.
@@ -51,11 +64,11 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -84,16 +97,25 @@ DSP_SOURCE = "src/repro_torch/csrc/dsp.cu"
 DSP_REPLACES = {
     "real_fir": "src/repro/kernels/dsp_fir.py:49",
     "vector_dot": "src/repro/kernels/dsp_vector.py:22",
+    "vector_add": "src/repro/kernels/dsp_vector.py:40",
+    "vector_max": "src/repro/kernels/dsp_vector.py:57",
     "correlation": "src/repro/kernels/dsp_vector.py:83",
     "fft": "src/repro/kernels/dsp_spectral.py:78",
+    "dct": "src/repro/kernels/dsp_spectral.py:110",
 }
 #: 1024 audio channels × 64 frames of 256 samples (64 MiB of float32,
 #: beyond the 50 MB L2), the pipeline's 8 FIR taps and lag 4
 FRAMES, SAMPLES, TAPS, MAX_LAG = 65536, 256, 8, 4
 BANDS = 8
 PIPELINE_SEED = 2019
-DSP_TOL = {"real_fir": 1e-5, "vector_dot": 1e-5, "correlation": 1e-5,
-           "fft": 1e-3}
+#: 4096 × 4096 single-channel image in 8 × 8 tiles: 262144 tiles of 64
+#: pixels (64 MiB of float32); the image program's 40 tiles; the audio
+#: program it shares the pool with
+TILES, PIXELS, IMAGE_TILES, SHARED_BANDS = 262144, 64, 40, 2
+IMAGE_SEED = 2020
+#: 0 is torch.equal (NaN where the plain version has NaN)
+DSP_TOL = {"real_fir": 1e-5, "vector_dot": 1e-5, "vector_add": 0,
+           "vector_max": 0, "correlation": 1e-5, "fft": 1e-3, "dct": 1e-4}
 PIPELINE_TOL = 1e-3
 EXEC_REPS = 5          # timed executions of each schedule (median kept)
 #: (B, N, taps or lag) per kernel: the pipeline's shape, then ragged edges
@@ -106,10 +128,26 @@ DSP_CASES = {
                     (300, 256, 4)],
     "fft": [(FRAMES, SAMPLES, None), (1, 256, None), (300, 256, None),
             (300, 64, None)],
+    "vector_add": [(TILES, PIXELS, None), (1, 40, None), (300, 64, None),
+                   (300, 256, None), (7, 40, None)],
+    "vector_max": [(TILES, PIXELS, None), (1, 40, None), (300, 64, None),
+                   (300, 256, None), (7, 40, None)],
+    "dct": [(TILES, PIXELS, None), (1, 40, None), (300, 64, None),
+            (65, 128, None), (7, 40, None)],
 }
+#: the shape each DSP kernel is timed at (phase 5b): its pipeline's
+DSP_SHAPE = {"vector_add": (TILES, PIXELS), "vector_max": (TILES, PIXELS),
+             "dct": (TILES, PIXELS)}
 #: live tasks per DSP kernel in the 8-band audio schedules, by time_domain
 LIVE_8_BANDS = {False: {"correlation": 1, "fft": 16, "vector_dot": 24},
                 True: {"correlation": 1, "real_fir": 24}}
+#: live tasks per DSP kernel in the image and shared schedules (golden)
+LIVE_IMAGE = {"dct": 40, "vector_max": 40, "correlation": 39,
+              "vector_add": 40}
+LIVE_SHARED = {"dct": 40, "vector_max": 40, "correlation": 40,
+               "vector_add": 40, "fft": 4, "vector_dot": 6}
+#: golden cycles: the image program, the audio program alone, both shared
+CYCLES = {"image": 18238, "audio": 37509, "shared": 37510}
 
 
 def log(*a):
@@ -326,7 +364,7 @@ def costliest(events, per=1, n=8):
 
 
 # ---------------------------------------------------------------------------
-# the DSP kernels (K5, K9, K12, K13) and the audio pipeline
+# the DSP kernels (K5, K9–K14) and the audio, image and shared pipelines
 # ---------------------------------------------------------------------------
 def dsp_case(torch, kern, name, b, n, p, seed):
     """(wrapper, plain version, args) of one call of DSP kernel ``name`` on
@@ -343,10 +381,45 @@ def dsp_case(torch, kern, name, b, n, p, seed):
         return kern["fir"].real_fir, ref.real_fir, (f(b, n), f(p))
     if name == "vector_dot":
         return kern["vec"].vector_dot, ref.vector_dot, (f(b, n), f(b, n))
+    if name == "vector_add":
+        return kern["vec"].vector_add, ref.vector_add, (f(b, n), f(b, n))
+    if name == "vector_max":
+        return kern["vec"].vector_max, ref.vector_max, (f(b, n),)
     if name == "correlation":
         return (kern["vec"].correlation, ref.correlation,
                 (f(b, n), f(b, n), p))
+    if name == "dct":
+        return kern["spec"].dct, ref.dct, (f(b, n),)
     return kern["spec"].fft, ref.fft, (f(b, n, 2),)
+
+
+class Fp32Matmul:
+    """Full-fp32 matrix products (TF32 off for matmul and cuDNN) inside the
+    block, the settings restored after: the DCT's plain version and its
+    library yardstick are held to 1e-4, which TF32 does not keep."""
+
+    def __init__(self, torch):
+        self.b = torch.backends
+
+    def __enter__(self):
+        self.saved = (self.b.cuda.matmul.allow_tf32, self.b.cudnn.allow_tf32)
+        self.b.cuda.matmul.allow_tf32 = False
+        self.b.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        self.b.cuda.matmul.allow_tf32, self.b.cudnn.allow_tf32 = self.saved
+
+
+def same(torch, got, want, tol) -> bool:
+    """Within ``tol`` (rtol = atol); tolerance 0 is ``torch.equal`` with NaN
+    where the plain version has NaN."""
+    if got.shape != want.shape:
+        return False
+    if tol == 0:
+        nan = torch.isnan(want)
+        return torch.equal(torch.isnan(got), nan) and \
+            torch.equal(got[~nan], want[~nan])
+    return torch.allclose(got, want, rtol=tol, atol=tol)
 
 
 def dsp_bound(name, args):
@@ -364,6 +437,21 @@ def dsp_bound(name, args):
         B, N = x.shape
         nbytes = 4 * (2 * B * N + B)
         ops = B * (2 * N - 1)
+    elif name == "vector_add":
+        x, _y = args
+        B, N = x.shape
+        nbytes = 4 * 3 * B * N
+        ops = B * N
+    elif name == "vector_max":
+        (x,) = args
+        B, N = x.shape
+        nbytes = 4 * (B * N + B)
+        ops = B * (N - 1)
+    elif name == "dct":
+        (x,) = args
+        B, N = x.shape
+        nbytes = 4 * (2 * B * N + N * N)       # x, out, the matrix once
+        ops = B * N * (2 * N - 1)
     elif name == "correlation":
         x, _y, L = args
         B, N = x.shape
@@ -382,7 +470,7 @@ def dsp_bound(name, args):
                                    else "operations")
 
 
-def library_call(torch, name, args):
+def library_call(torch, name, args, ref):
     """One PyTorch call that computes the same function on the same
     inputs: the yardstick, timed here and used nowhere in the port."""
     F = torch.nn.functional
@@ -394,6 +482,16 @@ def library_call(torch, name, args):
     if name == "vector_dot":
         x, y = args
         return lambda: torch.linalg.vecdot(x, y)
+    if name == "vector_add":
+        x, y = args
+        return lambda: torch.add(x, y)
+    if name == "vector_max":
+        (x,) = args
+        return lambda: torch.amax(x, dim=-1)
+    if name == "dct":
+        (x,) = args
+        m = ref.dct_mat(x.shape[1], x.device)
+        return lambda: torch.matmul(x, m.T)
     if name == "correlation":
         x, y, L = args
         w = x[:, None, :]
@@ -403,7 +501,11 @@ def library_call(torch, name, args):
 
 
 def max_err(got, want) -> float:
-    return float((got - want).abs().max()) if got.numel() else 0.0
+    """Largest absolute difference, NaN differences left out (``same``
+    checks where the NaNs are)."""
+    if not got.numel():
+        return 0.0
+    return float((got - want).abs().nan_to_num(nan=0.0).max())
 
 
 def main() -> int:
@@ -417,8 +519,9 @@ def main() -> int:
               "a CUDA card", file=sys.stderr)
         return 2
     try:
-        from repro_torch.core.hts import (api, batch, costs, cuda_step,
-                                          machine, programs, workloads)
+        from repro_torch.core.hts import (HtsParams, api, batch, costs,
+                                          cuda_step, machine, programs,
+                                          workloads)
         from repro_torch.examples import dsp_pipeline
         from repro_torch.kernels import common as dsp
         from repro_torch.kernels import (dsp_fir, dsp_spectral, dsp_vector,
@@ -448,12 +551,10 @@ def main() -> int:
             log(f"--- {name}: FAILED")
             return None
 
-    # 1. build: one nvcc per source, started together ----------------------
+    # 1. build: one nvcc per source --------------------------------------
     def build():
-        libs = (cuda_step.LIB, dsp.LIB)
-        with ThreadPoolExecutor(len(libs)) as pool:
-            paths = list(pool.map(lambda lib: lib.build(), libs))
-        for lib, path in zip(libs, paths):
+        for lib in (cuda_step.LIB, dsp.LIB):
+            path = lib.build()
             lib.load()
             info = lib.info
             if not info:
@@ -615,151 +716,231 @@ def main() -> int:
     dsp_err = {k: 0.0 for k in dsp.launches}
 
     # 6a. DSP kernels against their plain versions -------------------------
+    def check_dsp(name, wrapper, plain, args, label):
+        got = wrapper(*args)
+        with Fp32Matmul(torch):
+            want = plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want) if got.shape == want.shape else math.inf
+        dsp_err[name] = max(dsp_err[name], err)
+        tol = DSP_TOL[name]
+        assert same(torch, got, want, tol), \
+            f"{name} {label} differs from plain (max abs err {err:.3g}, " \
+            f"tolerance {tol or 'torch.equal'})"
+        log(f"{name:11s} {label}  max abs err {err:.3g} (tolerance "
+            f"{tol or 'torch.equal'})")
+        return got
+
     def dsp_vs_plain():
         for name, cases in DSP_CASES.items():
             for i, (b, n, p) in enumerate(cases):
                 wrapper, plain, args = dsp_case(torch, kern, name, b, n, p, i)
-                got, want = wrapper(*args), plain(*args)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                dsp_err[name] = max(dsp_err[name], err)
-                tol = DSP_TOL[name]
-                assert got.shape == want.shape and torch.allclose(
-                    got, want, rtol=tol, atol=tol), \
-                    f"{name} at B={b} N={n} differs from plain (max abs " \
-                    f"err {err:.3g}, tolerance {tol})"
-                log(f"{name:11s} B={b:<6d} N={n:<4d} p={p}  max abs err "
-                    f"{err:.3g} (tolerance {tol})")
-        # rows 4 bytes past a 16-byte boundary: vector_dot's scalar loads
-        x = dsp_case(torch, kern, "vector_dot", 1, 300 * 256 + 1, None,
-                     9)[2][0][0, 1:].view(300, 256)
-        got, want = dsp_vector.vector_dot(x, x), ref.vector_dot(x, x)
-        err = max_err(got, want)
-        dsp_err["vector_dot"] = max(dsp_err["vector_dot"], err)
-        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), \
-            f"vector_dot on unaligned rows: max abs err {err:.3g}"
-        log(f"vector_dot  B=300    N=256  unaligned rows  max abs err "
-            f"{err:.3g}")
+                check_dsp(name, wrapper, plain, args,
+                          f"B={b:<6d} N={n:<4d} p={p}")
+        # rows 4 bytes past a 16-byte boundary: the scalar loads
+        unaligned = {
+            "vector_dot": (dsp_vector.vector_dot, ref.vector_dot, 256),
+            "vector_add": (dsp_vector.vector_add, ref.vector_add, 64),
+            "vector_max": (dsp_vector.vector_max, ref.vector_max, 64)}
+        for i, (name, (wrapper, plain, n)) in enumerate(unaligned.items()):
+            x = torch.from_numpy(np.random.default_rng(9 + i).standard_normal(
+                300 * n + 1, dtype=np.float32)).to(DEVICE)[1:].view(300, n)
+            args = (x,) if name == "vector_max" else (x, x)
+            check_dsp(name, wrapper, plain, args,
+                      f"B=300    N={n:<4d} unaligned rows")
+        # a NaN in one row: vector_max must give NaN there, as amax does
+        wrapper, plain, (x,) = dsp_case(torch, kern, "vector_max", 300, 64,
+                                        None, 12)
+        x[17, 5] = float("nan")
+        got = check_dsp("vector_max", wrapper, plain, (x,),
+                        "B=300    N=64   NaN in row 17")
+        assert bool(torch.isnan(got[17])) and \
+            int(torch.isnan(got).sum()) == 1, "vector_max lost the NaN"
     phase("6a DSP kernels vs plain", dsp_vs_plain)
 
+    def time_execution(tasks, x, table):
+        """Median wall (s) of EXEC_REPS synchronised executions of the
+        issued tasks, all walls, and the last output."""
+        walls = []
+        for _ in range(EXEC_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dsp_pipeline.execute(tasks, x, table)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return sorted(walls)[EXEC_REPS // 2], walls, out
+
+    def profile_execution(name, tasks, x, table, exec_s):
+        """One profiled execution: the device's busy share read two ways
+        (over the profiled wall; over the unprofiled median) and the
+        costliest device activities."""
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                dsp_pipeline.execute(tasks, x, table)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"pipeline profile not measured (profiler: {e})")
+            return
+        events = device_events(prof)
+        busy = sum(us for _k, us in events)
+        log(f"{name}: profiled execution {wall_us / 1e3:.3f} ms "
+            f"wall, device busy {busy / 1e3:.3f} ms "
+            f"({100 * busy / wall_us:.1f} % of the profiled wall, "
+            f"{100 * busy / (exec_s * 1e6):.1f} % of the unprofiled "
+            f"median), {len(events)} device activities  on {card}")
+        for key, us, cnt in costliest(events):
+            log(f"    {us:9.1f} us  x{cnt:<4d} {key}  on {card}")
+
+    def pipeline_run(bench, x, params, live_want, unit):
+        """``run_pipeline`` with every DSP count set to 0 just before and
+        read just after: checked against golden, live tasks, the plain
+        table and itself; returns (result, counts).  ``unit`` names a row
+        of ``x`` (frames, tiles)."""
+        g = api.run(bench, scheduler="hts_spec", n_fu=2, params=params,
+                    backend="golden")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dsp.reset_launches()
+        t0 = time.perf_counter()
+        r, executed, out = dsp_pipeline.run_pipeline(bench, x, params=params,
+                                                     device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(dsp.launches)
+        peak = torch.cuda.max_memory_allocated()
+        assert r.cycles == g.cycles and \
+            r.schedule_tuple() == g.schedule_tuple(), \
+            f"{bench.name}: the card's schedule differs from golden"
+        live = {k: 0 for k in counts}
+        for _uid, fname in executed:
+            live["fft" if fname == "fft_256" else fname] += 1
+        assert counts == live, \
+            f"{bench.name}: launches {counts} != live tasks {live}"
+        assert {k: v for k, v in live.items() if v} == live_want, \
+            f"{bench.name}: live tasks {live} != {live_want}"
+        tasks = dsp_pipeline.issued_tasks(r)
+        table = ops.dsp_dispatch_table()
+        exec_s, walls, again = time_execution(tasks, x, table)
+        with Fp32Matmul(torch):
+            plain = dsp_pipeline.execute(tasks, x, ops.plain_dispatch_table())
+        err = max_err(out, plain)
+        assert bool(torch.isfinite(out).all()), "output not finite"
+        assert torch.allclose(out, plain, rtol=PIPELINE_TOL,
+                              atol=PIPELINE_TOL), \
+            f"{bench.name}: output differs from the plain pipeline " \
+            f"(max abs err {err:.3g})"
+        assert torch.equal(again, out), "the kernels are not repeatable"
+        B = x.shape[0]
+        log(f"{bench.name}: {r.cycles} cycles = golden, "
+            f"{len(executed)} tasks executed, launches {counts}, "
+            f"max abs err vs plain {err:.3g} (tolerance {PIPELINE_TOL})")
+        log(f"{bench.name}: run_pipeline {wall:.3f} s (schedule + "
+            f"execute); executed schedule, median of {EXEC_REPS}: "
+            f"{exec_s * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+            f"{max(walls) * 1e3:.3f}), {B / exec_s:.0f} {unit}/s, "
+            f"{x.numel() / exec_s:.4g} samples/s; run_pipeline's peak "
+            f"device memory {peak / 2**20:.1f} MiB  on {card}")
+        profile_execution(bench.name, tasks, x, table, exec_s)
+        return r, counts
+
     # 6b. the audio pipeline: schedule on the card, DSP kernels execute it --
+    path_launches: dict = {}
+
     def audio_pipeline():
         rng = np.random.default_rng(PIPELINE_SEED)
         x = torch.from_numpy(rng.standard_normal(
             (FRAMES, SAMPLES), dtype=np.float32)).to(DEVICE)
-        total = {k: 0 for k in dsp.launches}
         for td in (False, True):
             bench = programs.audio_compression(BANDS, time_domain=td)
-            g = api.run(bench, scheduler="hts_spec", n_fu=2,
-                        backend="golden")
-            dsp.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r, executed, out = dsp_pipeline.run_pipeline(bench, x,
-                                                         device=DEVICE)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(dsp.launches)
-            assert r.cycles == g.cycles and \
-                r.schedule_tuple() == g.schedule_tuple(), \
-                f"{bench.name}: the card's schedule differs from golden"
-            live = {k: 0 for k in counts}
-            for _uid, fname in executed:
-                live["fft" if fname == "fft_256" else fname] += 1
-            assert counts == live, \
-                f"{bench.name}: launches {counts} != live tasks {live}"
-            assert {k: v for k, v in live.items() if v} == LIVE_8_BANDS[td]
-            for k, v in counts.items():
-                total[k] += v
-            tasks = dsp_pipeline.issued_tasks(r)
-            table = ops.dsp_dispatch_table()
-            walls = []
-            for _ in range(EXEC_REPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                again = dsp_pipeline.execute(tasks, x, table)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            exec_s = sorted(walls)[EXEC_REPS // 2]
-            plain = dsp_pipeline.execute(tasks, x, ops.plain_dispatch_table())
-            err = max_err(out, plain)
-            assert bool(torch.isfinite(out).all()), "output not finite"
-            assert torch.allclose(out, plain, rtol=PIPELINE_TOL,
-                                  atol=PIPELINE_TOL), \
-                f"{bench.name}: output differs from the plain pipeline " \
-                f"(max abs err {err:.3g})"
-            assert torch.equal(again, out), "the kernels are not repeatable"
-            log(f"{bench.name}: {r.cycles} cycles = golden, "
-                f"{len(executed)} tasks executed, launches {counts}, "
-                f"max abs err vs plain {err:.3g} (tolerance {PIPELINE_TOL})")
-            log(f"{bench.name}: run_pipeline {wall:.3f} s (schedule + "
-                f"execute); executed schedule, median of {EXEC_REPS}: "
-                f"{exec_s * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
-                f"{max(walls) * 1e3:.3f}), {FRAMES / exec_s:.0f} frames/s, "
-                f"{FRAMES * SAMPLES / exec_s:.4g} samples/s  on {card}")
-            try:
-                from torch.profiler import ProfilerActivity, profile
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    dsp_pipeline.execute(tasks, x, table)
-                    torch.cuda.synchronize()
-                    wall_us = (time.perf_counter() - t0) * 1e6
-            except (RuntimeError, AssertionError, AttributeError) as e:
-                log(f"pipeline profile not measured (profiler: {e})")
-                continue
-            events = device_events(prof)
-            busy = sum(us for _k, us in events)
-            log(f"{bench.name}: profiled execution {wall_us / 1e3:.3f} ms "
-                f"wall, device busy {busy / 1e3:.3f} ms "
-                f"({100 * busy / wall_us:.1f} % of the profiled wall, "
-                f"{100 * busy / (exec_s * 1e6):.1f} % of the unprofiled "
-                f"median), {len(events)} device activities  on {card}")
-            for key, us, cnt in costliest(events):
-                log(f"    {us:9.1f} us  x{cnt:<4d} {key}  on {card}")
-        ctx["dsp_launches"] = total
-        log(f"DSP launches on the pipeline (both arms) {total}")
+            _r, counts = pipeline_run(bench, x, HtsParams(),
+                                      LIVE_8_BANDS[td], "frames")
+            path_launches["audio_bt" if td else "audio_bnt"] = counts
+        log(f"DSP launches on the audio pipeline {path_launches}")
     phase("6b audio pipeline", audio_pipeline)
 
-    # 5b. DSP kernel times at the pipeline's shape --------------------------
+    # 7. the image program, alone and sharing the pool with audio ----------
+    def image_pipelines():
+        params = dsp_pipeline.SHARED_PARAMS
+        rng = np.random.default_rng(IMAGE_SEED)
+        x = torch.from_numpy(rng.standard_normal(
+            (TILES, PIXELS), dtype=np.float32)).to(DEVICE)
+        audio = programs.audio_straightline(SHARED_BANDS)
+        image = programs.image_compression(IMAGE_TILES)
+        shared = programs.merge_benches([audio, image])
+        ga = api.run(audio, scheduler="hts_spec", n_fu=2, params=params,
+                     backend="golden")
+        ra = api.run(audio, scheduler="hts_spec", n_fu=2, params=params,
+                     device=DEVICE)
+        assert ra.cycles == ga.cycles == CYCLES["audio"] and \
+            ra.schedule_tuple() == ga.schedule_tuple(), \
+            f"{audio.name}: the card's schedule differs from golden"
+        cycles = {"audio": ra.cycles}
+        peak = 0
+        for key, bench, live in (("image", image, LIVE_IMAGE),
+                                 ("shared", shared, LIVE_SHARED)):
+            r, counts = pipeline_run(bench, x, params, live, "tiles")
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            assert r.cycles == CYCLES[key], f"{key}: {r.cycles} cycles"
+            cycles[key] = r.cycles
+            path_launches[key] = counts
+        log(f"phase 7 peak device memory {peak / 2**20:.1f} MiB "
+            f"(torch.cuda.max_memory_allocated: run_pipeline, the timed "
+            f"and plain executions; 64 MiB a tile tensor)  on {card}")
+        gain = (cycles["audio"] + cycles["image"]) / cycles["shared"]
+        log(f"sharing: audio alone {cycles['audio']} + image alone "
+            f"{cycles['image']} cycles serially, shared {cycles['shared']}: "
+            f"gain {gain:.4f}x (equal to golden on the card)")
+    phase("7 image and shared pipelines", image_pipelines)
+
+    # 5b. DSP kernel times at each pipeline's shape -------------------------
     def dsp_times():
-        launches = ctx.get("dsp_launches", {})
         lags = {"real_fir": TAPS, "correlation": MAX_LAG}
+        log(f"torch.get_float32_matmul_precision() = "
+            f"{torch.get_float32_matmul_precision()!r}; TF32 off for the "
+            "plain and library DCT")
         for i, name in enumerate(dsp.launches):
-            wrapper, plain, args = dsp_case(torch, kern, name, FRAMES,
-                                            SAMPLES, lags.get(name), 100 + i)
+            b, n = DSP_SHAPE.get(name, (FRAMES, SAMPLES))
+            wrapper, plain, args = dsp_case(torch, kern, name, b, n,
+                                            lags.get(name), 100 + i)
             got = wrapper(*args)
             bound, by = dsp_bound(name, args)
             calls = [functools.partial(wrapper, *args)] * 23
             k_call = events_ms(torch, calls)
-            p_call = events_ms(torch, [functools.partial(plain, *args)] * 8)
+            with Fp32Matmul(torch):
+                p_call = events_ms(torch,
+                                   [functools.partial(plain, *args)] * 8)
             k_dev = profiled_ms(torch, calls, f"{name}_kernel")
             lib, lib_note = None, ""
-            tf32 = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                call = library_call(torch, name, args)
-                lib_err = max_err(call(), got)
-                lib = events_ms(torch, [call] * 23)
-                lib_note = f" (max abs diff from the kernel {lib_err:.3g})"
-            except RuntimeError as e:
-                lib_note = f" (library call failed: {e})"
-            finally:
-                torch.backends.cudnn.allow_tf32 = tf32
+            with Fp32Matmul(torch):
+                try:
+                    call = library_call(torch, name, args, ref)
+                    lib_err = max_err(call(), got)
+                    lib = events_ms(torch, [call] * 23)
+                    lib_note = f" (max abs diff from the kernel {lib_err:.3g})"
+                except RuntimeError as e:
+                    lib_note = f" (library call failed: {e})"
+            by_path = {path: c.get(name, 0)
+                       for path, c in path_launches.items()}
             rows.append(dict(
                 name=name, route="cuda", source=DSP_SOURCE,
-                replaces=DSP_REPLACES[name], launches=launches.get(name, 0),
+                replaces=DSP_REPLACES[name],
+                launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=dsp_err[name],
                 ms=k_dev if k_dev is not None else k_call,
                 kernel_ms=k_dev if k_dev is not None else k_call,
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
-                bound_by=by, library_ms=lib))
+                bound_by=by, library_ms=lib, shape=[b, n]))
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             libs = "none" if lib is None else f"{lib:.4f} ms"
-            log(f"{name:11s} kernel {dev} on the device, {k_call:.4f} ms per "
-                f"call  plain {p_call:.4f} ms  library {libs}{lib_note}  "
-                f"bound {bound:.4f} ms ({by})  on {card}")
-    if "dsp_launches" in ctx:
+            log(f"{name:11s} B={b} N={n}  kernel {dev} on the device, "
+                f"{k_call:.4f} ms per call  plain {p_call:.4f} ms  library "
+                f"{libs}{lib_note}  bound {bound:.4f} ms ({by})  launches "
+                f"{by_path}  on {card}")
+    if {"audio_bnt", "audio_bt", "image", "shared"} <= set(path_launches):
         phase("5b DSP kernel times", dsp_times)
 
     n_kernels = len(cuda_step.KERNELS) + len(dsp.launches)

@@ -1,5 +1,6 @@
-// The DSP accelerators of the audio pipeline (paper Table II), for Hopper
-// (sm_90a): real FIR, vector dot, cross-correlation and the radix-2 FFT.
+// The DSP accelerators of the audio and image pipelines (paper Table II),
+// for Hopper (sm_90a): real FIR, vector dot, vector add, vector max,
+// cross-correlation, the radix-2 FFT and the DCT-II.
 //
 // Each kernel replaces one of the reference's Pallas kernels
 // (src/repro/kernels/dsp_fir.py, dsp_vector.py, dsp_spectral.py) and
@@ -10,11 +11,13 @@
 // (64-bit, so no batch size overflows them) and masks the ragged batch
 // edge itself, so nothing is padded.
 //
-// At the audio pipeline's shape (B = 65536 frames of N = 256 samples) all
-// four are bound by device-memory bytes: each does a few flops per byte
-// it moves, far below the card's fp32 rate.  Each is written to stream its
-// bytes once, coalesced; tiling through TMA and tuning are later work.
-// Every float constant (FIR taps, FFT twiddles) comes from the caller:
+// At the pipelines' shapes (the audio's 65536 frames of 256 samples, the
+// image's 262144 tiles of 64 pixels) all seven are bound by device-memory
+// bytes: each but the DCT does a few flops per byte it moves, far below
+// the card's fp32 rate, and the DCT's 64 multiply-adds a pixel come to
+// 0.8 of its bytes bound.  Each is written to stream its bytes once,
+// coalesced; tiling through TMA and tuning are later work.  Every float
+// constant (FIR taps, FFT twiddles, the DCT matrix) comes from the caller:
 // nothing here calls device trig, and the library is built without
 // --use_fast_math.
 //
@@ -33,7 +36,12 @@ constexpr int FIR_THREADS = 256;
 constexpr int DOT_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int CORR_WARPS = 8;            // one warp per row, at most 8 a block
 constexpr int FFT_THREADS = 256;
-constexpr int SMEM_LIMIT = 48 * 1024;    // static-launch shared memory cap
+constexpr int ADD_THREADS = 256;
+constexpr int MAX_THREADS = 256;         // one warp per row: 8 rows a block
+constexpr int DCT_THREADS = 256;         // 16 x 16: column x row groups
+constexpr int DCT_ROWS = 64;             // rows of x a block holds
+constexpr int DCT_MAX_N = 128;
+constexpr int SMEM_LIMIT = 48 * 1024;    // default-launch shared memory cap
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -101,6 +109,75 @@ vector_dot_kernel(int B, int N, int vec4, const float* __restrict__ x,
   }
   acc = warp_sum(acc);
   if (lane == 0) out[row] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// K10 vector_add — replaces src/repro/kernels/dsp_vector.py vector_add
+// (_vadd_kernel, pl.pallas_call at dsp_vector.py:40).
+//   out[e] = x[e] + y[e] over the B*N elements, one fp32 add each: bit for
+//   bit x + y.
+// Bound: 2*B*N*4 bytes read plus B*N*4 written (the pipeline passes one
+// tensor as x and y, but 64 MiB does not stay in the 50 MB L2 between the
+// two reads).  Design: a grid-stride pass over the flat elements with
+// 16-byte loads and stores where B*N % 4 == 0 and all three pointers are
+// 16-byte aligned, scalar ones otherwise.  x and y are only read, so the
+// pipeline's y == x aliasing is safe under __restrict__; out is the
+// wrapper's fresh tensor.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(ADD_THREADS)
+vector_add_kernel(size_t n, int vec4, const float* __restrict__ x,
+                  const float* __restrict__ y, float* __restrict__ out) {
+  const size_t stride = (size_t)gridDim.x * ADD_THREADS;
+  size_t i = (size_t)blockIdx.x * ADD_THREADS + threadIdx.x;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* y4 = reinterpret_cast<const float4*>(y);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (; i < n / 4; i += stride) {
+      const float4 a = __ldg(x4 + i), b = __ldg(y4 + i);
+      o4[i] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+    }
+  } else {
+    for (; i < n; i += stride) out[i] = __ldg(x + i) + __ldg(y + i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11 vector_max — replaces src/repro/kernels/dsp_vector.py vector_max
+// (_vmax_kernel, pl.pallas_call at dsp_vector.py:57).
+//   out[b] = max_n x[b, n], a NaN anywhere in the row giving NaN (as
+//   jnp.max and torch.amax do; fmaxf would drop it).
+// Bound: B*N*4 bytes read plus B*4 written.  Design: one warp per row,
+// 16-byte loads where N % 4 == 0 and the rows are 16-byte aligned (N = 64:
+// 16 lanes of 4 floats; N = 256: 2 loads a lane), scalar loads otherwise,
+// then a shuffle reduction with the same NaN-propagating max; a warp past
+// the last row exits whole.  max is exact, so the order does not matter.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;            // a NaN in a or b wins
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+vector_max_kernel(int B, int N, int vec4, const float* __restrict__ x,
+                  float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * (MAX_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= (size_t)B) return;
+  const float* xr = x + row * (size_t)N;
+  float m = __int_as_float(0xff800000);        // -inf
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    for (int i = lane; i < N / 4; i += 32) {
+      const float4 a = __ldg(x4 + i);
+      m = nan_max(nan_max(m, a.x), nan_max(a.y, nan_max(a.z, a.w)));
+    }
+  } else {
+    for (int i = lane; i < N; i += 32) m = nan_max(m, __ldg(xr + i));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) out[row] = m;
 }
 
 // ---------------------------------------------------------------------------
@@ -210,6 +287,98 @@ fft_kernel(int B, int N, int bits, const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K14 dct — replaces src/repro/kernels/dsp_spectral.py dct (_dct_kernel,
+// pl.pallas_call at dsp_spectral.py:110, an MXU matmul there).
+//   out[b, k] = sum_i x[b, i] * m[k, i], with m the (N, N) DCT-II matrix,
+//   row k the k-th basis vector (ref.dct_matrix): out = x @ m^T.
+// Bound: B*N*4 bytes read plus the same written, against 2*B*N*N flops:
+// at N = 64 the flops take 0.8 of the bytes' time, so the multiply-adds
+// must run near the fp32 rate.  Full fp32 on the CUDA cores, one fmaf per
+// term in i order: TF32 tensor cores keep about three digits and the
+// reference tests the DCT at 1e-4.  Design: a block holds a tile of
+// DCT_ROWS rows of x and the whole matrix (zero rows up to a multiple of
+// 16) in shared memory, both with an odd row pitch, so the column reads
+// below hit 32 distinct banks; each thread accumulates 4 rows x C columns
+// (columns tx + 16c) in registers.  Per term a warp reads 4 x values (two
+// addresses each, broadcast) and C matrix values (16 addresses each,
+// broadcast to the two row groups).  The tile's load and store are one
+// contiguous run of rows*N floats, coalesced; the outputs are staged back
+// through the x tile to store them that way.  N = 128 needs 99 KB of
+// shared memory, above the 48 KB default: the C entry raises the limit.
+// ---------------------------------------------------------------------------
+template <int C>                                 // 16*C >= N columns
+__global__ void __launch_bounds__(DCT_THREADS)
+dct_kernel(int B, int N, const float* __restrict__ x,
+           const float* __restrict__ m, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int ld = N | 1;                          // odd pitch
+  float* xs = smem;                              // DCT_ROWS x ld
+  float* ms = smem + DCT_ROWS * ld;              // 16*C x ld
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const size_t r0 = (size_t)blockIdx.x * DCT_ROWS;
+  const size_t left = (size_t)B - r0;
+  const int rows = left < (size_t)DCT_ROWS ? (int)left : DCT_ROWS;
+  for (int e = t; e < 16 * C * N; e += DCT_THREADS) {
+    const int k = e / N, i = e - k * N;
+    ms[k * ld + i] = k < N ? __ldg(m + e) : 0.f;
+  }
+  const float* xt = x + r0 * (size_t)N;
+  const int cnt = rows * N;
+  for (int e = t; e < DCT_ROWS * N; e += DCT_THREADS) {
+    const int r = e / N, i = e - r * N;
+    xs[r * ld + i] = e < cnt ? __ldg(xt + e) : 0.f;
+  }
+  __syncthreads();
+  float acc[4][C];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[a][c] = 0.f;
+  const float* xrow = xs + ty * 4 * ld;
+  const float* mrow = ms + tx * ld;
+  for (int i = 0; i < N; ++i) {
+    float xv[4], mv[C];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) xv[a] = xrow[a * ld + i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) mv[c] = mrow[c * 16 * ld + i];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[a][c] = fmaf(xv[a], mv[c], acc[a][c]);
+  }
+  __syncthreads();                               // all reads of xs done
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = tx + 16 * c;
+      if (k < N) xs[(ty * 4 + a) * ld + k] = acc[a][c];
+    }
+  __syncthreads();
+  float* ot = out + r0 * (size_t)N;
+  for (int e = t; e < cnt; e += DCT_THREADS) {
+    const int r = e / N, i = e - r * N;
+    ot[e] = xs[r * ld + i];
+  }
+}
+
+template <int C>
+cudaError_t launch_dct(int B, int N, const float* x, const float* m,
+                       float* out, cudaStream_t stream) {
+  const size_t smem = (size_t)(DCT_ROWS + 16 * C) * (N | 1) * sizeof(float);
+  if (smem > (size_t)SMEM_LIMIT) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dct_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const size_t blocks = ((size_t)B + DCT_ROWS - 1) / DCT_ROWS;
+  dct_kernel<C><<<(unsigned)blocks, DCT_THREADS, smem, stream>>>(B, N, x, m,
+                                                                 out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -234,6 +403,34 @@ int dsp_vector_dot(int B, int N, void* x, void* y, void* out, void* stream) {
     vector_dot_kernel<<<(B + rows - 1) / rows, DOT_THREADS, 0,
                         (cudaStream_t)stream>>>(B, N, vec4, (const float*)x,
                                                 (const float*)y, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dsp_vector_add(int B, int N, void* x, void* y, void* out,
+                   void* stream) {
+  const size_t n = (size_t)(B > 0 ? B : 0) * (size_t)(N > 0 ? N : 0);
+  if (n > 0) {
+    const int vec4 = n % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                     (uintptr_t)y % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const size_t work = vec4 ? n / 4 : n;
+    size_t blocks = (work + ADD_THREADS - 1) / ADD_THREADS;
+    if (blocks > (1u << 20)) blocks = 1u << 20;   // grid-stride beyond
+    vector_add_kernel<<<(unsigned)blocks, ADD_THREADS, 0,
+                        (cudaStream_t)stream>>>(n, vec4, (const float*)x,
+                                                (const float*)y, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dsp_vector_max(int B, int N, void* x, void* out, void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const int rows = MAX_THREADS / 32;
+    const int vec4 = N % 4 == 0 && (uintptr_t)x % 16 == 0;
+    vector_max_kernel<<<(B + rows - 1) / rows, MAX_THREADS, 0,
+                        (cudaStream_t)stream>>>(B, N, vec4, (const float*)x,
+                                                (float*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -268,6 +465,27 @@ int dsp_fft(int B, int N, void* x, void* twr, void* twi, void* out,
                                          (float*)out);
   }
   return (int)cudaGetLastError();
+}
+
+// m: the (N, N) DCT-II matrix as ref.dct_matrix builds it (row k is the
+// k-th basis vector), not its transpose; out = x @ m^T.
+int dsp_dct(int B, int N, void* x, void* m, void* out, void* stream) {
+  if (N < 1 || N > DCT_MAX_N) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  const float* xf = (const float*)x;
+  const float* mf = (const float*)m;
+  float* of = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((N + 15) / 16) {
+    case 1: return (int)launch_dct<1>(B, N, xf, mf, of, s);
+    case 2: return (int)launch_dct<2>(B, N, xf, mf, of, s);
+    case 3: return (int)launch_dct<3>(B, N, xf, mf, of, s);
+    case 4: return (int)launch_dct<4>(B, N, xf, mf, of, s);
+    case 5: return (int)launch_dct<5>(B, N, xf, mf, of, s);
+    case 6: return (int)launch_dct<6>(B, N, xf, mf, of, s);
+    case 7: return (int)launch_dct<7>(B, N, xf, mf, of, s);
+    default: return (int)launch_dct<8>(B, N, xf, mf, of, s);
+  }
 }
 
 }  // extern "C"

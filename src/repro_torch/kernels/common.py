@@ -20,9 +20,13 @@ LIB = _build.Library("dsp.cu", {
     # sizes..., pointers..., stream
     "dsp_real_fir": [_I] * 3 + [_P] * 3 + [_P],
     "dsp_vector_dot": [_I] * 2 + [_P] * 3 + [_P],
+    "dsp_vector_add": [_I] * 2 + [_P] * 3 + [_P],
+    "dsp_vector_max": [_I] * 2 + [_P] * 2 + [_P],
     "dsp_correlation": [_I] * 3 + [_P] * 3 + [_P],
     "dsp_fft": [_I] * 2 + [_P] * 4 + [_P],
-}, ("real_fir", "vector_dot", "correlation", "fft"))
+    "dsp_dct": [_I] * 2 + [_P] * 3 + [_P],
+}, ("real_fir", "vector_dot", "vector_add", "vector_max", "correlation",
+    "fft", "dct"))
 SOURCE = LIB.source
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches, reset_launches = LIB.launches, LIB.reset_launches

@@ -1,10 +1,12 @@
-"""K13, the radix-2 FFT: a CUDA kernel (``csrc/dsp.cu``) and its wrapper.
+"""K13, the radix-2 FFT, and K14, the DCT-II: CUDA kernels
+(``csrc/dsp.cu``) and their wrappers.
 
 Counterpart of the reference's ``kernels/dsp_spectral.py`` ``fft`` /
-``fft_256``, with its numpy constants (``_bitrev``, ``_twiddle_tables``,
-kept in :mod:`.ref`, whose plain FFT uses them too).  The kernel does the
-bit-reversal in its load and takes the same float32 twiddle tables.  The
-DCT is not ported yet (ROADMAP.md Queue 2).
+``fft_256`` and ``dct``, with its numpy constants (``_bitrev``,
+``_twiddle_tables``, ``dct_matrix``, kept in :mod:`.ref`, whose plain
+versions use them too).  The FFT kernel does the bit-reversal in its load
+and takes the same float32 twiddle tables; the DCT kernel takes the same
+float32 DCT-II matrix and multiplies in full fp32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -12,12 +14,17 @@ import torch
 
 from . import ref
 from .common import check, launch, on_card
-from .ref import _bitrev, _twiddle_tables  # noqa: F401  (the copied constants)
+# the reference's numpy constants, copied
+from .ref import _bitrev, _twiddle_tables, dct_matrix  # noqa: F401
 
 #: one frame's re/im planes must fit the 48 KB of shared memory a block
 #: uses.  Checked on the card route only (the plain version takes any
 #: power of two); the C entry refuses the same sizes as a backstop.
 FFT_MAX_N = 4096
+#: the DCT kernel keeps a tile of 64 rows and the whole (N, N) matrix in
+#: shared memory: 99 KB at N = 128, the reference tests' widest.  Checked
+#: on the card route only; the C entry refuses the same sizes.
+DCT_MAX_N = 128
 
 
 def fft(x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +53,21 @@ def fft_256(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fft_256 takes (B, 256, 2) frames, got "
                          f"{tuple(x.shape)}")
     return fft(x)
+
+
+def dct(x: torch.Tensor) -> torch.Tensor:
+    """DCT-II over the last axis, ``x @ dct_matrix(N).T``: (B, N) → (B, N).
+    The (N, N) matrix is built once per (N, device)."""
+    if x.dim() != 2:
+        raise ValueError(f"dct takes (B, N) frames, got {tuple(x.shape)}")
+    B, N = x.shape
+    dev = x.device
+    check("x", x, dev, (B, N))
+    if not on_card(dev):
+        return ref.dct(x)
+    if not 1 <= N <= DCT_MAX_N:
+        raise ValueError(f"the dct kernel takes 1 <= N <= {DCT_MAX_N}, "
+                         f"got N = {N}")
+    out = torch.empty_like(x)
+    launch("dct", B, N, x, ref.dct_mat(N, dev), out)
+    return out

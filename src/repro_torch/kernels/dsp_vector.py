@@ -1,8 +1,7 @@
-"""K9 ``vector_dot`` and K12 ``correlation``: CUDA kernels
-(``csrc/dsp.cu``) and their wrappers.
+"""K9 ``vector_dot``, K10 ``vector_add``, K11 ``vector_max`` and K12
+``correlation``: CUDA kernels (``csrc/dsp.cu``) and their wrappers.
 
-Counterpart of the reference's ``kernels/dsp_vector.py``.  ``vector_add``
-and ``vector_max`` are not ported yet (ROADMAP.md Queue 2).
+Counterpart of the reference's ``kernels/dsp_vector.py``.
 """
 from __future__ import annotations
 
@@ -34,6 +33,33 @@ def vector_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return ref.vector_dot(x, y)
     out = torch.empty(B, dtype=x.dtype, device=dev)
     launch("vector_dot", B, N, x, y, out)
+    return out
+
+
+def vector_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(B, N) + (B, N) → (B, N), bit for bit ``x + y``; ``y`` may be ``x``."""
+    B, N = _rows("x", x)
+    dev = x.device
+    check("x", x, dev, (B, N))
+    check("y", y, dev, (B, N))
+    if not on_card(dev):
+        return ref.vector_add(x, y)
+    out = torch.empty_like(x)
+    launch("vector_add", B, N, x, y, out)
+    return out
+
+
+def vector_max(x: torch.Tensor) -> torch.Tensor:
+    """Row max, NaN propagating as ``torch.amax``: (B, N) → (B,)"""
+    B, N = _rows("x", x)
+    dev = x.device
+    check("x", x, dev, (B, N))
+    if N < 1:
+        raise ValueError("vector_max needs rows of at least one sample")
+    if not on_card(dev):
+        return ref.vector_max(x)
+    out = torch.empty(B, dtype=x.dtype, device=dev)
+    launch("vector_max", B, N, x, out)
     return out
 
 

@@ -1,8 +1,9 @@
 """Plain torch versions of the DSP kernels this port runs so far.
 
 Counterpart of the reference's ``kernels/ref.py`` for ``real_fir``,
-``vector_dot``, ``correlation`` and ``fft``/``fft_256``, each in the
-reference's formula and layout.  They are what the wrappers compute on CPU
+``vector_dot``, ``vector_add``, ``vector_max``, ``correlation``,
+``fft``/``fft_256`` and ``dct``, each in the reference's formula and
+layout.  They are what the wrappers compute on CPU
 tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on the
 card.  The FFT is the reference kernel's own radix-2 recurrence (a
 bit-reversal pre-pass, then ``log2 N`` butterfly stages over float32
@@ -33,6 +34,16 @@ def real_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def vector_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(B, N) · (B, N) → (B,)"""
     return (x * y).sum(-1)
+
+
+def vector_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(B, N) + (B, N) → (B, N)"""
+    return x + y
+
+
+def vector_max(x: torch.Tensor) -> torch.Tensor:
+    """Row max, NaN propagating: (B, N) → (B,)"""
+    return torch.amax(x, dim=-1)
 
 
 def correlation(x: torch.Tensor, y: torch.Tensor,
@@ -110,3 +121,28 @@ def fft_256(x: torch.Tensor) -> torch.Tensor:
     if x.shape[1] != 256:
         raise ValueError(f"fft_256 takes 256-sample frames, got {x.shape[1]}")
     return fft(x)
+
+
+# ---------------------------------------------------------------------------
+# DCT-II (the reference's kernels/ref.py dct_matrix, copied)
+# ---------------------------------------------------------------------------
+def dct_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix, built in float64 as the reference builds
+    it, then cast to float32: row k is the k-th basis vector."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    m = np.cos(np.pi * (2 * i + 1) * k / (2 * n))
+    m[0] *= 1.0 / np.sqrt(2)
+    m *= np.sqrt(2.0 / n)
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def dct_mat(N: int, device: torch.device) -> torch.Tensor:
+    """``dct_matrix(N)`` on ``device`` (one small upload per (N, device))."""
+    return torch.from_numpy(dct_matrix(N)).to(device)
+
+
+def dct(x: torch.Tensor) -> torch.Tensor:
+    """DCT-II over the last axis: ``x @ dct_matrix(N).T``. (B, N) → (B, N)"""
+    return x @ dct_mat(x.shape[-1], x.device).T

@@ -9,8 +9,9 @@ versions to the reference).  On a machine with a card and ``nvcc``:
 This file imports only torch and the port, so it runs where JAX is not
 installed.  The step kernels' state is int32/bool: tolerance zero.  The
 DSP kernels are float32, held to the reference tests' tolerances (1e-5;
-1e-3 for the FFT), at ragged batches that leave part of the last block
-empty.
+1e-4 for the DCT; 1e-3 for the FFT; ``vector_add`` and ``vector_max``
+bit for bit, NaN in the same places), at ragged batches that leave part
+of the last block empty.
 """
 import pytest
 import torch
@@ -158,6 +159,56 @@ def test_correlation_kernel_matches_plain(card, b, n, lag):
                                atol=1e-5)
 
 
+def _unaligned(card, seed, b, n):
+    """(b, n) rows 4 bytes past a 16-byte boundary: the scalar loads."""
+    return _frames(card, seed, b * n + 1)[1:].view(b, n)
+
+
+def _same(got, want):
+    """Bit for bit, NaN where the plain version has NaN."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@RAGGED
+@pytest.mark.parametrize("n", [40, 64, 256])
+def test_vector_add_kernel_matches_plain(card, b, n):
+    x, y = _frames(card, b + 3, b, n), _frames(card, b + 4, b, n)
+    _same(_counted("vector_add", dsp_vector.vector_add, x, y),
+          ref.vector_add(x, y))
+    _same(_counted("vector_add", dsp_vector.vector_add, x, x), x + x)
+    xs = _unaligned(card, b + 5, b, n)
+    _same(_counted("vector_add", dsp_vector.vector_add, xs, xs), xs + xs)
+
+
+@RAGGED
+@pytest.mark.parametrize("n", [40, 64, 256])
+def test_vector_max_kernel_matches_plain(card, b, n):
+    x = _frames(card, b + 6, b, n)
+    _same(_counted("vector_max", dsp_vector.vector_max, x),
+          ref.vector_max(x))
+    xs = _unaligned(card, b + 7, b, n)
+    _same(_counted("vector_max", dsp_vector.vector_max, xs),
+          ref.vector_max(xs))
+    x[b // 2, n // 3] = float("nan")
+    got = _counted("vector_max", dsp_vector.vector_max, x)
+    assert bool(torch.isnan(got[b // 2]))
+    _same(got, ref.vector_max(x))
+
+
+@pytest.mark.parametrize("b", [1, 7, 65, 300])
+@pytest.mark.parametrize("n", [40, 64, 128])
+def test_dct_kernel_matches_plain(card, b, n):
+    x = _frames(card, b + n, b, n)
+    got = _counted("dct", dsp_spectral.dct, x)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ref.dct(x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 @RAGGED
 @pytest.mark.parametrize("n", [2, 64, 256, 4096])
 def test_fft_kernel_matches_plain(card, b, n):
@@ -179,6 +230,8 @@ def test_kernels_refuse_sizes_past_their_shared_memory(card):
         dsp_vector.correlation(x, x, 1)
     with pytest.raises(ValueError, match="at most"):
         dsp_spectral.fft(_frames(card, 2, 1, 2 * dsp_spectral.FFT_MAX_N, 2))
+    with pytest.raises(ValueError, match="N <= 128"):
+        dsp_spectral.dct(_frames(card, 3, 2, dsp_spectral.DCT_MAX_N + 1))
     assert dsp.launches == before
 
 
@@ -201,3 +254,28 @@ def test_audio_pipeline_on_card_matches_plain(card, time_domain):
                                  ops.plain_dispatch_table())
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("tiles", [6, 40])
+def test_image_and_shared_pipelines_on_card_match_plain(card, tiles):
+    """The image program alone and merged with the unrolled audio program:
+    each DSP kernel launches once per live task of its function, and the
+    output equals the plain table's within 1e-3."""
+    params = dsp_pipeline.SHARED_PARAMS
+    x = _frames(card, 6, 300, 64)
+    for bench in (programs.image_compression(tiles),
+                  programs.merge_benches([programs.audio_straightline(2),
+                                          programs.image_compression(tiles)])):
+        dsp.reset_launches()
+        r, executed, out = dsp_pipeline.run_pipeline(bench, x, params=params)
+        torch.cuda.synchronize()
+        counts = dict(dsp.launches)
+        live = {k: 0 for k in counts}
+        for _uid, name in executed:
+            live["fft" if name == "fft_256" else name] += 1
+        assert counts == live
+        assert live["dct"] == live["vector_max"] == live["vector_add"] == tiles
+        plain = dsp_pipeline.execute(dsp_pipeline.issued_tasks(r), x,
+                                     ops.plain_dispatch_table())
+        assert bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)

@@ -6,7 +6,9 @@ JAX side runs its Pallas ops in interpret mode (as
 ``tests/test_kernels_dsp.py`` runs them); the port runs on the CPU, where
 each wrapper computes its plain torch version.  Tolerances are the
 reference tests' own: 1e-5 for the FIR, the dot product and the
-correlation, 1e-3 for the FFT.
+correlation, 1e-4 for the DCT, 1e-3 for the FFT; ``vector_add`` and
+``vector_max`` are exact (the reference's default ``assert_allclose``,
+rtol 1e-7, atol 0).
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import repro.core.hts as jhts
 from repro.core.hts import programs as jprograms
 from repro.kernels import dsp_spectral as jspectral
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 
 from repro_torch.core.hts import programs as tprograms
 from repro_torch.examples import dsp_pipeline as pipeline
@@ -24,7 +27,7 @@ from repro_torch.kernels import common, dsp_fir, dsp_spectral, dsp_vector
 from repro_torch.kernels import ops as tops
 
 TOL = {"real_fir": 1e-5, "vector_dot": 1e-5, "correlation": 1e-5,
-       "fft_256": 1e-3}
+       "fft_256": 1e-3, "dct": 1e-4, "vector_max": 0, "vector_add": 0}
 BATCHES = [1, 7, 300]
 
 
@@ -43,8 +46,13 @@ def frames(seed, *shape):
 
 
 def close(got, want, tol):
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=tol, atol=tol)
+    """Within ``tol`` (rtol = atol); tolerance 0 is the reference's default
+    ``assert_allclose`` (rtol 1e-7, atol 0)."""
+    if tol == 0:
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want))
+    else:
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("b", BATCHES)
@@ -62,6 +70,41 @@ def test_vector_dot_matches_jax(b, n):
     x, y = frames(b, b, n), frames(b + 1, b, n)
     got = dsp_vector.vector_dot(torch.from_numpy(x), torch.from_numpy(y))
     close(got, jops.vector_dot(jnp.asarray(x), jnp.asarray(y)), 1e-5)
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("n", [40, 64, 256])
+def test_vector_add_matches_jax(b, n):
+    x, y = frames(b + 2, b, n), frames(b + 3, b, n)
+    got = dsp_vector.vector_add(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.shape == (b, n)
+    close(got, jops.vector_add(jnp.asarray(x), jnp.asarray(y)), 0)
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("n", [40, 64, 256])
+def test_vector_max_matches_jax(b, n):
+    x = frames(b + 4, b, n)
+    got = dsp_vector.vector_max(torch.from_numpy(x))
+    assert got.shape == (b,)
+    close(got, jops.vector_max(jnp.asarray(x)), 0)
+
+
+@pytest.mark.parametrize("b", [1, 65, 300])
+@pytest.mark.parametrize("n", [40, 64, 128])
+def test_dct_matches_jax(b, n):
+    x = frames(b + n, b, n)
+    got = dsp_spectral.dct(torch.from_numpy(x))
+    assert got.shape == (b, n)
+    close(got, jops.dct(jnp.asarray(x)), 1e-4)
+
+
+@pytest.mark.parametrize("n", [40, 64, 128])
+def test_dct_matrix_equals_reference(n):
+    """The DCT's matrix is the state it carries: copied exactly."""
+    mine = dsp_spectral.dct_matrix(n)
+    assert mine.dtype == np.float32
+    np.testing.assert_array_equal(mine, np.asarray(jref.dct_matrix(n)))
 
 
 @pytest.mark.parametrize("b", BATCHES)
@@ -104,13 +147,15 @@ def test_fft_constants_equal_reference(n):
 
 
 @pytest.mark.parametrize("name", sorted(TOL))
-@pytest.mark.parametrize("n", [40, 256])
+@pytest.mark.parametrize("n", [40, 64, 256])
 def test_dispatch_entry_matches_jax(name, n):
     """Each dispatch-table entry composes its kernel as the reference's
-    entry does (taps, broadcast, the FFT's fit to 256 and real part)."""
+    entry does (taps, broadcast, the FFT's fit to 256 and real part, the
+    DCT's fit to 64: a 256-wide batch comes back 64 wide)."""
     x = frames(n, 9, n)
     got = tops.dsp_dispatch_table()[name](torch.from_numpy(x))
-    assert got.shape == x.shape
+    width = min(n, 64) if name == "dct" else n
+    assert got.shape == (9, width)
     close(got, jops.dsp_dispatch_table()[name](jnp.asarray(x)), TOL[name])
     plain = tops.plain_dispatch_table()[name](torch.from_numpy(x))
     assert torch.equal(got, plain)
@@ -166,6 +211,11 @@ def test_wrappers_send_cpu_tensors_to_plain_versions():
     assert torch.equal(dsp_vector.correlation(x, y, 4),
                        ref.correlation(x, y, 4))
     assert torch.equal(dsp_spectral.fft_256(z), ref.fft_256(z))
+    assert torch.equal(dsp_vector.vector_add(x, y), ref.vector_add(x, y))
+    assert torch.equal(dsp_vector.vector_add(x, x), x + x)
+    assert torch.equal(dsp_vector.vector_max(x), ref.vector_max(x))
+    t = x[:, :64].contiguous()
+    assert torch.equal(dsp_spectral.dct(t), ref.dct(t))
     assert all(v == 0 for v in common.launches.values())
 
 
@@ -190,6 +240,22 @@ def test_wrappers_reject_bad_inputs():
         dsp_spectral.fft(torch.zeros(2, 40, 2))
     with pytest.raises(ValueError, match="256"):
         dsp_spectral.fft_256(torch.zeros(2, 64, 2))
+    with pytest.raises(ValueError, match="shape"):
+        dsp_vector.vector_add(x, x[:, :39])
+    with pytest.raises(TypeError, match="float32"):
+        dsp_vector.vector_add(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        dsp_vector.vector_max(x.t().contiguous().t())
+    with pytest.raises(ValueError, match="at least one"):
+        dsp_vector.vector_max(torch.zeros(3, 0))
+    with pytest.raises(ValueError, match="unsupported device"):
+        dsp_vector.vector_max(x.to("meta"))
+    with pytest.raises(ValueError, match="\\(B, N\\)"):
+        dsp_spectral.dct(torch.zeros(2, 8, 8))
+    with pytest.raises(TypeError, match="float32"):
+        dsp_spectral.dct(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        dsp_spectral.dct(torch.zeros(64, 4)[:, :2])
 
 
 def test_plain_route_takes_sizes_past_the_kernels_shared_memory():
@@ -205,6 +271,8 @@ def test_plain_route_takes_sizes_past_the_kernels_shared_memory():
     got = dsp_spectral.fft(z).numpy()
     close(got[..., 0], want.real, 1e-3)
     close(got[..., 1], want.imag, 1e-3)
+    w = torch.from_numpy(frames(8, 3, 2 * dsp_spectral.DCT_MAX_N))
+    assert torch.equal(dsp_spectral.dct(w), ref.dct(w))
 
 
 def test_dispatch_table_refuses_unported_functions():
@@ -212,8 +280,8 @@ def test_dispatch_table_refuses_unported_functions():
     function's name; nothing runs a plain version in its place."""
     table = tops.dsp_dispatch_table()
     assert set(table) == set(TOL)
-    for name in ("dct", "iir", "vector_add", "vector_max", "complex_fir",
-                 "adaptive_fir"):
+    assert set(tops.plain_dispatch_table()) == set(TOL)
+    for name in ("iir", "complex_fir", "adaptive_fir"):
         with pytest.raises(KeyError, match=f"{name}.*ROADMAP.md Queue 2"):
             table[name]
 

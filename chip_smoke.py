@@ -6,10 +6,11 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, one after the other) and drives the port's paths on the card —
-the population scheduler machine through ``run_many``, and the audio,
-image and shared pipelines, whose schedules run the DSP kernels — then
-checks them:
+source, all started together) and drives the port's paths on the card —
+the population scheduler machine through ``run_many``; the audio, image
+and shared pipelines, whose schedules run the DSP kernels; and the
+paper's evaluation (Table II, Figs 7, 8 and 10 through ``sweep``, the nine
+synthetic schedules executed) — then checks them:
 
 1. device and build: the card's name and power limit, the two kernel
    libraries' builds (time and ``-Xptxas -v`` report);
@@ -34,10 +35,13 @@ checks them:
    ``correlation`` and K13 ``fft`` at the audio pipeline's shape (65536
    frames of 256 samples, 8 taps, lag 4), K10 ``vector_add``, K11
    ``vector_max`` and K14 ``dct`` at the image pipeline's (262144 tiles of
-   64 pixels), all at ragged edge shapes too, within the reference tests'
-   tolerances (1e-5; 1e-4 for the DCT, with TF32 off for its plain
-   version; 1e-3 for the FFT; K10 and K11 ``torch.equal``, also on rows 4
-   bytes off alignment, and K11 NaN where a row holds one);
+   64 pixels), K6 ``complex_fir``, K7 ``adaptive_fir`` and K8 ``iir`` at
+   Table II's (524288 frames of 40 samples) and at the JAX tests' shapes,
+   all at ragged edge shapes too, within the reference tests' tolerances
+   (1e-5; 1e-4 for the DCT, with TF32 off for its plain version, and for
+   K6–K8; 1e-3 for the FFT; K10 and K11 ``torch.equal``, also on rows 4
+   bytes off alignment, and K11 NaN where a row holds one); the
+   ``complex_fir`` dispatch entry ``torch.equal`` to zeros;
 6b. audio pipeline: ``audio_compression(8)``, both arms, scheduled on the
    card (equal to golden in cycles and schedule) and executed through
    ``run_pipeline`` on 65536 × 256 float32 frames; each DSP kernel must
@@ -51,12 +55,24 @@ checks them:
    (2)`` alone is scheduled too, for the sharing gain.  Launches must
    equal live tasks, the output must be finite and within 1e-3 of the
    plain table's; the phase's peak device memory is printed;
+8. the paper's evaluation: (a) Table II — each of the ten dispatch
+   entries once on 524288 frames at its Table II width, against the plain
+   table, one launch each; (b) Figs 7 and 8 — the synthetic benchmarks
+   under all four schedulers through ``sweep`` (Fig 7 at 1, 2 and 4 units
+   a class, Fig 8 at 2), every point equal to golden, after the first 16
+   trips of the Fig 7 ``hts_spec`` sweep's K1–K4 launches are held
+   against their plain versions; (c) the nine synthetic schedules
+   scheduled on the card (equal to golden) and executed on 524288 × 40
+   frames with every task's kernel entry held against its plain entry on
+   the same input, launches equal to live tasks, frames/s; (d) Fig 10 —
+   ``audio_compression`` at 8, 16 and 32 bands × 1–16 units, ``naive``
+   and ``hts_spec``, one ``sweep``, the 8-band points equal to golden;
 5b. DSP kernel times: device, call, plain and library times at each
-   pipeline's shape, beside the bound.
+   path's shape, beside the bound.
 
 The last lines are the card (``nvidia-smi``), one JSON object
-``{"kernels": [...]}`` (all eleven kernels), and ``{"ok": true, "device":
-{...}}``.  Any failed
+``{"kernels": [...]}`` (all fourteen kernels), and ``{"ok": true,
+"device": {...}}``.  Any failed
 phase exits non-zero without the last line; so does a machine without a
 card, or a directory without the rest of the repository.
 """
@@ -69,6 +85,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -96,6 +113,9 @@ SOURCE = "src/repro_torch/csrc/hts_step.cu"
 DSP_SOURCE = "src/repro_torch/csrc/dsp.cu"
 DSP_REPLACES = {
     "real_fir": "src/repro/kernels/dsp_fir.py:49",
+    "complex_fir": "src/repro/kernels/dsp_fir.py:82",
+    "adaptive_fir": "src/repro/kernels/dsp_fir.py:123",
+    "iir": "src/repro/kernels/dsp_fir.py:160",
     "vector_dot": "src/repro/kernels/dsp_vector.py:22",
     "vector_add": "src/repro/kernels/dsp_vector.py:40",
     "vector_max": "src/repro/kernels/dsp_vector.py:57",
@@ -113,15 +133,46 @@ PIPELINE_SEED = 2019
 #: program it shares the pool with
 TILES, PIXELS, IMAGE_TILES, SHARED_BANDS = 262144, 64, 40, 2
 IMAGE_SEED = 2020
+#: Table II and the synthetic schedules: 524288 frames of Table II's 40
+#: samples (80 MiB of float32, past the 50 MB L2); the LMS step and the
+#: IIR coefficients of the dispatch entries (b, a), and the JAX tests' IIR
+TABLE_FRAMES, TABLE_SAMPLES = 524288, 40
+TABLE_SEED, SYNTH_SEED = 2021, 2022
+LMS_MU = 0.01
+ENTRY_IIR = ([0.2, 0.3], [1.0, -0.5])
+TEST_IIR = ([0.2, 0.3, 0.1], [1.0, -0.4, 0.05])
 #: 0 is torch.equal (NaN where the plain version has NaN)
-DSP_TOL = {"real_fir": 1e-5, "vector_dot": 1e-5, "vector_add": 0,
+DSP_TOL = {"real_fir": 1e-5, "complex_fir": 1e-4, "adaptive_fir": 1e-4,
+           "iir": 1e-4, "vector_dot": 1e-5, "vector_add": 0,
            "vector_max": 0, "correlation": 1e-5, "fft": 1e-3, "dct": 1e-4}
+#: the same per dispatch entry (by Table II name)
+ENTRY_TOL = {("fft_256" if k == "fft" else k): v for k, v in DSP_TOL.items()}
+#: the golden oracle's cycles of the nine synthetic schedules
+#: (``HtsParams()``, ``hts_spec``, two units a class)
+SYNTH_CYCLES = {
+    "no_dependency": 18692, "same_dependency": 21932,
+    "diff_dependency": 20503, "random_dependency": 39813,
+    "loop_no_dependency": 17560, "loop_dependency": 28476,
+    "branch_taken_no_dep": 18880, "branch_not_taken_no_dep": 4390,
+    "branch_taken_dependency": 19434}
+FIG7_FU = (1, 2, 4)
+FIG8_FU = (2,)
+FIG10_BANDS = (8, 16, 32)
+FIG10_FU = (1, 2, 4, 8, 16)
+SWEEP_CHECK_TRIPS = 16
 PIPELINE_TOL = 1e-3
 EXEC_REPS = 5          # timed executions of each schedule (median kept)
 #: (B, N, taps or lag) per kernel: the pipeline's shape, then ragged edges
 DSP_CASES = {
     "real_fir": [(FRAMES, SAMPLES, TAPS), (1, 40, 8), (300, 40, 5),
                  (300, 256, 8)],
+    "complex_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
+                    (64, 40, 8), (1, 96, 12), (64, 96, 12), (300, 40, 8)],
+    "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
+                     (32, 40, 8), (1, 64, 4), (32, 64, 4), (300, 40, 8)],
+    "iir": [(TABLE_FRAMES, TABLE_SAMPLES, ENTRY_IIR), (1, 40, TEST_IIR),
+            (33, 40, TEST_IIR), (1, 80, TEST_IIR), (33, 80, TEST_IIR),
+            (300, 40, ENTRY_IIR)],
     "vector_dot": [(FRAMES, SAMPLES, None), (1, 40, None), (300, 40, None),
                    (300, 256, None)],
     "correlation": [(FRAMES, SAMPLES, MAX_LAG), (1, 40, 4), (300, 40, 10),
@@ -137,7 +188,13 @@ DSP_CASES = {
 }
 #: the shape each DSP kernel is timed at (phase 5b): its pipeline's
 DSP_SHAPE = {"vector_add": (TILES, PIXELS), "vector_max": (TILES, PIXELS),
-             "dct": (TILES, PIXELS)}
+             "dct": (TILES, PIXELS),
+             "complex_fir": (TABLE_FRAMES, TABLE_SAMPLES),
+             "adaptive_fir": (TABLE_FRAMES, TABLE_SAMPLES),
+             "iir": (TABLE_FRAMES, TABLE_SAMPLES)}
+#: taps, lag or (b, a) per kernel in phase 5b
+DSP_PARAM = {"real_fir": TAPS, "complex_fir": 8, "adaptive_fir": 8,
+             "iir": ENTRY_IIR, "correlation": MAX_LAG}
 #: live tasks per DSP kernel in the 8-band audio schedules, by time_domain
 LIVE_8_BANDS = {False: {"correlation": 1, "fft": 16, "vector_dot": 24},
                 True: {"correlation": 1, "real_fir": 24}}
@@ -324,29 +381,52 @@ def profiled_ms(torch, calls, kernel: str, warm=3):
 def device_events(prof):
     """(name, µs) of every device-side activity in a profile: kernels,
     copies and sets.  Counting these, and not the host ops that launched
-    them, counts each microsecond of device work once."""
+    them, counts each microsecond of device work once.  A profiler
+    schedule's ``ProfilerStep*`` range also lands on the device timeline;
+    it spans the step, not device work, and is left out."""
     from torch.autograd import DeviceType
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
+def trace_window(torch, warm, run):
+    """Device activities of ``run()`` and its host wall (µs), traced as the
+    active step of a profiler schedule after ``warm()`` ran as its
+    discarded warm-up step: a trace drops device activities at the start
+    of its window (seen: a schedule's first task missing), so the window
+    that counts starts with the tracer already running."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    out: dict = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: out.update(
+                     events=device_events(p))) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    if "events" not in out:
+        raise RuntimeError("the profiler delivered no trace")
+    return out["events"], wall_us
 
 
 def trip_profile(torch, machine, m, st, a, trips=32):
     """Where a trip's time goes, over ``trips`` steps of a mid-run carry:
     wall per trip, device busy time per trip, device activities per trip,
     and the costliest kernels."""
-    from torch.profiler import ProfilerActivity, profile
     limit = torch.full_like(st["steps"], machine.BIG)
-    for _ in range(4):
-        machine.step(m, st, a, limit)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(trips):
+
+    def steps(n):
+        for _ in range(n):
             machine.step(m, st, a, limit)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
+
+    events, wall_us = trace_window(torch, lambda: steps(4),
+                                   lambda: steps(trips))
     busy_us = sum(us for _key, us in events)
     return (wall_us / trips, busy_us / trips, len(events) / trips,
             costliest(events, trips))
@@ -368,8 +448,9 @@ def costliest(events, per=1, n=8):
 # ---------------------------------------------------------------------------
 def dsp_case(torch, kern, name, b, n, p, seed):
     """(wrapper, plain version, args) of one call of DSP kernel ``name`` on
-    float32 frames made from ``seed``; ``p`` is the FIR's tap count or the
-    correlation's lag.  ``kern`` holds the port's kernel modules."""
+    float32 frames made from ``seed``; ``p`` is the FIR's tap count, the
+    correlation's lag or the IIR's (b, a).  ``kern`` holds the port's
+    kernel modules."""
     rng = np.random.default_rng(seed)
 
     def f(*shape):
@@ -379,6 +460,16 @@ def dsp_case(torch, kern, name, b, n, p, seed):
     ref = kern["ref"]
     if name == "real_fir":
         return kern["fir"].real_fir, ref.real_fir, (f(b, n), f(p))
+    if name == "complex_fir":
+        return kern["fir"].complex_fir, ref.complex_fir, (f(b, n, 2),
+                                                          f(p, 2))
+    if name == "adaptive_fir":
+        return (kern["fir"].adaptive_fir, ref.adaptive_fir,
+                (f(b, n), f(b, n), LMS_MU, p))
+    if name == "iir":
+        bc, ac = (torch.tensor(c, dtype=torch.float32, device=DEVICE)
+                  for c in p)
+        return kern["fir"].iir, ref.iir, (f(b, n), bc, ac)
     if name == "vector_dot":
         return kern["vec"].vector_dot, ref.vector_dot, (f(b, n), f(b, n))
     if name == "vector_add":
@@ -432,6 +523,22 @@ def dsp_bound(name, args):
         (B, N), K = x.shape, h.shape[0]
         nbytes = 4 * (2 * B * N + K)
         ops = B * sum(2 * min(K, i + 1) - 1 for i in range(N))
+    elif name == "complex_fir":
+        x, h = args
+        (B, N, _), K = x.shape, h.shape[0]
+        nbytes = 4 * (4 * B * N + 2 * K)
+        ops = B * sum(6 + 8 * (min(K, i + 1) - 1) for i in range(N))
+    elif name == "adaptive_fir":
+        x, _d, _mu, K = args
+        B, N = x.shape
+        nbytes = 4 * 3 * B * N
+        ops = B * N * (4 * K + 1)
+    elif name == "iir":
+        x, bc, ac = args
+        B, N = x.shape
+        Kb, Ka = bc.shape[0], ac.shape[0]
+        nbytes = 4 * (2 * B * N + Kb + Ka)
+        ops = B * N * (2 * Kb + 2 * Ka - 3)
     elif name == "vector_dot":
         x, _y = args
         B, N = x.shape
@@ -472,13 +579,26 @@ def dsp_bound(name, args):
 
 def library_call(torch, name, args, ref):
     """One PyTorch call that computes the same function on the same
-    inputs: the yardstick, timed here and used nowhere in the port."""
+    inputs: the yardstick, timed here and used nowhere in the port; None
+    where there is none (LMS; the IIR, whose ``lfilter`` is torchaudio's).
+    Layout copies are made here, outside the timed calls."""
     F = torch.nn.functional
+    if name in ("adaptive_fir", "iir"):
+        return None
     if name == "real_fir":
         x, h = args
         K, N = h.shape[0], x.shape[1]
         w = h.flip(0).view(1, 1, K)
         return lambda: F.conv1d(x[:, None], w, padding=K - 1)[:, 0, :N]
+    if name == "complex_fir":
+        x, h = args
+        K, N = h.shape[0], x.shape[1]
+        planes = x.permute(0, 2, 1).contiguous()         # (B, 2, N)
+        hr, hi = h[:, 0], h[:, 1]
+        w = torch.stack([torch.stack([hr, -hi]),
+                         torch.stack([hi, hr])]).flip(-1).contiguous()
+        return lambda: F.conv1d(planes, w, padding=K - 1)[:, :, :N] \
+            .permute(0, 2, 1)
     if name == "vector_dot":
         x, y = args
         return lambda: torch.linalg.vecdot(x, y)
@@ -551,10 +671,15 @@ def main() -> int:
             log(f"--- {name}: FAILED")
             return None
 
-    # 1. build: one nvcc per source --------------------------------------
+    # 1. build: one nvcc per source, all started together ----------------
     def build():
-        for lib in (cuda_step.LIB, dsp.LIB):
-            path = lib.build()
+        libs = (cuda_step.LIB, dsp.LIB)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(libs)) as pool:
+            paths = list(pool.map(lambda lib: lib.build(), libs))
+        log(f"{len(libs)} libraries ready in {time.perf_counter() - t0:.2f} "
+            "s (built in parallel)")
+        for lib, path in zip(libs, paths):
             lib.load()
             info = lib.info
             if not info:
@@ -756,6 +881,15 @@ def main() -> int:
                         "B=300    N=64   NaN in row 17")
         assert bool(torch.isnan(got[17])) and \
             int(torch.isnan(got).sum()) == 1, "vector_max lost the NaN"
+        # the complex_fir entry keeps the real part of (x + jx)(1 + j)/8:
+        # exactly zero, as in the reference
+        x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+            (TABLE_FRAMES, TABLE_SAMPLES), dtype=np.float32)).to(DEVICE)
+        zero = ops.dsp_dispatch_table()["complex_fir"](x)
+        assert torch.equal(zero, torch.zeros_like(x)), \
+            "the complex_fir entry is not exactly zero"
+        log(f"complex_fir entry on B={TABLE_FRAMES} N={TABLE_SAMPLES}: "
+            "torch.equal to zeros")
     phase("6a DSP kernels vs plain", dsp_vs_plain)
 
     def time_execution(tasks, x, table):
@@ -771,21 +905,17 @@ def main() -> int:
         return sorted(walls)[EXEC_REPS // 2], walls, out
 
     def profile_execution(name, tasks, x, table, exec_s):
-        """One profiled execution: the device's busy share read two ways
-        (over the profiled wall; over the unprofiled median) and the
-        costliest device activities."""
+        """One profiled execution (after one traced as the warm-up): the
+        device's busy share read two ways (over the profiled wall; over
+        the unprofiled median) and the costliest device activities."""
+        def run():
+            dsp_pipeline.execute(tasks, x, table)
+
         try:
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                dsp_pipeline.execute(tasks, x, table)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
+            events, wall_us = trace_window(torch, run, run)
         except (RuntimeError, AssertionError, AttributeError) as e:
             log(f"pipeline profile not measured (profiler: {e})")
             return
-        events = device_events(prof)
         busy = sum(us for _k, us in events)
         log(f"{name}: profiled execution {wall_us / 1e3:.3f} ms "
             f"wall, device busy {busy / 1e3:.3f} ms "
@@ -896,16 +1026,216 @@ def main() -> int:
             f"gain {gain:.4f}x (equal to golden on the card)")
     phase("7 image and shared pipelines", image_pipelines)
 
-    # 5b. DSP kernel times at each pipeline's shape -------------------------
+    # 8. the paper's evaluation -------------------------------------------
+    def kernel_counts(names) -> dict:
+        """Live tasks per DSP launch counter (``fft_256`` runs ``fft``)."""
+        live = {k: 0 for k in dsp.launches}
+        for fname in names:
+            live["fft" if fname == "fft_256" else fname] += 1
+        return live
+
+    def table_ii():
+        dsp.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = dsp_pipeline.table_ii(TABLE_FRAMES, TABLE_SEED, DEVICE)
+        wall = time.perf_counter() - t0
+        counts = dict(dsp.launches)
+        path_launches["table2"] = counts
+        plain = ops.plain_dispatch_table()
+        frames = dsp_pipeline.table_ii_frames(TABLE_FRAMES, TABLE_SEED)
+        for name, (y, sec) in rows.items():
+            x = torch.from_numpy(frames[name]).to(DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with Fp32Matmul(torch):
+                want = plain[name](x)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            err = max_err(y, want) if y.shape == want.shape else math.inf
+            tol = ENTRY_TOL[name]
+            _fid, frame, cyc = costs.FUNCTIONS[name]
+            log(f"Table II {name:13s} B={TABLE_FRAMES} N={frame:<3d} "
+                f"{sec * 1e3:8.3f} ms (one call, synchronised; plain "
+                f"{plain_s * 1e3:8.3f} ms)  {TABLE_FRAMES / sec:.4g} "
+                f"frames/s  paper {cyc} cycles a frame  max abs err vs "
+                f"plain {err:.3g} (tolerance {tol or 'torch.equal'})  on "
+                f"{card}")
+            assert bool(torch.isfinite(y).all()), f"{name}: not finite"
+            assert same(torch, y, want, tol), \
+                f"Table II {name} differs from the plain entry ({err:.3g})"
+        assert counts == {k: 1 for k in counts}, \
+            f"Table II launches {counts}, expected one each"
+        log(f"Table II: ten entries in {wall:.3f} s (frames made with numpy "
+            f"included), launches {counts}")
+
+    def figs_7_8():
+        fig7 = [g() for g in programs.SYNTHETIC_NO_BRANCH]
+        fig8 = [g() for g in programs.SYNTHETIC_BRANCH]
+        # the first trips of the Fig 7 hts_spec sweep's machine, checked:
+        # the first multi-lane population with per-lane n_fu at 16 units
+        pop = batch.pack_population(fig7)
+        lanes = api._cross_points(pop, [batch.norm_n_fu(k)
+                                        for k in FIG7_FU])
+        sspec = machine.MachineSpec(params=pop.params,
+                                    costs=costs.costs_by_name("hts_spec"),
+                                    max_fu_per_class=16)
+        m = machine.make_machine(sspec, pop.max_prog, DEVICE)
+        args = lanes.machine_args()
+        a = machine.norm_args(m, *args)
+        st = m.init(*args)
+        limit = torch.full_like(st["steps"], machine.BIG)
+        before = checker.checks
+        for _ in range(SWEEP_CHECK_TRIPS):
+            machine.step(m, st, a, limit, ops=checker)
+        torch.cuda.synchronize()
+        log(f"Fig 7 sweep ({len(lanes)} lanes, 16 units a class), trips "
+            f"0..{SWEEP_CHECK_TRIPS - 1}: {checker.checks - before} kernel "
+            "launches equal to their plain versions")
+        for label, benches, points in (("Fig 7", fig7, FIG7_FU),
+                                       ("Fig 8", fig8, FIG8_FU)):
+            cuda_step.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sw = api.sweep(benches, n_fu=points,
+                           schedulers=costs.ALL_SCHEDULERS, device=DEVICE)
+            wall = time.perf_counter() - t0
+            trips = dict(cuda_step.launches)
+            bad = []
+            for sched in sw.schedulers:
+                for si, b in enumerate(benches):
+                    for i, k in enumerate(points):
+                        g = api.run(b, scheduler=sched, n_fu=k,
+                                    backend="golden")
+                        if g.cycles != int(sw.cycles[sched][si, i]):
+                            bad.append((b.name, sched, k))
+            log(f"{label}: {len(benches)} programs x {len(points)} points x "
+                f"{len(sw.schedulers)} schedulers, one sweep: {wall:.3f} s "
+                f"on the card (K1-K4 launches {trips})")
+            for si, b in enumerate(benches):
+                for i, k in enumerate(points):
+                    cells = "  ".join(
+                        f"{sched} {int(sw.cycles[sched][si, i])} "
+                        f"({float(sw.speedup(sched, 'naive')[si, i]):.3f}x)"
+                        for sched in sw.schedulers)
+                    log(f"  {b.name:24s} fu{k}  {cells}")
+            assert not bad, f"{label}: points differ from golden: {bad}"
+            log(f"{label}: every point equal to golden (cycles)")
+
+    def synthetic_schedules():
+        rng = np.random.default_rng(SYNTH_SEED)
+        x = torch.from_numpy(rng.standard_normal(
+            (TABLE_FRAMES, TABLE_SAMPLES), dtype=np.float32)).to(DEVICE)
+        table = ops.dsp_dispatch_table()
+        totals = {k: 0 for k in dsp.launches}
+        for name, gen in dsp_pipeline.SYNTHETIC.items():
+            bench = gen()
+            g = api.run(bench, scheduler="hts_spec", n_fu=2,
+                        backend="golden")
+            checks: list = []
+            torch.cuda.synchronize()
+            dsp.reset_launches()
+            t0 = time.perf_counter()
+            with Fp32Matmul(torch):
+                r, executed, out = dsp_pipeline.run_pipeline(
+                    bench, x, device=DEVICE, checks=checks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(dsp.launches)
+            path_launches[f"synthetic/{name}"] = counts
+            assert r.cycles == g.cycles == SYNTH_CYCLES[name] and \
+                r.schedule_tuple() == g.schedule_tuple(), \
+                f"{name}: the card's schedule differs from golden"
+            gold_live = kernel_counts(
+                t.func_name for t in dsp_pipeline.issued_tasks(g))
+            live = kernel_counts(fname for _uid, fname in executed)
+            assert live == gold_live, f"{name}: live {live} != {gold_live}"
+            assert counts == live, \
+                f"{name}: launches {counts} != live tasks {live}"
+            assert [(c.uid, c.func) for c in checks] == executed
+            bad = [(c.uid, c.func, c.max_err) for c in checks
+                   if not c.max_scaled <= ENTRY_TOL[c.func]]
+            assert not bad, f"{name}: tasks differ from plain: {bad}"
+            worst = {}
+            for c in checks:
+                worst[c.func] = max(worst.get(c.func, 0.0), c.max_err)
+            first_zero = next((i for i, c in enumerate(checks)
+                               if c.output_zero), None)
+            on_nonzero = kernel_counts(c.func for c in checks
+                                       if not c.input_zero)
+            tasks = dsp_pipeline.issued_tasks(r)
+            exec_s, walls, again = time_execution(tasks, x, table)
+            profile_execution(name, tasks, x, table, exec_s)
+            assert bool(torch.isfinite(out).all()), f"{name}: not finite"
+            assert torch.equal(again, out), \
+                f"{name}: the kernels are not repeatable"
+            for k, v in counts.items():
+                totals[k] += v
+            log(f"{name}: {r.cycles} cycles = golden, {len(executed)} tasks "
+                f"executed, each held against the plain entry (max abs err "
+                f"by function {worst}); launches "
+                f"{ {k: v for k, v in counts.items() if v} }; run_pipeline "
+                f"with checks {wall:.3f} s")
+            log(f"{name}: executed schedule, median of {EXEC_REPS}: "
+                f"{exec_s * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+                f"{max(walls) * 1e3:.3f}), {TABLE_FRAMES / exec_s:.0f} "
+                f"frames/s; first all-zero output at task index "
+                f"{first_zero}; launches on non-zero input "
+                f"{ {k: v for k, v in on_nonzero.items() if v} }  on {card}")
+        log(f"nine synthetic schedules: launches {totals}")
+        assert (totals["complex_fir"], totals["adaptive_fir"],
+                totals["iir"]) == (18, 18, 17), totals
+
+    def fig_10():
+        t_phase = time.perf_counter()
+        # Fig 10's capacities (benchmarks/paper_figs.py:76-82)
+        params = HtsParams(max_tasks=256, mem_words=2048,
+                           tracker_entries=256, rs_entries=64)
+        benches = [programs.audio_compression(b, False) for b in FIG10_BANDS]
+        cuda_step.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw = api.sweep(benches, n_fu=FIG10_FU, schedulers=("naive",
+                                                           "hts_spec"),
+                       params=params, max_prog=64, device=DEVICE)
+        wall = time.perf_counter() - t0
+        trips = dict(cuda_step.launches)
+        sp = sw.speedup("hts_spec", "naive")
+        for si, bands in enumerate(FIG10_BANDS):
+            row = "  ".join(f"fu{k} {int(sw.cycles['hts_spec'][si, i])}/"
+                            f"{int(sw.cycles['naive'][si, i])} "
+                            f"({float(sp[si, i]):.3f}x)"
+                            for i, k in enumerate(FIG10_FU))
+            log(f"Fig 10 bands {bands:2d} (hts_spec/naive cycles): {row}")
+        bad = []
+        for sched in sw.schedulers:
+            for i, k in enumerate(FIG10_FU):
+                g = api.run(benches[0], scheduler=sched, n_fu=k,
+                            params=params, backend="golden")
+                if g.cycles != int(sw.cycles[sched][0, i]):
+                    bad.append((sched, k))
+        assert not bad, f"Fig 10 bands-8 points differ from golden: {bad}"
+        log(f"Fig 10: sweep {wall:.3f} s on the card (wall per scheduler "
+            f"{ {k: round(v / 1e6, 3) for k, v in sw.wall_us.items()} } s, "
+            f"K1-K4 launches {trips}); bands-8 points equal to golden; "
+            f"largest speedup of hts_spec over naive "
+            f"{float(sp.max()):.3f}x (paper abstract: up to 12x); phase "
+            f"wall {time.perf_counter() - t_phase:.1f} s  on {card}")
+
+    for name, fn in (("8a Table II", table_ii), ("8b Figs 7 and 8", figs_7_8),
+                     ("8c nine synthetic schedules", synthetic_schedules),
+                     ("8d Fig 10", fig_10)):
+        phase(name, fn)
+
+    # 5b. DSP kernel times at each path's shape -----------------------------
     def dsp_times():
-        lags = {"real_fir": TAPS, "correlation": MAX_LAG}
         log(f"torch.get_float32_matmul_precision() = "
             f"{torch.get_float32_matmul_precision()!r}; TF32 off for the "
             "plain and library DCT")
         for i, name in enumerate(dsp.launches):
             b, n = DSP_SHAPE.get(name, (FRAMES, SAMPLES))
             wrapper, plain, args = dsp_case(torch, kern, name, b, n,
-                                            lags.get(name), 100 + i)
+                                            DSP_PARAM.get(name), 100 + i)
             got = wrapper(*args)
             bound, by = dsp_bound(name, args)
             calls = [functools.partial(wrapper, *args)] * 23
@@ -914,13 +1244,15 @@ def main() -> int:
                 p_call = events_ms(torch,
                                    [functools.partial(plain, *args)] * 8)
             k_dev = profiled_ms(torch, calls, f"{name}_kernel")
-            lib, lib_note = None, ""
+            lib, lib_note = None, " (no single PyTorch call)"
             with Fp32Matmul(torch):
                 try:
                     call = library_call(torch, name, args, ref)
-                    lib_err = max_err(call(), got)
-                    lib = events_ms(torch, [call] * 23)
-                    lib_note = f" (max abs diff from the kernel {lib_err:.3g})"
+                    if call is not None:
+                        lib_err = max_err(call(), got)
+                        lib = events_ms(torch, [call] * 23)
+                        lib_note = (f" (max abs diff from the kernel "
+                                    f"{lib_err:.3g})")
                 except RuntimeError as e:
                     lib_note = f" (library call failed: {e})"
             by_path = {path: c.get(name, 0)
@@ -940,7 +1272,9 @@ def main() -> int:
                 f"{k_call:.4f} ms per call  plain {p_call:.4f} ms  library "
                 f"{libs}{lib_note}  bound {bound:.4f} ms ({by})  launches "
                 f"{by_path}  on {card}")
-    if {"audio_bnt", "audio_bt", "image", "shared"} <= set(path_launches):
+    paths = {"audio_bnt", "audio_bt", "image", "shared", "table2"}
+    paths |= {f"synthetic/{name}" for name in dsp_pipeline.SYNTHETIC}
+    if paths <= set(path_launches):
         phase("5b DSP kernel times", dsp_times)
 
     n_kernels = len(cuda_step.KERNELS) + len(dsp.launches)

@@ -26,8 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
-#: argtypes shorthands: a pointer (or the stream), an int
-P, I = ctypes.c_void_p, ctypes.c_int
+#: argtypes shorthands: a pointer (or the stream), an int, a float
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -105,10 +105,11 @@ class Library:
 
     def launch(self, entry: str, counter: str, *args) -> None:
         """Launch ``entry`` on the current stream (tensors go as their
-        device pointers, sizes as ints), raise on a CUDA error, then count
-        it under ``counter``."""
+        device pointers, Python floats as floats, sizes as ints), raise on
+        a CUDA error, then count it under ``counter``."""
         stream = torch.cuda.current_stream().cuda_stream
-        conv = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
+        conv = [a.data_ptr() if torch.is_tensor(a)
+                else a if isinstance(a, float) else int(a) for a in args]
         rc = getattr(self.load(), entry)(*conv, stream)
         if rc != 0:
             raise RuntimeError(f"{entry}: CUDA error {rc} at launch")

@@ -5,7 +5,8 @@ this port reaches):
 
 * :class:`Program` / :class:`Region` / :class:`Reg` — the typed
   Program-Builder front-end (``builder.py``).
-* :func:`run` / :func:`run_many` / :func:`compare` — the simulation facade
+* :func:`run` / :func:`run_many` / :func:`sweep` / :func:`compare` /
+  :func:`compare_population` — the simulation facade
   (``api.py``) over the torch population machine (``machine.py``, its four
   kernel phases in ``cuda_step.py``) and the pure-Python golden oracle
   (``golden.py``).  Every torch entry point takes ``device=`` (``None`` =
@@ -20,8 +21,10 @@ this port reaches):
     >>> print(hts.run(p, scheduler="hts_spec", n_fu=2, device="cpu").table())
 """
 from .api import (ALL_SCHEDULERS, CompareReport, FairnessReport,
-                  MismatchError, PopulationResult, Result, SimulationError,
-                  TaskRow, compare, run, run_many, scenarios_per_second)
+                  MismatchError, PopulationCompareReport, PopulationResult,
+                  Result, SimulationError, SweepResult, TaskRow, compare,
+                  compare_population, run, run_many, scenarios_per_second,
+                  sweep)
 from .batch import PackedPopulation, pack_population, prog_bucket
 from .builder import (BuilderError, BuiltProgram, Program, Reg, Region,
                       TaskHandle, Walker)
@@ -34,10 +37,11 @@ from .policy import SchedPolicy
 __all__ = [
     "ALL_SCHEDULERS", "BuilderError", "BuiltProgram", "CompareReport",
     "FairnessReport", "HtsParams", "MachineSpec", "MismatchError",
-    "MultiProgram", "PackedPopulation", "PopulationResult", "Program", "Reg",
-    "Region", "Result", "SchedPolicy", "SchedulerCosts", "SimulationError",
-    "Stream", "StreamSet", "TaskHandle", "TaskRow", "Walker",
-    "build_frontends", "compare", "costs_by_name", "make_machine",
+    "MultiProgram", "PackedPopulation", "PopulationCompareReport",
+    "PopulationResult", "Program", "Reg", "Region", "Result", "SchedPolicy",
+    "SchedulerCosts", "SimulationError", "Stream", "StreamSet", "SweepResult",
+    "TaskHandle", "TaskRow", "Walker", "build_frontends", "compare",
+    "compare_population", "costs_by_name", "make_machine",
     "pack_population", "prog_bucket", "run", "run_many",
-    "scenarios_per_second",
+    "scenarios_per_second", "sweep",
 ]

@@ -1,4 +1,5 @@
-"""Simulation facade of the port: ``run``, ``run_many`` and ``compare``.
+"""Simulation facade of the port: ``run``, ``run_many``, ``sweep``,
+``compare`` and ``compare_population``.
 
     >>> from repro_torch.core import hts
     >>> p = hts.Program("demo")
@@ -19,8 +20,10 @@ and executes it on either backend:
 
 Both return the same :class:`Result` with identical per-task schedule rows.
 ``run_many`` packs a population (:mod:`batch`) and runs it as one
-population machine; ``compare`` is the differential runner (golden ≡ torch
-machine, event-skip on and off, per scheduler).
+population machine; ``sweep`` runs a program (or a population) across FU
+points, one lane per (scenario, point), one population machine per
+scheduler; ``compare`` and ``compare_population`` are the differential
+runners (golden ≡ torch machine, event-skip on and off, per scheduler).
 """
 from __future__ import annotations
 
@@ -494,6 +497,138 @@ def run_many(programs, *,
 
 
 # ---------------------------------------------------------------------------
+# sweep: a program (or a population) across FU points
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    """Strong-scaling sweep: ``cycles[scheduler][i]`` for ``n_fu_list[i]``.
+
+    Population sweeps (``sweep`` over a sequence of programs) stack one
+    more leading axis: ``cycles[scheduler][s, i]`` is scenario ``s``
+    (named ``programs[s]``) at FU point ``i``.
+    """
+    program: str
+    n_fu_list: tuple[tuple[int, ...], ...]
+    schedulers: tuple[str, ...]
+    cycles: dict[str, np.ndarray]
+    wall_us: dict[str, float]           # total per scheduler (all FU points)
+    programs: tuple[str, ...] = ()      # per-scenario names (population mode)
+
+    @property
+    def is_population(self) -> bool:
+        return bool(self.programs)
+
+    def speedup(self, scheduler: str, baseline: str) -> np.ndarray:
+        """Per-point speedup of ``scheduler`` over ``baseline`` (same shape
+        as ``cycles[...]`` — per (scenario, FU point) in population mode)."""
+        return self.cycles[baseline] / self.cycles[scheduler]
+
+    def table(self) -> str:
+        head = "n_fu       " + " ".join(f"{s:>12}" for s in self.schedulers)
+        lines = [f"{self.program} · strong scaling", head]
+        for i, fu in enumerate(self.n_fu_list):
+            k = fu[0] if len(set(fu)) == 1 else fu
+            if self.is_population:      # summarise the scenario axis
+                cells = [f"{float(self.cycles[s][:, i].mean()):>12.0f}"
+                         for s in self.schedulers]
+                lines.append(f"{str(k):<10} " + " ".join(cells))
+            else:
+                lines.append(f"{str(k):<10} " + " ".join(
+                    f"{int(self.cycles[s][i]):>12}"
+                    for s in self.schedulers))
+        if self.is_population:
+            lines.append(f"({len(self.programs)} scenarios; cells are "
+                         "scenario means)")
+        return "\n".join(lines)
+
+
+def _cross_points(pop: PackedPopulation,
+                  points: Sequence[tuple[int, ...]]) -> PackedPopulation:
+    """Scenario-major lanes: lane ``s * len(points) + i`` is scenario ``s``
+    at FU point ``i`` (its own ``n_fu``; everything else the scenario's)."""
+    lanes = batch.take_lanes(
+        pop, np.repeat(np.arange(len(pop)), len(points)),
+        [f"{name} @ {p}" for name in pop.names for p in points])
+    return dataclasses.replace(
+        lanes, n_fu=np.tile(np.asarray(points, np.int32), (len(pop), 1)))
+
+
+def sweep(program, *, n_fu=(1, 2, 4), schedulers=("naive", "hts_spec"),
+          params: HtsParams = HtsParams(), event_skip: bool = True,
+          max_cycles: int = 50_000_000, max_prog: Optional[int] = None,
+          max_fu_per_class: Optional[int] = None,
+          policy: Optional[SchedPolicy] = None, fu_cost=None,
+          device=None) -> SweepResult:
+    """Simulate ``program`` across FU configurations: one population
+    machine per scheduler, one lane per FU point (the Fig-10 machinery).
+
+    ``n_fu`` is a sequence of points; each point is an int (uniform per
+    class) or a per-class tuple.  ``schedulers`` accepts names from
+    ``costs.ALL_SCHEDULERS`` or :class:`SchedulerCosts` objects.
+    ``policy`` and ``fu_cost`` apply one :class:`SchedPolicy` and one
+    heterogeneous cost table to every point.  One program packs to
+    ``max_prog`` rows (default 64, as in the reference).  The pool is
+    ``max(16, widest point)`` units a class unless ``max_fu_per_class``
+    says otherwise.
+
+    **Population mode**: handed a sequence of programs (or a
+    :class:`~repro_torch.core.hts.batch.PackedPopulation`), the lanes are
+    scenario-major, each scenario crossed with every point, and
+    ``cycles[scheduler]`` has shape ``(n_scenarios, n_points)``.
+
+    ``device``: ``None`` = CUDA (raises without a card).  Raises
+    :class:`SimulationError` naming the points that did not halt within
+    ``max_cycles``.  The reference's ``devices=`` (its ``shard.py``) and
+    ``step_impl=`` (its JAX step lowerings) are not ported: the port has
+    one device and one step.
+    """
+    points = tuple(batch.norm_n_fu(k) for k in n_fu)
+    widest = max(max(p) for p in points)
+    if max_fu_per_class is None:
+        max_fu_per_class = max(16, widest)
+    elif widest > max_fu_per_class:
+        raise ValueError(f"n_fu point {widest} exceeds max_fu_per_class "
+                         f"{max_fu_per_class}")
+    population = _is_population(program)
+    if isinstance(program, PackedPopulation):
+        pop = program
+    else:
+        pop = batch.pack_population(
+            program if population else [program], params=params,
+            policy=policy, fu_cost=fu_cost,
+            max_prog=(max_prog if population or max_prog is not None
+                      else 64))
+    name = f"<population of {len(pop)}>" if population else pop.names[0]
+    lanes = _cross_points(pop, points)
+
+    cost_objs = [_norm_costs(s) for s in schedulers]
+    cycles: dict[str, np.ndarray] = {}
+    wall: dict[str, float] = {}
+    for cost in cost_objs:
+        spec = machine.MachineSpec(params=pop.params, costs=cost,
+                                   event_skip=event_skip,
+                                   max_cycles=max_cycles,
+                                   max_fu_per_class=max_fu_per_class)
+        m = machine.make_machine(spec, pop.max_prog, device)
+        t0 = time.perf_counter()
+        out = machine.carry_to_numpy(m.run(*lanes.machine_args()))
+        wall[cost.name] = (time.perf_counter() - t0) * 1e6
+        ok = out["halted"] & ~out["overflow"]
+        if not ok.all():
+            bad = [lanes.names[i] for i in np.nonzero(~ok)[0]]
+            raise SimulationError(
+                f"sweep of {name!r} under {cost.name!r}: points "
+                f"{bad} did not halt within {max_cycles} cycles")
+        cyc = out["cycles"]
+        cycles[cost.name] = (cyc.reshape(len(pop), len(points))
+                             if population else cyc)
+    return SweepResult(program=name, n_fu_list=points,
+                       schedulers=tuple(c.name for c in cost_objs),
+                       cycles=cycles, wall_us=wall,
+                       programs=pop.names if population else ())
+
+
+# ---------------------------------------------------------------------------
 # compare: differential runner (golden vs torch machine, event-skip on/off)
 # ---------------------------------------------------------------------------
 class MismatchError(AssertionError):
@@ -537,11 +672,11 @@ def compare(program, *,
 
     Raises :class:`MismatchError` (naming program, scheduler and mode) on
     the first schedule-tuple or cycle-count disagreement.  One program
-    only: the population form (``compare_population``) is not ported yet.
+    only: a population goes to :func:`compare_population`.
     """
     if _is_population(program):
-        raise TypeError("compare takes one program; population compare is "
-                        "not ported yet (use run_many against golden)")
+        raise TypeError("compare takes one program; use compare_population "
+                        "for a sequence of programs")
     prep = batch.prepare(program)
     if max_prog is None:
         max_prog = 256
@@ -580,7 +715,82 @@ def compare(program, *,
                          results=results)
 
 
-__all__ = ["run", "run_many", "compare", "Result", "PopulationResult",
-           "TaskRow", "FairnessReport", "CompareReport", "MismatchError",
-           "SimulationError", "SchedPolicy", "PackedPopulation",
-           "ALL_SCHEDULERS", "scenarios_per_second"]
+@dataclasses.dataclass(frozen=True, eq=False)
+class PopulationCompareReport:
+    """Outcome of :func:`compare_population`: every scenario agreed.
+
+    For each scheduler, the whole population ran as one population machine
+    per event-skip mode and was checked scenario by scenario against a
+    golden loop; ``cycles[scheduler]`` holds the agreed per-scenario cycle
+    counts.
+    """
+    names: tuple[str, ...]
+    schedulers: tuple[str, ...]
+    cycles: dict[str, np.ndarray]       # scheduler -> (N,) agreed cycles
+    n_modes: int = 3
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+
+def compare_population(programs, *,
+                       schedulers: Sequence[Union[str, SchedulerCosts]] =
+                       ("naive", "hts_nospec", "hts_spec"),
+                       n_fu: Union[int, Sequence] = 2,
+                       params: HtsParams = HtsParams(),
+                       max_cycles: int = 5_000_000,
+                       max_prog: Optional[int] = None,
+                       max_fu_per_class: Optional[int] = None,
+                       policy=None, fu_cost=None,
+                       device=None) -> PopulationCompareReport:
+    """Differential verification of a whole population: one population
+    machine per (scheduler, event-skip mode), checked scenario by scenario
+    against a golden loop.  Raises :class:`MismatchError` naming the
+    scenario, scheduler and mode on the first divergence.
+
+    ``device``: ``None`` = CUDA (raises without a card).  The reference's
+    ``devices=`` (its ``shard.py``) and ``step_impl=`` (its JAX step
+    lowerings) are not ported.
+    """
+    pop = (programs if isinstance(programs, PackedPopulation)
+           else batch.pack_population(programs, params=params, n_fu=n_fu,
+                                      policy=policy, fu_cost=fu_cost,
+                                      max_prog=max_prog))
+    if max_fu_per_class is None:
+        max_fu_per_class = max(4, pop.widest_fu)
+    machine.resolve_device(device)
+    cycles: dict[str, np.ndarray] = {}
+    names = []
+    for scheduler in schedulers:
+        cost = _norm_costs(scheduler)
+        names.append(cost.name)
+        gold = run_many(pop, scheduler=cost, backend="golden",
+                        max_cycles=max_cycles)
+        gold_rows = [g.schedule_tuple() for g in gold]
+        for event_skip in (True, False):
+            m = run_many(pop, scheduler=cost, event_skip=event_skip,
+                         max_cycles=max_cycles,
+                         max_fu_per_class=max_fu_per_class, device=device)
+            mode = f"torch event_skip={'on' if event_skip else 'off'}"
+            for i in range(len(pop)):
+                if int(m.cycles[i]) != int(gold.cycles[i]):
+                    raise MismatchError(
+                        f"scenario {i} ({pop.names[i]!r}) under "
+                        f"{cost.name!r}: {mode} ran {int(m.cycles[i])} "
+                        f"cycles, golden ran {int(gold.cycles[i])}")
+                mi = m[i].schedule_tuple()
+                if mi != gold_rows[i]:
+                    raise MismatchError(
+                        f"scenario {i} ({pop.names[i]!r}) under "
+                        f"{cost.name!r}: {mode} schedule differs from "
+                        f"golden — {_first_diff(mi, gold_rows[i])}")
+        cycles[cost.name] = np.asarray(gold.cycles)
+    return PopulationCompareReport(names=pop.names,
+                                   schedulers=tuple(names), cycles=cycles)
+
+
+__all__ = ["run", "run_many", "sweep", "compare", "compare_population",
+           "Result", "PopulationResult", "SweepResult", "TaskRow",
+           "FairnessReport", "CompareReport", "PopulationCompareReport",
+           "MismatchError", "SimulationError", "SchedPolicy",
+           "PackedPopulation", "ALL_SCHEDULERS", "scenarios_per_second"]

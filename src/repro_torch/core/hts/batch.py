@@ -259,6 +259,26 @@ class PackedPopulation:
         return tab[keep] if keep.any() else tab[:1]
 
 
+def take_lanes(pop: PackedPopulation, idx,
+               names: Sequence[str]) -> PackedPopulation:
+    """The population whose lane ``j`` is ``pop``'s lane ``idx[j]`` (any
+    order, repeats allowed), named ``names[j]``."""
+    idx = np.asarray(idx)
+
+    def take(a: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(np.asarray(a)[idx])
+
+    return dataclasses.replace(
+        pop, names=tuple(names),
+        preps=tuple(pop.preps[i] for i in idx),
+        policies=tuple(pop.policies[i] for i in idx),
+        ftab=take(pop.ftab), p_len=take(pop.p_len), mem=take(pop.mem),
+        eff=take(pop.eff), n_fu=take(pop.n_fu), prio=take(pop.prio),
+        quota=take(pop.quota), rs_cap=take(pop.rs_cap),
+        fu_cost=take(pop.fu_cost), eft=take(pop.eft),
+        streams=take(pop.streams))
+
+
 def replicate(pop: PackedPopulation, width: int) -> PackedPopulation:
     """A ``width``-lane population that tiles ``pop``'s lanes.
 
@@ -271,21 +291,8 @@ def replicate(pop: PackedPopulation, width: int) -> PackedPopulation:
     n = len(pop)
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
-    idx = np.arange(width) % n
-
-    def tile(a: np.ndarray) -> np.ndarray:
-        return np.ascontiguousarray(np.asarray(a)[idx])
-
-    return dataclasses.replace(
-        pop,
-        names=tuple(f"{pop.names[i % n]}#r{i // n}" for i in range(width)),
-        preps=tuple(pop.preps[i % n] for i in range(width)),
-        policies=tuple(pop.policies[i % n] for i in range(width)),
-        ftab=tile(pop.ftab), p_len=tile(pop.p_len), mem=tile(pop.mem),
-        eff=tile(pop.eff), n_fu=tile(pop.n_fu), prio=tile(pop.prio),
-        quota=tile(pop.quota), rs_cap=tile(pop.rs_cap),
-        fu_cost=tile(pop.fu_cost), eft=tile(pop.eft),
-        streams=tile(pop.streams))
+    return take_lanes(pop, np.arange(width) % n,
+                      [f"{pop.names[i % n]}#r{i // n}" for i in range(width)])
 
 
 def _broadcast_n_fu(n_fu, n: int) -> np.ndarray:

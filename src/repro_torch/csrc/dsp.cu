@@ -1,25 +1,25 @@
-// The DSP accelerators of the audio and image pipelines (paper Table II),
-// for Hopper (sm_90a): real FIR, vector dot, vector add, vector max,
-// cross-correlation, the radix-2 FFT and the DCT-II.
+// The DSP accelerators of the paper's Table II, for Hopper (sm_90a): real
+// FIR, complex FIR, adaptive (LMS) FIR, IIR, vector dot, vector add,
+// vector max, cross-correlation, the radix-2 FFT and the DCT-II.
 //
 // Each kernel replaces one of the reference's Pallas kernels
 // (src/repro/kernels/dsp_fir.py, dsp_vector.py, dsp_spectral.py) and
 // computes the same function on float32 frames laid out as the reference
-// lays them out: (B, N) rows, or (B, N, 2) interleaved re/im for the FFT.
-// The reference tiles the batch into blocks of BB rows and the wrapper
-// pads B up to a multiple of BB; here each kernel computes its own offsets
-// (64-bit, so no batch size overflows them) and masks the ragged batch
-// edge itself, so nothing is padded.
+// lays them out: (B, N) rows, or (B, N, 2) interleaved re/im for the FFT
+// and the complex FIR.  The reference tiles the batch into blocks of BB
+// rows and the wrapper pads B up to a multiple of BB; here each kernel
+// computes its own offsets (64-bit, so no batch size overflows them) and
+// masks the ragged batch edge itself, so nothing is padded.
 //
 // At the pipelines' shapes (the audio's 65536 frames of 256 samples, the
-// image's 262144 tiles of 64 pixels) all seven are bound by device-memory
-// bytes: each but the DCT does a few flops per byte it moves, far below
-// the card's fp32 rate, and the DCT's 64 multiply-adds a pixel come to
-// 0.8 of its bytes bound.  Each is written to stream its bytes once,
-// coalesced; tiling through TMA and tuning are later work.  Every float
-// constant (FIR taps, FFT twiddles, the DCT matrix) comes from the caller:
-// nothing here calls device trig, and the library is built without
-// --use_fast_math.
+// image's 262144 tiles of 64 pixels, Table II's 524288 frames of 40
+// samples) all ten are bound by device-memory bytes: each but the DCT
+// does a few flops per byte it moves, far below the card's fp32 rate, and
+// the DCT's 64 multiply-adds a pixel come to 0.8 of its bytes bound.  Each
+// is written to stream its bytes once, coalesced; tiling through TMA and
+// tuning are later work.  Every float constant (FIR taps, FFT twiddles,
+// the DCT matrix, the LMS step) comes from the caller: nothing here calls
+// device trig, and the library is built without --use_fast_math.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through ctypes (kernels/common.py).
@@ -42,6 +42,11 @@ constexpr int DCT_THREADS = 256;         // 16 x 16: column x row groups
 constexpr int DCT_ROWS = 64;             // rows of x a block holds
 constexpr int DCT_MAX_N = 128;
 constexpr int SMEM_LIMIT = 48 * 1024;    // default-launch shared memory cap
+constexpr int CFIR_THREADS = 256;
+constexpr int SEQ_ROWS = 128;            // LMS, IIR: a thread a frame
+constexpr int SEQ_CHUNK = 32;            // samples a frame, staged at a time
+constexpr int SEQ_PITCH = SEQ_CHUNK + 1; // odd pitch: conflict-free row walks
+constexpr int IIR_MAX_TAPS = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -73,6 +78,177 @@ real_fir_kernel(int N, int K, int tiles, const float* __restrict__ x,
   const int kmax = K < n + 1 ? K : n + 1;       // taps that reach x[0..n]
   for (int k = 1; k < kmax; ++k) acc += __ldg(h + k) * __ldg(xr + n - k);
   y[row * (size_t)N + n] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// K6 complex_fir — replaces src/repro/kernels/dsp_fir.py complex_fir
+// (_complex_fir_kernel, pl.pallas_call at dsp_fir.py:82).
+//   y[b, n] = sum_k h[k] * x[b, n - k] in complex arithmetic, x (B, N, 2)
+//   and y interleaved re/im, h (K, 2), zero fill for n - k < 0.
+// Bound: B*N*8 bytes read plus B*N*8 written; 8K flops a sample is far
+// below the fp32 rate.  Design: one thread per output sample over the
+// flat B*N samples (a row of 40 would leave most of a row-tile idle), the
+// re/im pair read as one float2; neighbouring threads read neighbouring
+// pairs, so the K shifted reads are coalesced and all but the first hit
+// L1.  Every product and sum is rounded on its own, in the Pallas order:
+//   ar = h00*xr - h01*xi,  ai = h00*xi + h01*xr,  then per tap
+//   ar = (ar + hk0*sr) - hk1*si,  ai = (ai + hk0*si) + hk1*sr.
+// __fmul_rn/__fadd_rn/__fsub_rn are never contracted into FMAs (a global
+// -fmad=false would change the other kernels): with the dispatch entry's
+// x + jx and equal taps the real part is then exactly zero, as in the
+// reference.  Taps that reach before the frame add h*0 there; skipping
+// them leaves every value equal.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(CFIR_THREADS)
+complex_fir_kernel(size_t total, int N, int K, const float2* __restrict__ x,
+                   const float2* __restrict__ h, float2* __restrict__ y) {
+  const size_t i = (size_t)blockIdx.x * CFIR_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int n = (int)(i % (size_t)N);
+  const float2 h0 = __ldg(h), x0 = __ldg(x + i);
+  float ar = __fsub_rn(__fmul_rn(h0.x, x0.x), __fmul_rn(h0.y, x0.y));
+  float ai = __fadd_rn(__fmul_rn(h0.x, x0.y), __fmul_rn(h0.y, x0.x));
+  const int kmax = K < n + 1 ? K : n + 1;       // taps that reach x[0..n]
+  for (int k = 1; k < kmax; ++k) {
+    const float2 hk = __ldg(h + k), s = __ldg(x + i - k);
+    ar = __fsub_rn(__fadd_rn(ar, __fmul_rn(hk.x, s.x)), __fmul_rn(hk.y, s.y));
+    ai = __fadd_rn(__fadd_rn(ai, __fmul_rn(hk.x, s.y)), __fmul_rn(hk.y, s.x));
+  }
+  y[i] = make_float2(ar, ai);
+}
+
+// The LMS and IIR kernels walk each frame in order, one thread a frame.
+// A thread reading its own 160-byte row would not coalesce with its
+// neighbours, so a block stages SEQ_CHUNK samples of each of its SEQ_ROWS
+// frames through shared memory (a warp copies 32 consecutive floats of
+// one row), walks them from there, writes each output over the sample it
+// came from, and copies the outputs back the same way; the filter state
+// (weights, windows, histories) stays in registers across chunks, so any
+// N works with a fixed 17 KB tile per staged array.
+__device__ __forceinline__ void stage_in(float* tile, const float* g,
+                                         size_t r0, int rows, int N, int c0,
+                                         int cols) {
+  for (int e = threadIdx.x; e < rows * SEQ_CHUNK; e += SEQ_ROWS) {
+    const int r = e / SEQ_CHUNK, c = e % SEQ_CHUNK;
+    if (c < cols) tile[r * SEQ_PITCH + c] = __ldg(g + (r0 + r) * N + c0 + c);
+  }
+}
+
+__device__ __forceinline__ void stage_out(const float* tile, float* g,
+                                          size_t r0, int rows, int N, int c0,
+                                          int cols) {
+  for (int e = threadIdx.x; e < rows * SEQ_CHUNK; e += SEQ_ROWS) {
+    const int r = e / SEQ_CHUNK, c = e % SEQ_CHUNK;
+    if (c < cols) g[(r0 + r) * N + c0 + c] = tile[r * SEQ_PITCH + c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7 adaptive_fir — replaces src/repro/kernels/dsp_fir.py adaptive_fir
+// (_adaptive_fir_kernel, pl.pallas_call at dsp_fir.py:123).
+//   LMS per frame, weights w (K) from zero; for n = 0..N-1, with
+//   win[k] = x[n - k] (zero fill): y[n] = sum_k w[k]*win[k],
+//   e = d[n] - y[n], w[k] += (mu*e)*win[k].  Output y (B, N).
+// Bound: x and d read, y written, B*N*12 bytes; about 4K flops a sample.
+// Design: one thread a frame, the K weights and the window in registers
+// (K a template parameter: 4 and 8, the reference's), sequential over the
+// frame, staged through shared memory as above (x and d in, y out over x).
+// ---------------------------------------------------------------------------
+template <int K>
+__global__ void __launch_bounds__(SEQ_ROWS)
+adaptive_fir_kernel(int B, int N, float mu, const float* __restrict__ x,
+                    const float* __restrict__ d, float* __restrict__ y) {
+  __shared__ float xs[SEQ_ROWS * SEQ_PITCH];
+  __shared__ float ds[SEQ_ROWS * SEQ_PITCH];
+  const int t = threadIdx.x;
+  const size_t r0 = (size_t)blockIdx.x * SEQ_ROWS;
+  const int rows = (size_t)B - r0 < (size_t)SEQ_ROWS ? (int)(B - r0) : SEQ_ROWS;
+  float w[K], win[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) w[k] = win[k] = 0.f;
+  for (int c0 = 0; c0 < N; c0 += SEQ_CHUNK) {
+    const int cols = N - c0 < SEQ_CHUNK ? N - c0 : SEQ_CHUNK;
+    stage_in(xs, x, r0, rows, N, c0, cols);
+    stage_in(ds, d, r0, rows, N, c0, cols);
+    __syncthreads();
+    if (t < rows) {
+      float* xr = xs + t * SEQ_PITCH;
+      const float* dr = ds + t * SEQ_PITCH;
+      for (int c = 0; c < cols; ++c) {
+#pragma unroll
+        for (int k = K - 1; k > 0; --k) win[k] = win[k - 1];
+        win[0] = xr[c];
+        float acc = w[0] * win[0];
+#pragma unroll
+        for (int k = 1; k < K; ++k) acc += w[k] * win[k];
+        const float me = mu * (dr[c] - acc);
+#pragma unroll
+        for (int k = 0; k < K; ++k) w[k] += me * win[k];
+        xr[c] = acc;                            // y[n] over x[n]
+      }
+    }
+    __syncthreads();
+    stage_out(xs, y, r0, rows, N, c0, cols);
+    __syncthreads();                            // before the next chunk's copy
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8 iir — replaces src/repro/kernels/dsp_fir.py iir (_iir_kernel,
+// pl.pallas_call at dsp_fir.py:160).
+//   y[n] = sum_j b[j]*x[n-j] - sum_{j>=1} a[j]*y[n-j], zero fill, a[0]
+//   ignored (the reference assumes 1 and never divides by it); the two
+//   sums are formed separately and then subtracted, as xwin @ b - ys @ a[1:].
+// Bound: x read and y written, B*N*8 bytes; 2(Kb + Ka) flops a sample.
+// Design: one thread a frame, staged as K7; the Kb newest inputs, the
+// Ka-1 newest outputs and both coefficient sets in registers (arrays of
+// IIR_MAX_TAPS, fully unrolled, terms past Kb or Ka masked).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(SEQ_ROWS)
+iir_kernel(int B, int N, int Kb, int Ka, const float* __restrict__ x,
+           const float* __restrict__ b, const float* __restrict__ a,
+           float* __restrict__ y) {
+  __shared__ float xs[SEQ_ROWS * SEQ_PITCH];
+  const int t = threadIdx.x;
+  const size_t r0 = (size_t)blockIdx.x * SEQ_ROWS;
+  const int rows = (size_t)B - r0 < (size_t)SEQ_ROWS ? (int)(B - r0) : SEQ_ROWS;
+  float bc[IIR_MAX_TAPS], ac[IIR_MAX_TAPS], xw[IIR_MAX_TAPS],
+      yh[IIR_MAX_TAPS];                         // yh[j] = y[n-1-j]
+#pragma unroll
+  for (int j = 0; j < IIR_MAX_TAPS; ++j) {
+    bc[j] = j < Kb ? __ldg(b + j) : 0.f;
+    ac[j] = j < Ka ? __ldg(a + j) : 0.f;
+    xw[j] = yh[j] = 0.f;
+  }
+  for (int c0 = 0; c0 < N; c0 += SEQ_CHUNK) {
+    const int cols = N - c0 < SEQ_CHUNK ? N - c0 : SEQ_CHUNK;
+    stage_in(xs, x, r0, rows, N, c0, cols);
+    __syncthreads();
+    if (t < rows) {
+      float* xr = xs + t * SEQ_PITCH;
+      for (int c = 0; c < cols; ++c) {
+#pragma unroll
+        for (int j = IIR_MAX_TAPS - 1; j > 0; --j) xw[j] = xw[j - 1];
+        xw[0] = xr[c];
+        float fwd = bc[0] * xw[0];
+#pragma unroll
+        for (int j = 1; j < IIR_MAX_TAPS; ++j)
+          if (j < Kb) fwd += bc[j] * xw[j];
+        float back = ac[1] * yh[0];
+#pragma unroll
+        for (int j = 2; j < IIR_MAX_TAPS; ++j)
+          if (j < Ka) back += ac[j] * yh[j - 1];
+        const float v = fwd - back;
+#pragma unroll
+        for (int j = IIR_MAX_TAPS - 1; j > 0; --j) yh[j] = yh[j - 1];
+        yh[0] = v;
+        xr[c] = v;                              // y[n] over x[n]
+      }
+    }
+    __syncthreads();
+    stage_out(xs, y, r0, rows, N, c0, cols);
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -391,6 +567,55 @@ int dsp_real_fir(int B, int N, int K, void* x, void* h, void* y,
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
     real_fir_kernel<<<(unsigned)blocks, FIR_THREADS, 0, (cudaStream_t)stream>>>(
         N, K, tiles, (const float*)x, (const float*)h, (float*)y);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, y: (B, N, 2) interleaved re/im; h: (K, 2).
+int dsp_complex_fir(int B, int N, int K, void* x, void* h, void* y,
+                    void* stream) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)(B > 0 ? B : 0) * (size_t)(N > 0 ? N : 0);
+  if (total > 0) {
+    const size_t blocks = (total + CFIR_THREADS - 1) / CFIR_THREADS;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    complex_fir_kernel<<<(unsigned)blocks, CFIR_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+        total, N, K, (const float2*)x, (const float2*)h, (float2*)y);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K must be 4 or 8 (the kernel's template instances).
+int dsp_adaptive_fir(int B, int N, int K, float mu, void* x, void* d,
+                     void* y, void* stream) {
+  if (K != 4 && K != 8) return (int)cudaErrorInvalidValue;
+  if (B > 0 && N > 0) {
+    const unsigned blocks =
+        (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
+    cudaStream_t s = (cudaStream_t)stream;
+    const float* xf = (const float*)x;
+    const float* df = (const float*)d;
+    if (K == 4)
+      adaptive_fir_kernel<4><<<blocks, SEQ_ROWS, 0, s>>>(B, N, mu, xf, df,
+                                                         (float*)y);
+    else
+      adaptive_fir_kernel<8><<<blocks, SEQ_ROWS, 0, s>>>(B, N, mu, xf, df,
+                                                         (float*)y);
+  }
+  return (int)cudaGetLastError();
+}
+
+// 1 <= Kb <= IIR_MAX_TAPS, 2 <= Ka <= IIR_MAX_TAPS.
+int dsp_iir(int B, int N, int Kb, int Ka, void* x, void* b, void* a,
+            void* y, void* stream) {
+  if (Kb < 1 || Kb > IIR_MAX_TAPS || Ka < 2 || Ka > IIR_MAX_TAPS)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0 && N > 0) {
+    iir_kernel<<<(unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS), SEQ_ROWS, 0,
+                 (cudaStream_t)stream>>>(B, N, Kb, Ka, (const float*)x,
+                                         (const float*)b, (const float*)a,
+                                         (float*)y);
   }
   return (int)cudaGetLastError();
 }

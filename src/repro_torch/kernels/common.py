@@ -13,20 +13,23 @@ import torch
 
 from .. import _build
 
-_P, _I = _build.P, _build.I
+_P, _I, _F = _build.P, _build.I, _build.F
 #: ``csrc/dsp.cu``: ``LIB.build()`` compiles it, ``LIB.info`` holds the last
 #: build's report (seconds, command, ptxas's -Xptxas -v)
 LIB = _build.Library("dsp.cu", {
-    # sizes..., pointers..., stream
+    # sizes..., scalars..., pointers..., stream
     "dsp_real_fir": [_I] * 3 + [_P] * 3 + [_P],
+    "dsp_complex_fir": [_I] * 3 + [_P] * 3 + [_P],
+    "dsp_adaptive_fir": [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    "dsp_iir": [_I] * 4 + [_P] * 4 + [_P],
     "dsp_vector_dot": [_I] * 2 + [_P] * 3 + [_P],
     "dsp_vector_add": [_I] * 2 + [_P] * 3 + [_P],
     "dsp_vector_max": [_I] * 2 + [_P] * 2 + [_P],
     "dsp_correlation": [_I] * 3 + [_P] * 3 + [_P],
     "dsp_fft": [_I] * 2 + [_P] * 4 + [_P],
     "dsp_dct": [_I] * 2 + [_P] * 3 + [_P],
-}, ("real_fir", "vector_dot", "vector_add", "vector_max", "correlation",
-    "fft", "dct"))
+}, ("real_fir", "complex_fir", "adaptive_fir", "iir", "vector_dot",
+    "vector_add", "vector_max", "correlation", "fft", "dct"))
 SOURCE = LIB.source
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches, reset_launches = LIB.launches, LIB.reset_launches

@@ -1,33 +1,46 @@
 """The public DSP ops and the accelerator dispatch table.
 
-Counterpart of the reference's ``kernels/ops.py`` for the functions this
-port runs so far.  The ops need no row padding: the kernels mask the
+Counterpart of the reference's ``kernels/ops.py`` for the ten Table II
+functions.  The ops need no row padding: the kernels mask the
 ragged batch edge themselves (the reference pads rows to its block size).
 The composition around the kernels (stack, slice, broadcast) stays plain
 torch, as it stayed ``jnp`` in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..core.hts.costs import FUNCTIONS
 from . import ref
-from .dsp_fir import real_fir
+from .dsp_fir import adaptive_fir, complex_fir, iir, real_fir
 from .dsp_spectral import dct, fft_256
 from .dsp_vector import correlation, vector_add, vector_dot, vector_max
 
-__all__ = ["real_fir", "vector_dot", "vector_add", "vector_max",
-           "correlation", "fft_256", "dct", "dsp_dispatch_table",
-           "plain_dispatch_table", "DispatchTable"]
+__all__ = ["real_fir", "complex_fir", "adaptive_fir", "iir", "vector_dot",
+           "vector_add", "vector_max", "correlation", "fft_256", "dct",
+           "dsp_dispatch_table", "plain_dispatch_table", "DispatchTable"]
 
 
 class DispatchTable(dict):
-    """accelerator name → op on (B, N) frames.  A function with no Hopper
-    kernel yet raises a ``KeyError`` naming it: the port never runs a plain
-    version on the card in a kernel's place."""
+    """accelerator name → op on (B, N) frames, one entry per Table II
+    function (``costs.FUNCTIONS``).  Any other name raises a ``KeyError``
+    naming it."""
 
     def __missing__(self, name):
-        raise KeyError(f"accelerator function {name!r} has no Hopper kernel "
-                       "in the port yet (still to port: ROADMAP.md Queue 2)")
+        raise KeyError(f"{name!r} is not an accelerator function of Table "
+                       f"II (costs.FUNCTIONS: {', '.join(FUNCTIONS)})")
+
+
+@functools.lru_cache(maxsize=None)
+def _iir_coefs(dtype: torch.dtype,
+               device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The IIR entry's (b, a) on ``device``, uploaded once: a fresh
+    ``torch.tensor`` per call is a pageable copy that waits for the
+    stream, so the host would stop queueing work at every IIR task."""
+    return (torch.tensor([0.2, 0.3], dtype=dtype, device=device),
+            torch.tensor([1.0, -0.5], dtype=dtype, device=device))
 
 
 def _fit(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -37,13 +50,16 @@ def _fit(x: torch.Tensor, n: int) -> torch.Tensor:
     return x[:, :n]
 
 
-def _table(real_fir, vector_dot, vector_add, vector_max, correlation,
-           fft_256, dct) -> DispatchTable:
-    """The reference's entries for these seven functions, composed exactly
-    as ``ops.dsp_dispatch_table`` composes them, over the given ops.  The
-    DCT entry fits the frame to 64 samples and slices back to the input's
+def _table(real_fir, complex_fir, adaptive_fir, iir, vector_dot,
+           vector_add, vector_max, correlation, fft_256,
+           dct) -> DispatchTable:
+    """The reference's ten entries, composed exactly as
+    ``ops.dsp_dispatch_table`` composes them, over the given ops.  The DCT
+    entry fits the frame to 64 samples and slices back to the input's
     width, so a frame wider than 64 comes back 64 wide, as in the
-    reference."""
+    reference.  The complex FIR entry filters ``x + jx`` with the taps
+    ``(1 + j)/8`` and keeps the real part, ``x/8 - x/8``: exactly zero, as
+    in the reference."""
 
     def fft_frame(x):
         z = _fit(x, 256)
@@ -53,6 +69,18 @@ def _table(real_fir, vector_dot, vector_add, vector_max, correlation,
     def fir(x):
         return real_fir(x.contiguous(),
                         torch.ones(8, dtype=x.dtype, device=x.device) / 8)
+
+    def cfir(x):
+        x = x.contiguous()
+        taps = torch.ones(8, 2, dtype=x.dtype, device=x.device) / 8
+        return complex_fir(torch.stack([x, x], -1), taps)[..., 0]
+
+    def lms(x):
+        x = x.contiguous()
+        return adaptive_fir(x, x, 0.01, 8)
+
+    def recur(x):
+        return iir(x.contiguous(), *_iir_coefs(x.dtype, x.device))
 
     def dot(x):
         x = x.contiguous()
@@ -73,20 +101,22 @@ def _table(real_fir, vector_dot, vector_add, vector_max, correlation,
     def dct_frame(x):
         return dct(_fit(x, 64).contiguous())[:, :x.shape[1]]
 
-    return DispatchTable(real_fir=fir, vector_dot=dot, vector_add=add,
+    return DispatchTable(real_fir=fir, complex_fir=cfir, adaptive_fir=lms,
+                         iir=recur, vector_dot=dot, vector_add=add,
                          vector_max=vmax, fft_256=fft_frame, dct=dct_frame,
                          correlation=corr)
 
 
 def dsp_dispatch_table() -> DispatchTable:
     """accelerator id → executable op on the kernels, mirroring
-    ``costs.FUNCTIONS`` as far as the port has kernels."""
-    return _table(real_fir, vector_dot, vector_add, vector_max, correlation,
-                  fft_256, dct)
+    ``costs.FUNCTIONS``."""
+    return _table(real_fir, complex_fir, adaptive_fir, iir, vector_dot,
+                  vector_add, vector_max, correlation, fft_256, dct)
 
 
 def plain_dispatch_table() -> DispatchTable:
     """The same entries over the plain versions (:mod:`.ref`): what the
     tests and ``chip_smoke.py`` hold the kernel table against."""
-    return _table(ref.real_fir, ref.vector_dot, ref.vector_add,
-                  ref.vector_max, ref.correlation, ref.fft_256, ref.dct)
+    return _table(ref.real_fir, ref.complex_fir, ref.adaptive_fir, ref.iir,
+                  ref.vector_dot, ref.vector_add, ref.vector_max,
+                  ref.correlation, ref.fft_256, ref.dct)

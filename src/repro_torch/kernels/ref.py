@@ -1,9 +1,9 @@
-"""Plain torch versions of the DSP kernels this port runs so far.
+"""Plain torch versions of the DSP kernels (the paper's Table II).
 
 Counterpart of the reference's ``kernels/ref.py`` for ``real_fir``,
-``vector_dot``, ``vector_add``, ``vector_max``, ``correlation``,
-``fft``/``fft_256`` and ``dct``, each in the reference's formula and
-layout.  They are what the wrappers compute on CPU
+``complex_fir``, ``adaptive_fir``, ``iir``, ``vector_dot``, ``vector_add``,
+``vector_max``, ``correlation``, ``fft``/``fft_256`` and ``dct``, each in
+the reference's formula and layout.  They are what the wrappers compute on CPU
 tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on the
 card.  The FFT is the reference kernel's own radix-2 recurrence (a
 bit-reversal pre-pass, then ``log2 N`` butterfly stages over float32
@@ -29,6 +29,76 @@ def real_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     for k in range(1, K):
         y = y + h[k] * xp[:, K - 1 - k:K - 1 - k + N]
     return y
+
+
+def complex_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Complex FIR on interleaved re/im, in the reference Pallas kernel's
+    order (``dsp_fir.py:67-73``), every product and sum a separate op:
+    ``ar = h00*xr - h01*xi``, ``ai = h00*xi + h01*xr``, then per tap
+    ``ar = (ar + hk0*sr) - hk1*si`` and ``ai = (ai + hk0*si) + hk1*sr``.
+
+    x: (B, N, 2); h: (K, 2) → (B, N, 2)
+    """
+    K, N = h.shape[0], x.shape[1]
+    xr, xi = x[..., 0], x[..., 1]
+    ar = h[0, 0] * xr - h[0, 1] * xi
+    ai = h[0, 0] * xi + h[0, 1] * xr
+    pr, pi = F.pad(xr, (K - 1, 0)), F.pad(xi, (K - 1, 0))
+    for k in range(1, K):
+        sr = pr[:, K - 1 - k:K - 1 - k + N]
+        si = pi[:, K - 1 - k:K - 1 - k + N]
+        ar = ar + h[k, 0] * sr - h[k, 1] * si
+        ai = ai + h[k, 0] * si + h[k, 1] * sr
+    return torch.stack([ar, ai], -1)
+
+
+def _windows(x: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, N, K) windows, ``win[:, n, k] = x[:, n - k]`` with zero fill."""
+    N = x.shape[1]
+    xp = F.pad(x, (K - 1, 0))
+    return torch.stack([xp[:, K - 1 - k:K - 1 - k + N] for k in range(K)],
+                       -1)
+
+
+def adaptive_fir(x: torch.Tensor, d: torch.Tensor, mu: float,
+                 K: int) -> torch.Tensor:
+    """LMS adaptive FIR, the reference's sequential update per frame:
+    weights from zero; ``y[n] = w · win[n]``, ``e = d[n] - y[n]``,
+    ``w += (mu*e) * win[n]`` with ``mu`` as float32.
+
+    x, d: (B, N) input / desired → (B, N) filter output sequence.
+    """
+    B, N = x.shape
+    win = _windows(x, K)
+    w = torch.zeros(B, K, dtype=x.dtype, device=x.device)
+    mu = torch.tensor(mu, dtype=x.dtype, device=x.device)
+    ys = []
+    for n in range(N):
+        y = (w * win[:, n]).sum(-1)
+        e = d[:, n] - y
+        w = w + (mu * e)[:, None] * win[:, n]
+        ys.append(y)
+    return torch.stack(ys, -1)
+
+
+def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Direct-form recurrence, the reference's:
+    ``y[n] = sum_j b[j] x[n-j] - sum_{j>=1} a[j] y[n-j]``, the two sums
+    formed separately; ``a[0]`` is ignored (assumed 1, never divided by).
+    Needs ``len(a) >= 2``, as the reference does.
+
+    x: (B, N); b: (Kb,); a: (Ka,) → (B, N)
+    """
+    Kb, Ka = b.shape[0], a.shape[0]
+    B, N = x.shape
+    xwin = _windows(x, Kb)
+    ys = torch.zeros(B, Ka - 1, dtype=x.dtype, device=x.device)
+    out = []
+    for n in range(N):
+        y = (xwin[:, n] * b).sum(-1) - (ys * a[1:]).sum(-1)
+        ys = torch.cat([y[:, None], ys[:, :-1]], 1)
+        out.append(y)
+    return torch.stack(out, -1)
 
 
 def vector_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,9 @@ versions to the reference).  On a machine with a card and ``nvcc``:
 This file imports only torch and the port, so it runs where JAX is not
 installed.  The step kernels' state is int32/bool: tolerance zero.  The
 DSP kernels are float32, held to the reference tests' tolerances (1e-5;
-1e-4 for the DCT; 1e-3 for the FFT; ``vector_add`` and ``vector_max``
-bit for bit, NaN in the same places), at ragged batches that leave part
-of the last block empty.
+1e-4 for the DCT and K6–K8; 1e-3 for the FFT; ``vector_add`` and
+``vector_max`` bit for bit, NaN in the same places), at ragged batches
+that leave part of the last block empty.
 """
 import pytest
 import torch
@@ -218,6 +218,52 @@ def test_fft_kernel_matches_plain(card, b, n):
     want = torch.fft.fft(torch.view_as_complex(x))
     torch.testing.assert_close(torch.view_as_complex(got), want, rtol=1e-3,
                                atol=1e-3 * max(1.0, n / 256))
+
+
+@pytest.mark.parametrize("b", [1, 64, 300])
+@pytest.mark.parametrize("n,k", [(40, 8), (96, 12)])
+def test_complex_fir_kernel_matches_plain(card, b, n, k):
+    x, h = _frames(card, b + n, b, n, 2), _frames(card, k, k, 2)
+    got = _counted("complex_fir", dsp_fir.complex_fir, x, h)
+    torch.testing.assert_close(got, ref.complex_fir(x, h), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 32, 300])
+@pytest.mark.parametrize("n,k", [(40, 8), (64, 4), (100, 8)])
+def test_adaptive_fir_kernel_matches_plain(card, b, n, k):
+    x, d = _frames(card, b + n, b, n), _frames(card, b + n + 1, b, n)
+    got = _counted("adaptive_fir", dsp_fir.adaptive_fir, x, d, 0.01, k)
+    torch.testing.assert_close(got, ref.adaptive_fir(x, d, 0.01, k),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 33, 300])
+@pytest.mark.parametrize("n", [40, 80])
+@pytest.mark.parametrize("coef", [([0.2, 0.3, 0.1], [1.0, -0.4, 0.05]),
+                                  ([0.2, 0.3], [1.0, -0.5])])
+def test_iir_kernel_matches_plain(card, b, n, coef):
+    x = _frames(card, b * n, b, n)
+    bc, ac = (torch.tensor(c, device=card) for c in coef)
+    got = _counted("iir", dsp_fir.iir, x, bc, ac)
+    torch.testing.assert_close(got, ref.iir(x, bc, ac), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_complex_fir_entry_is_exactly_zero_on_the_card(card):
+    x = _frames(card, 11, 300, 40)
+    got = _counted("complex_fir", ops.dsp_dispatch_table()["complex_fir"], x)
+    assert torch.equal(got, torch.zeros_like(x))
+
+
+def test_fir_kernels_refuse_what_they_do_not_take(card):
+    before = dict(dsp.launches)
+    x = _frames(card, 1, 4, 40)
+    with pytest.raises(ValueError, match="K in"):
+        dsp_fir.adaptive_fir(x, x, 0.01, 5)
+    with pytest.raises(ValueError, match="at most 8"):
+        dsp_fir.iir(x, _frames(card, 2, 9), _frames(card, 3, 2))
+    assert dsp.launches == before
 
 
 def test_kernels_refuse_sizes_past_their_shared_memory(card):

@@ -276,13 +276,15 @@ def test_plain_route_takes_sizes_past_the_kernels_shared_memory():
 
 
 def test_dispatch_table_refuses_unported_functions():
-    """A schedule that issues a function with no kernel yet stops with the
-    function's name; nothing runs a plain version in its place."""
+    """Both tables hold exactly the ten Table II functions (every one has
+    its kernel now); a name outside them stops with that name."""
+    from repro_torch.core.hts.costs import FUNCTIONS
     table = tops.dsp_dispatch_table()
-    assert set(table) == set(TOL)
-    assert set(tops.plain_dispatch_table()) == set(TOL)
-    for name in ("iir", "complex_fir", "adaptive_fir"):
-        with pytest.raises(KeyError, match=f"{name}.*ROADMAP.md Queue 2"):
+    assert list(table) == list(FUNCTIONS)
+    assert list(tops.plain_dispatch_table()) == list(FUNCTIONS)
+    for name in ("lms", "fft", "real_fir_8"):
+        with pytest.raises(KeyError, match=f"{name}.*not an accelerator "
+                                           "function of Table II"):
             table[name]
 
 

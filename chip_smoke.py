@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one CUDA card:
 It builds the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all started together) and drives the port's paths on the card —
 the population scheduler machine through ``run_many``; the audio, image
-and shared pipelines, whose schedules run the DSP kernels; and the
-paper's evaluation (Table II, Figs 7, 8 and 10 through ``sweep``, the nine
-synthetic schedules executed) — then checks them:
+and shared pipelines, whose schedules run the DSP kernels; the paper's
+evaluation (Table II, Figs 7, 8 and 10 through ``sweep``, the nine
+synthetic schedules executed); and Qwen2-1.5B at full width through
+``prefill`` and the continuous-batching ``Server`` — then checks them:
 
 1. device and build: the card's name and power limit, the two kernel
    libraries' builds (time and ``-Xptxas -v`` report);
@@ -67,17 +68,39 @@ synthetic schedules executed) — then checks them:
    the same input, launches equal to live tasks, frames/s; (d) Fig 10 —
    ``audio_compression`` at 8, 16 and 32 bands × 1–16 units, ``naive``
    and ``hts_spec``, one ``sweep``, the 8-band points equal to golden;
-5b. DSP kernel times: device, call, plain and library times at each
-   path's shape, beside the bound.
+9. the model path, Qwen2-1.5B (28 layers, d_model 1536, 12 query and 2
+   KV heads of 128, d_ff 8960, vocab 151936, QKV bias) with random
+   bfloat16 weights from a seed: (a) K15 ``flash_attention`` and K16
+   ``rmsnorm`` against their plain versions at the model's shapes, a
+   ragged length of 1000, every head dim, ``q_offset`` and the decode
+   shape, and at 8192, 32 and ragged rows of 1536, in bfloat16 (2e-2) and
+   float32 (1e-5), q and k unscaled so that attention is peaked; (b) ``prefill`` of 4 × 2048 tokens into a
+   2560-position cache, then 32 greedy ``decode_step``s, on the kernels
+   (28 K15 and 57 K16 launches a prefill, 57 K16 a step) and on the plain
+   ops (``plain_path``: the wrappers swapped for the plain versions, fed
+   the kernel path's tokens): the
+   logits agree normwise within ``LOGIT_TOL``; (c) the ``Server``, 32
+   slots of 512 positions, 64 requests (prompts of 16–128 tokens, 16–64
+   new), under ``ooo`` and ``naive``: every request completes, 57 K16
+   launches a step, ``ooo`` takes fewer steps; tokens/s, ms a step, a
+   traced window's device busy share and peak memory are printed, and
+   one staggered request against ``greedy_decode`` at B = 1 (not gated);
+5b. kernel times: device, call, plain and library times of the DSP
+   kernels at each path's shape and of K15 and K16 at the prefill's,
+   beside the bound.
 
 The last lines are the card (``nvidia-smi``), one JSON object
-``{"kernels": [...]}`` (all fourteen kernels), and ``{"ok": true,
+``{"kernels": [...]}`` (all sixteen kernels), and ``{"ok": true,
 "device": {...}}``.  Any failed
 phase exits non-zero without the last line; so does a machine without a
-card, or a directory without the rest of the repository.
+card, or a directory without the rest of the repository.  ``--only
+PREFIX ...`` runs the build and the phases whose names start with a
+prefix (``--only 9 "5b transformer"``: the model path) and prints no
+kernels line.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -205,6 +228,35 @@ LIVE_SHARED = {"dct": 40, "vector_max": 40, "correlation": 40,
                "vector_add": 40, "fft": 4, "vector_dot": 6}
 #: golden cycles: the image program, the audio program alone, both shared
 CYCLES = {"image": 18238, "audio": 37509, "shared": 37510}
+
+# the model path (phase 9): K15 and K16 (csrc/transformer.cu)
+TF_SOURCE = "src/repro_torch/csrc/transformer.cu"
+TF_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
+               "flash_attention": "src/repro/kernels/attention.py:92"}
+BF16_TENSOR_OPS_PER_S = 989e12   # bf16 tensor cores, dense (on-chip guide)
+ARCH = "qwen2-1.5b"
+MODEL_SEED = 2024
+#: prefill: 4 prompts of 2048 tokens into a 2560-position cache, then 32
+#: greedy decode steps from it
+PREFILL_B, PREFILL_T, PREFILL_MAX_LEN, DECODE_STEPS = 4, 2048, 2560, 32
+#: the Server: 32 slots of 512 positions, 64 requests with prompts of
+#: 16–128 tokens and 16–64 new tokens each, a traced window of 8 steps
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS = 32, 512, 64
+PROMPT_LEN, MAX_NEW = (16, 128), (16, 64)
+SERVE_SEED, TRACE_STEPS, STAGGERED = 2025, 8, 40
+#: kernel against plain, by dtype: (rmsnorm, flash_attention)
+TF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+#: the model's logits, kernel path against plain path: normwise (largest
+#: difference over the largest plain logit)
+LOGIT_TOL = 1e-1
+#: K15 cases (BH, Tq, Tk, D, causal, q_offset): the prefill's shape, a
+#: ragged 1000, each head dim, q_offset, the decode shape
+ATTN_CASES = [(48, 2048, 2048, 128, True, 0), (24, 1000, 1000, 128, True, 0),
+              (24, 1000, 1000, 128, False, 0), (12, 1000, 1000, 64, True, 0),
+              (12, 1000, 1000, 32, False, 0), (12, 64, 300, 128, True, 236),
+              (12, 1, 77, 128, True, 76), (7, 200, 200, 32, True, 0)]
+#: K16 cases (R, D): the prefill's rows, the Server's, ragged rows
+RMS_CASES = [(8192, 1536), (32, 1536), (33, 1536), (7, 100), (300, 1536)]
 
 
 def log(*a):
@@ -359,22 +411,22 @@ def events_ms(torch, calls, warm=3):
 
 def profiled_ms(torch, calls, kernel: str, warm=3):
     """Mean device time per launch of ``kernel`` over ``calls`` after the
-    first ``warm`` (torch.profiler's CUPTI trace); None when the profiler
-    or its trace has no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    first ``warm`` (torch.profiler's CUPTI trace, through ``trace_window``:
+    a trace drops the device activities at the start of its window, so the
+    calls run once as its discarded warm-up step and once as the counted
+    one); None when the profiler or its trace has no device time."""
     for c in calls[:warm]:
         c()
-    torch.cuda.synchronize()
+
+    def run():
+        for c in calls[warm:]:
+            c()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for c in calls[warm:]:
-                c()
-            torch.cuda.synchronize()
+        events, _wall = trace_window(torch, run, run)
     except (RuntimeError, AssertionError, AttributeError) as e:
         log(f"profiler unavailable ({e}): device time not measured")
         return None
-    times = [us for key, us in device_events(prof) if kernel in key]
+    times = [us for key, us in events if kernel in key]
     return sum(times) / len(times) / 1e3 if times else None
 
 
@@ -628,7 +680,93 @@ def max_err(got, want) -> float:
     return float((got - want).abs().nan_to_num(nan=0.0).max())
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the model path (K15, K16)
+# ---------------------------------------------------------------------------
+def attention_pairs(Tq, Tk, causal, q_offset) -> int:
+    """(query, key) pairs the attention computes on: every key, or under
+    the causal mask the keys at or before each query's position."""
+    if not causal:
+        return Tq * Tk
+    return sum(min(Tk, i + q_offset + 1) for i in range(Tq))
+
+
+def tf_bound(name, args):
+    """Least time for K15 or K16 on these inputs: each input read once and
+    the output written once at HBM bandwidth, against the operations these
+    inputs need (K15: 4·D a (query, key) pair the mask keeps, at the bf16
+    tensor-core rate; K16: 4 an element, at the fp32 rate); the larger,
+    which one it is, and K15's time at the fp32 CUDA-core rate it runs
+    on."""
+    if name == "flash_attention":
+        q, k, v, causal, q_offset = args
+        BH, Tq, D = q.shape
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        ops = BH * attention_pairs(Tq, k.shape[1], causal, q_offset) * 4 * D
+        ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+        fp32_ms = ops / FP32_OPS_PER_S * 1e3
+    else:
+        x, w = args
+        nbytes = x.element_size() * (2 * x.numel() + w.numel())
+        ops_ms = 4 * x.numel() / FP32_OPS_PER_S * 1e3
+        fp32_ms = ops_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", fp32_ms)
+
+
+def tf_case(torch, name, shape, dtype, seed):
+    """Inputs of one K15 or K16 call on the card, made from ``seed``:
+    K15 (q, k, v, causal, q_offset), K16 (x, w), all standard normal.
+    q and k are not scaled down: the scores' spread is about 1, so each
+    query attends to a few keys, and a wrong mask or probabilities rounded
+    to bfloat16 before P·V fall outside the float32 tolerance."""
+    rng = np.random.default_rng(seed)
+
+    def f(*sh):
+        a = rng.standard_normal(sh, dtype=np.float32)
+        return torch.from_numpy(a).to(DEVICE).to(dtype)
+
+    if name == "flash_attention":
+        BH, Tq, Tk, D, causal, q_offset = shape
+        return (f(BH, Tq, D), f(BH, Tk, D), f(BH, Tk, D), causal, q_offset)
+    R, D = shape
+    return f(R, D), f(D)
+
+
+@contextlib.contextmanager
+def plain_path(on, attention, rmsnorm, ref):
+    """While ``on``, the model's ops call the plain versions in place of
+    the K15 and K16 wrappers; restored on exit.  The package has no such
+    switch: only this script builds the plain path it compares with."""
+    saved = attention.flash_attention, rmsnorm.rmsnorm
+    if on:
+        rmsnorm.rmsnorm = ref.rmsnorm
+        attention.flash_attention = lambda q, k, v, **kw: ref.flash_attention(
+            q[:, None], k[:, None], v[:, None], **kw)[:, 0]
+    try:
+        yield
+    finally:
+        attention.flash_attention, rmsnorm.rmsnorm = saved
+
+
+def normwise(got, want) -> float:
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def model_config(get_config):
+    """The configuration phase 9 serves: ``ARCH`` at its published widths."""
+    return get_config(ARCH)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # ``--only PREFIX ...``: run the build and the phases whose names start
+    # with a prefix, and print no kernels line (for iterating on one path;
+    # the check itself runs with no arguments)
+    only = tuple(argv[argv.index("--only") + 1:]) if "--only" in argv else ()
     try:
         import torch
     except ImportError:
@@ -644,8 +782,10 @@ def main() -> int:
                                           workloads)
         from repro_torch.examples import dsp_pipeline
         from repro_torch.kernels import common as dsp
-        from repro_torch.kernels import (dsp_fir, dsp_spectral, dsp_vector,
-                                         ops, ref)
+        from repro_torch.kernels import (attention, dsp_fir, dsp_spectral,
+                                         dsp_vector, ops, ref, rmsnorm)
+        from repro_torch.core.sched import serving, specdecode
+        from repro_torch.models import registry
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT / 'src'} "
               f"({e}); run from the root of a checkout", file=sys.stderr)
@@ -659,6 +799,8 @@ def main() -> int:
         f"devices {torch.cuda.device_count()}")
 
     def phase(name, fn):
+        if only and not name.startswith(("1 ",) + only):
+            return None
         log(f"=== {name}")
         t0 = time.perf_counter()
         try:
@@ -673,7 +815,7 @@ def main() -> int:
 
     # 1. build: one nvcc per source, all started together ----------------
     def build():
-        libs = (cuda_step.LIB, dsp.LIB)
+        libs = (cuda_step.LIB, dsp.LIB, dsp.TRANSFORMER_LIB)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libs)) as pool:
             paths = list(pool.map(lambda lib: lib.build(), libs))
@@ -706,7 +848,7 @@ def main() -> int:
     phase("setup", setup)
     if failures:
         return 1
-    pop, spec = ctx["pop"], ctx["spec"]
+    pop, spec = ctx.get("pop"), ctx.get("spec")
     checker = CheckedOps(torch, cuda_step)
 
     def checked(carry, trips):
@@ -1227,6 +1369,242 @@ def main() -> int:
                      ("8d Fig 10", fig_10)):
         phase(name, fn)
 
+    # 9. the model path: Qwen2-1.5B at full width on K15 and K16 ----------
+    tlib = dsp.TRANSFORMER_LIB
+    tf_err = {k: 0.0 for k in tlib.launches}
+    tf_launches: dict = {}
+
+    def tf_vs_plain():
+        cases = [("flash_attention", c) for c in ATTN_CASES]
+        cases += [("rmsnorm", c) for c in RMS_CASES]
+        for i, (name, shape) in enumerate(cases):
+            for dt in ("bfloat16", "float32"):
+                args = tf_case(torch, name, shape, getattr(torch, dt), 300 + i)
+                if name == "flash_attention":
+                    q, k, v, causal, q_offset = args
+                    got = attention.flash_attention(q, k, v, causal=causal,
+                                                    q_offset=q_offset)
+                    want = ref.flash_attention(
+                        q[:, None], k[:, None], v[:, None], causal=causal,
+                        q_offset=q_offset)[:, 0]
+                    tol = TF_TOL[dt][1]
+                else:
+                    got = rmsnorm.rmsnorm(*args)
+                    want = ref.rmsnorm(*args)
+                    tol = TF_TOL[dt][0]
+                torch.cuda.synchronize()
+                err = max_err(got.float(), want.float())
+                tf_err[name] = max(tf_err[name], err)
+                assert got.dtype == want.dtype and bool(
+                    torch.isfinite(got).all()), f"{name} {shape}: not finite"
+                assert torch.allclose(got.float(), want.float(), rtol=tol,
+                                      atol=tol), \
+                    f"{name} {shape} {dt}: max abs err {err:.3g} > {tol}"
+                log(f"{name:15s} {str(shape):34s} {dt:8s} max abs err "
+                    f"{err:.3g} (rtol = atol = {tol})")
+        log(f"TF32 for float32 matmuls: "
+            f"{torch.backends.cuda.matmul.allow_tf32} (the plain attention's "
+            "einsums run in full float32)")
+
+    def model_setup():
+        cfg = model_config(registry.get_config)
+        model = registry.build(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(MODEL_SEED)
+        torch.cuda.synchronize()
+        n = model.param_count()
+        log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, QKV bias "
+            f"{cfg.qkv_bias}: {n / 1e9:.4f} B parameters, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card in "
+            f"{params['embed'].dtype} (seed {MODEL_SEED}, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        ctx.update(model=model, params=params)
+
+    def prefill_path():
+        model, params = ctx["model"], ctx["params"]
+        rng = np.random.default_rng(MODEL_SEED)
+        tok = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab, (PREFILL_B, PREFILL_T)).astype(np.int32)
+        ).to(DEVICE)
+        Lr = model.cfg.n_layers
+        # warm-up, untimed: each path's first prefill and decode step pay
+        # for cuBLAS's and the allocator's first calls at these shapes
+        for path in ("kernels", "plain"):
+            with plain_path(path == "plain", attention, rmsnorm, ref):
+                logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
+                model.decode_step(params, cache, tok[:, :1], PREFILL_T)
+                del logits, cache
+        runs, feeds = {}, []
+        for path in ("kernels", "plain"):
+            with plain_path(path == "plain", attention, rmsnorm, ref):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                tlib.reset_launches()
+                t0 = time.perf_counter()
+                logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
+                last = logits[:, -1].float()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(tlib.launches)
+                peak = torch.cuda.max_memory_allocated()
+                del logits
+                # greedy on the kernel path; the plain path is fed the
+                # kernel path's tokens (teacher-forced)
+                if path == "kernels":
+                    feeds.append(last.argmax(-1))
+                steps = []
+                tlib.reset_launches()
+                torch.cuda.synchronize()
+                d0 = time.perf_counter()
+                for i in range(DECODE_STEPS):
+                    lg, cache = model.decode_step(
+                        params, cache, feeds[i][:, None].to(torch.int32),
+                        PREFILL_T + i)
+                    steps.append(lg[:, -1].float())
+                    if path == "kernels":
+                        feeds.append(steps[-1].argmax(-1))
+                torch.cuda.synchronize()
+                dwall = time.perf_counter() - d0
+                dcounts = dict(tlib.launches)
+                del cache
+            runs[path] = dict(last=last, steps=steps, counts=counts,
+                              dcounts=dcounts)
+            assert bool(torch.isfinite(last).all()), f"{path}: not finite"
+            log(f"prefill ({path}) B={PREFILL_B} T={PREFILL_T} max_len "
+                f"{PREFILL_MAX_LEN}: {wall * 1e3:.1f} ms, "
+                f"{PREFILL_B * PREFILL_T / wall:.0f} tokens/s, launches "
+                f"{counts}, peak device memory {peak / 1e9:.3f} GB; "
+                f"{DECODE_STEPS} decode steps at B={PREFILL_B}: "
+                f"{dwall / DECODE_STEPS * 1e3:.2f} ms a step, launches "
+                f"{dcounts}  on {card}")
+        k, pl = runs["kernels"], runs["plain"]
+        assert k["counts"] == {"flash_attention": Lr, "rmsnorm": 2 * Lr + 1}, \
+            k["counts"]
+        assert pl["counts"] == {"flash_attention": 0, "rmsnorm": 0}
+        assert k["dcounts"] == {"flash_attention": 0,
+                                "rmsnorm": DECODE_STEPS * (2 * Lr + 1)}
+        tf_launches["prefill"] = k["counts"]
+        tf_launches["decode"] = k["dcounts"]
+        err = normwise(k["last"], pl["last"])
+        agree = float((k["last"].argmax(-1) == pl["last"].argmax(-1))
+                      .float().mean())
+        log(f"prefill last-position logits, kernels vs plain: normwise "
+            f"error {err:.3g} (tolerance {LOGIT_TOL}), argmax agreement "
+            f"{agree:.3f}")
+        assert err <= LOGIT_TOL, f"prefill logits differ ({err:.3g})"
+        errs = [normwise(a, b) for a, b in zip(k["steps"], pl["steps"])]
+        agree = np.mean([float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                         for a, b in zip(k["steps"], pl["steps"])])
+        log(f"{DECODE_STEPS} decode steps teacher-forced on the kernel "
+            f"path's tokens: normwise error per step max {max(errs):.3g}, "
+            f"mean {np.mean(errs):.3g} (tolerance {LOGIT_TOL}), argmax "
+            f"agreement {agree:.3f}")
+        assert max(errs) <= LOGIT_TOL, f"decode logits differ ({errs})"
+        ctx["prefill_tokens"] = tok
+
+    def serve_requests():
+        rng = np.random.default_rng(SERVE_SEED)
+        vocab = ctx["model"].cfg.vocab
+        out = []
+        for _ in range(SERVE_REQUESTS):
+            n = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+            out.append((rng.integers(0, vocab, n).tolist(),
+                        int(rng.integers(MAX_NEW[0], MAX_NEW[1] + 1))))
+        return out
+
+    def server_path():
+        model, params = ctx["model"], ctx["params"]
+        reqs = serve_requests()
+        Lr = model.cfg.n_layers
+        stats = {}
+        for policy in ("ooo", "naive"):
+            srv = serving.Server(model, params, n_slots=SERVE_SLOTS,
+                                 max_len=SERVE_MAX_LEN, policy=policy)
+            objs = [serving.Request(i, list(p), m)
+                    for i, (p, m) in enumerate(reqs)]
+            for r in objs:
+                srv.submit(r)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tlib.reset_launches()
+            t0 = time.perf_counter()
+            st = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(tlib.launches)
+            peak = torch.cuda.max_memory_allocated()
+            tf_launches[f"server/{policy}"] = counts
+            stats[policy] = st
+            assert st.completed == SERVE_REQUESTS and all(
+                r.done and len(r.out) == r.max_new for r in objs), \
+                f"{policy}: {st.completed} of {SERVE_REQUESTS} completed"
+            assert counts == {"flash_attention": 0,
+                              "rmsnorm": st.steps * (2 * Lr + 1)}, counts
+            log(f"Server {policy}: {SERVE_REQUESTS} requests, {st.steps} "
+                f"steps, utilization {st.utilization(SERVE_SLOTS):.4f}, "
+                f"{st.slot_busy_steps} slot-steps in {wall:.3f} s: "
+                f"{st.slot_busy_steps / wall:.1f} tokens/s, "
+                f"{wall / st.steps * 1e3:.2f} ms a step, K16 launches a "
+                f"step {counts['rmsnorm'] / st.steps:.0f}, peak device "
+                f"memory {peak / 1e9:.3f} GB  on {card}")
+            ctx[f"server_{policy}"] = objs
+        assert stats["ooo"].steps < stats["naive"].steps, \
+            f"ooo {stats['ooo'].steps} steps, naive {stats['naive'].steps}"
+        log(f"ooo takes {stats['ooo'].steps} steps against naive's "
+            f"{stats['naive'].steps}: {stats['naive'].steps / stats['ooo'].steps:.4f}x")
+
+        # where a step's time goes: a traced window of steps mid-run
+        srv = serving.Server(model, params, n_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN)
+        for i, (p_, m) in enumerate(reqs):
+            srv.submit(serving.Request(i, list(p_), m))
+        for _ in range(48):
+            srv.step()
+
+        def steps(n):
+            for _ in range(n):
+                srv.step()
+        try:
+            events, wall_us = trace_window(torch, lambda: steps(1),
+                                           lambda: steps(TRACE_STEPS))
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"server step profile not measured (profiler: {e})")
+        else:
+            busy = sum(us for _k, us in events)
+            log(f"Server step profile ({TRACE_STEPS} steps from step 49, "
+                f"{sum(srv.busy)} busy slots): {wall_us / TRACE_STEPS / 1e3:.3f}"
+                f" ms wall a step, device busy {busy / TRACE_STEPS / 1e3:.3f} "
+                f"ms a step ({100 * busy / wall_us:.1f} %), "
+                f"{len(events) / TRACE_STEPS:.0f} device activities a step  "
+                f"on {card}")
+            for key, us, cnt in costliest(events, TRACE_STEPS):
+                log(f"    {us:9.1f} us/step  x{cnt:<4d} {key}")
+
+        # one staggered request against greedy decoding at B = 1 (printed,
+        # not gated: the batch size changes the matmul kernels, so bf16
+        # near-ties may flip)
+        r = ctx["server_ooo"][STAGGERED]
+        want = specdecode.greedy_decode(model, params,
+                                        np.asarray([r.prompt]), len(r.out),
+                                        SERVE_MAX_LEN)[0].tolist()
+        same = next((i for i, (a, b) in enumerate(zip(r.out, want))
+                     if a != b), len(want))
+        log(f"request {STAGGERED} (prompt {len(r.prompt)}, {len(r.out)} new "
+            f"tokens) under ooo against greedy_decode at B=1: the first "
+            f"{same} tokens agree, {sum(a == b for a, b in zip(r.out, want))}"
+            f" of {len(want)} in all")
+
+    for name, fn in (("9a K15 and K16 vs plain", tf_vs_plain),
+                     ("9 model setup", model_setup)):
+        phase(name, fn)
+    if "model" in ctx:
+        phase("9b prefill at full width", prefill_path)
+        phase("9c the Server at full width", server_path)
+
     # 5b. DSP kernel times at each path's shape -----------------------------
     def dsp_times():
         log(f"torch.get_float32_matmul_precision() = "
@@ -1277,7 +1655,74 @@ def main() -> int:
     if paths <= set(path_launches):
         phase("5b DSP kernel times", dsp_times)
 
-    n_kernels = len(cuda_step.KERNELS) + len(dsp.launches)
+    def tf_times():
+        F = torch.nn.functional
+        cfg = ctx["model"].cfg
+        H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        B, T = PREFILL_B, PREFILL_T
+        shapes = {"flash_attention": (B * H, T, T, Dh, True, 0),
+                  "rmsnorm": (B * T, cfg.d_model)}
+        for i, name in enumerate(tlib.launches):
+            args = tf_case(torch, name, shapes[name], torch.bfloat16, 500 + i)
+            if name == "flash_attention":
+                q, k, v, causal, q_offset = args
+                kw = dict(causal=causal, q_offset=q_offset)
+                wrapper = functools.partial(attention.flash_attention, q, k,
+                                            v, **kw)
+                plain = functools.partial(
+                    lambda q, k, v: ref.flash_attention(
+                        q[:, None], k[:, None], v[:, None], **kw)[:, 0],
+                    q, k, v)
+                # the yardstick on the model's own layout: (B, Hq, T, D)
+                # queries against the repeated bf16 K/V, causal
+                q4 = q.view(B, H, T, Dh)
+                k4 = k.view(B, Hkv, H // Hkv, T, Dh)[:, :, 0] \
+                    .repeat_interleave(H // Hkv, dim=1)
+                v4 = v.view(B, Hkv, H // Hkv, T, Dh)[:, :, 0] \
+                    .repeat_interleave(H // Hkv, dim=1)
+                lib_call = functools.partial(
+                    F.scaled_dot_product_attention, q4, k4, v4,
+                    is_causal=True)
+                lib_name = "scaled_dot_product_attention"
+            else:
+                x, w = args
+                wrapper = functools.partial(rmsnorm.rmsnorm, x, w, cfg.norm_eps)
+                plain = functools.partial(ref.rmsnorm, x, w, cfg.norm_eps)
+                lib_call = functools.partial(F.rms_norm, x, (x.shape[1],), w,
+                                             cfg.norm_eps)
+                lib_name = "rms_norm"
+            bound, by, fp32_ms = tf_bound(name, args)
+            calls = [wrapper] * 23
+            k_call = events_ms(torch, calls)
+            p_call = events_ms(torch, [plain] * 8)
+            k_dev = profiled_ms(torch, calls, f"{name}_kernel")
+            lib = events_ms(torch, [lib_call] * 23)
+            by_path = {path: c.get(name, 0) for path, c in tf_launches.items()}
+            rows.append(dict(
+                name=name, route="cuda", source=TF_SOURCE,
+                replaces=TF_REPLACES[name],
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=tf_err[name],
+                ms=k_dev if k_dev is not None else k_call,
+                kernel_ms=k_dev if k_dev is not None else k_call,
+                call_ms=k_call, plain_ms=p_call, bound_ms=bound,
+                bound_by=by, library_ms=lib,
+                shape=list(shapes[name][:4] if name == "flash_attention"
+                           else shapes[name]), dtype="bfloat16"))
+            dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
+            log(f"{name:15s} {shapes[name]} bf16  kernel {dev} on the "
+                f"device, {k_call:.4f} ms per call  plain {p_call:.4f} ms  "
+                f"library {lib:.4f} ms ({lib_name})  bound {bound:.4f} ms "
+                f"({by}; its work at the fp32 CUDA-core rate "
+                f"{fp32_ms:.4f} ms)  launches {by_path}  on {card}")
+    if {"prefill", "decode", "server/ooo", "server/naive"} <= set(tf_launches):
+        phase("5b transformer kernel times", tf_times)
+
+    n_kernels = len(cuda_step.KERNELS) + len(dsp.launches) + len(tlib.launches)
+    if only:
+        log(f"--only {' '.join(only)}: failed phases {failures}; no kernels "
+            "line")
+        return 1 if failures else 0
     if failures or len(rows) != n_kernels:
         log(f"FAILED phases: {failures or ['kernel times (not run)']}")
         return 1

@@ -666,17 +666,24 @@ def compare(program, *,
             max_cycles: int = 5_000_000, max_prog: Optional[int] = None,
             max_fu_per_class: Optional[int] = None,
             policy: Optional[SchedPolicy] = None, fu_cost=None,
-            device=None) -> CompareReport:
+            device=None) -> "CompareReport | PopulationCompareReport":
     """Differential execution: golden oracle vs the torch machine with
     event-skip **on and off**, for every scheduler cost model.
 
     Raises :class:`MismatchError` (naming program, scheduler and mode) on
-    the first schedule-tuple or cycle-count disagreement.  One program
-    only: a population goes to :func:`compare_population`.
+    the first schedule-tuple or cycle-count disagreement.
+
+    **Population mode**: handed a sequence of programs (or a
+    :class:`~repro_torch.core.hts.batch.PackedPopulation`), delegates to
+    :func:`compare_population`, as the reference does, and returns its
+    :class:`PopulationCompareReport`.
     """
     if _is_population(program):
-        raise TypeError("compare takes one program; use compare_population "
-                        "for a sequence of programs")
+        return compare_population(
+            program, schedulers=schedulers, n_fu=n_fu, params=params,
+            max_cycles=max_cycles, max_prog=max_prog,
+            max_fu_per_class=max_fu_per_class, policy=policy,
+            fu_cost=fu_cost, device=device)
     prep = batch.prepare(program)
     if max_prog is None:
         max_prog = 256

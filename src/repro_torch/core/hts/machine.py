@@ -61,7 +61,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False (no CUDA device here); pass device='cpu' to run the plain "
-            "torch machine on the CPU")
+            "torch version on the CPU")
     return dev
 
 

@@ -1,0 +1,58 @@
+"""K15 ``flash_attention`` (forward): the CUDA kernel
+(``csrc/transformer.cu``) and its wrapper.
+
+Counterpart of the reference's ``kernels/attention.py``.  The kernel takes
+heads already flattened and GQA already repeated (``ops.flash_attention``
+does both), head dims 32, 64 and 128, and float32 or bfloat16
+inputs.  It masks keys at index ``>= Tk`` itself: the reference kernel's
+last key block reads past ``Tk`` and returns NaN when ``Tk`` is above its
+block of 128 and not a multiple of it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .common import DTYPE_CODES, TRANSFORMER_LIB, check, on_card
+
+#: head dims the kernel is built for (a template parameter each)
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (BH, Tq, D); k, v: (BH, Tk, D) → (BH, Tq, D) in q's dtype.
+
+    ``q_offset`` (>= 0) positions q[0] at absolute key index ``q_offset``
+    (chunked prefill, decode append)."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"q and k must be (BH, T, D), got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    BH, Tq, D = q.shape
+    Tk = k.shape[1]
+    dev = q.device
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_attention takes {list(DTYPE_CODES)}, got "
+                        f"{q.dtype}")
+    check("q", q, dev, (BH, Tq, D), q.dtype)
+    check("k", k, dev, (BH, Tk, D), q.dtype)
+    check("v", v, dev, (BH, Tk, D), q.dtype)
+    if Tk < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
+    if scale is None:
+        scale = D ** -0.5
+    if not on_card(dev):
+        return ref.flash_attention(q[:, None], k[:, None], v[:, None],
+                                   causal=causal, scale=scale,
+                                   q_offset=q_offset)[:, 0]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    out = torch.empty_like(q)
+    TRANSFORMER_LIB.launch("tf_flash_attention", "flash_attention", BH, Tq,
+                           Tk, D, DTYPE_CODES[q.dtype], int(causal),
+                           q_offset, float(scale), q, k, v, out)
+    return out

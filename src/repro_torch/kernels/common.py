@@ -1,7 +1,8 @@
-"""What the DSP kernel wrappers share: the ``csrc/dsp.cu`` library, the
+"""What the kernel wrappers share: the two CUDA libraries (``csrc/dsp.cu``
+for the DSP kernels, ``csrc/transformer.cu`` for K15 and K16), their
 launch counters, and the input checks.
 
-The library is built at first use with ``nvcc`` for ``sm_90a`` into
+Each library is built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` (:mod:`repro_torch._build`); nothing is compiled at
 import, so the CPU tests import every module.  A wrapper launches its
 kernel for CUDA tensors and hands CPU tensors to its plain version in
@@ -36,6 +37,18 @@ launches, reset_launches = LIB.launches, LIB.reset_launches
 on_card = _build.on_card
 
 
+#: ``csrc/transformer.cu``: K16 ``rmsnorm`` and K15 ``flash_attention``,
+#: with their own launch counters; the input's dtype goes to the C entries
+#: as an int (:data:`DTYPE_CODES`)
+TRANSFORMER_LIB = _build.Library("transformer.cu", {
+    # sizes..., dtype, flags..., scalars..., pointers..., stream
+    "tf_rmsnorm": [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    "tf_flash_attention": [_I] * 7 + [_F] + [_P] * 4 + [_P],
+}, ("rmsnorm", "flash_attention"))
+#: the dtypes the transformer kernels take, and their codes in the C entries
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def launch(name: str, *args) -> None:
     """Launch ``dsp_<name>`` on the current stream, then count it under
     ``name``."""
@@ -43,15 +56,16 @@ def launch(name: str, *args) -> None:
 
 
 def check(name: str, t: torch.Tensor, device: torch.device,
-          shape: tuple) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device``."""
+          shape: tuple, dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on ``device``."""
     if not torch.is_tensor(t):
         raise TypeError(f"{name} is a {type(t).__name__}, expected a tensor")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected "
+                        f"{str(dtype).removeprefix('torch.')}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

@@ -1,10 +1,11 @@
-"""The public DSP ops and the accelerator dispatch table.
+"""The public ops: the ten Table II functions with the accelerator
+dispatch table, and the transformer's ``rmsnorm`` and ``flash_attention``.
 
-Counterpart of the reference's ``kernels/ops.py`` for the ten Table II
-functions.  The ops need no row padding: the kernels mask the
-ragged batch edge themselves (the reference pads rows to its block size).
-The composition around the kernels (stack, slice, broadcast) stays plain
-torch, as it stayed ``jnp`` in the reference.
+Counterpart of the reference's ``kernels/ops.py``.  The ops need no row
+padding: the kernels mask the ragged edge themselves (the reference pads
+rows to its block size).  The composition around the kernels (stack,
+slice, broadcast, the GQA repeat) stays plain torch, as it stayed ``jnp``
+in the reference.
 """
 from __future__ import annotations
 
@@ -13,14 +14,17 @@ import functools
 import torch
 
 from ..core.hts.costs import FUNCTIONS
+from . import attention as _attn
 from . import ref
+from . import rmsnorm as _rms
 from .dsp_fir import adaptive_fir, complex_fir, iir, real_fir
 from .dsp_spectral import dct, fft_256
 from .dsp_vector import correlation, vector_add, vector_dot, vector_max
 
 __all__ = ["real_fir", "complex_fir", "adaptive_fir", "iir", "vector_dot",
            "vector_add", "vector_max", "correlation", "fft_256", "dct",
-           "dsp_dispatch_table", "plain_dispatch_table", "DispatchTable"]
+           "dsp_dispatch_table", "plain_dispatch_table", "DispatchTable",
+           "rmsnorm", "flash_attention"]
 
 
 class DispatchTable(dict):
@@ -120,3 +124,37 @@ def plain_dispatch_table() -> DispatchTable:
     return _table(ref.real_fir, ref.complex_fir, ref.adaptive_fir, ref.iir,
                   ref.vector_dot, ref.vector_add, ref.vector_max,
                   ref.correlation, ref.fft_256, ref.dct)
+
+
+# ---------------------------------------------------------------------------
+# transformer ops (K15, K16)
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., D); w: (D,).  The leading dims go to the kernel as rows."""
+    shape = x.shape
+    flat = x.reshape(-1, shape[-1]).contiguous()
+    return _rms.rmsnorm(flat, w.contiguous(), eps).reshape(shape)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D), GQA repeated here.
+
+    Unlike the reference, which sends ``Tq < 8`` to its jnp reference (a
+    TPU tiling limit of its kernel), this launches K15 at every shape on
+    the card."""
+    B, Hq, Tq, D = q.shape
+    Hkv = k.shape[1]
+    if Hq != Hkv:
+        rep = Hq // Hkv
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    Tk = k.shape[2]
+    out = _attn.flash_attention(
+        q.reshape(B * Hq, Tq, D).contiguous(),
+        k.reshape(B * Hq, Tk, D).contiguous(),
+        v.reshape(B * Hq, Tk, D).contiguous(),
+        causal=causal, scale=scale, q_offset=int(q_offset))
+    return out.reshape(B, Hq, Tq, D)

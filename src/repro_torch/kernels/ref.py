@@ -1,9 +1,11 @@
-"""Plain torch versions of the DSP kernels (the paper's Table II).
+"""Plain torch versions of the kernels: the DSP kernels (the paper's Table
+II) and the transformer's K15 ``flash_attention`` and K16 ``rmsnorm``.
 
 Counterpart of the reference's ``kernels/ref.py`` for ``real_fir``,
 ``complex_fir``, ``adaptive_fir``, ``iir``, ``vector_dot``, ``vector_add``,
-``vector_max``, ``correlation``, ``fft``/``fft_256`` and ``dct``, each in
-the reference's formula and layout.  They are what the wrappers compute on CPU
+``vector_max``, ``correlation``, ``fft``/``fft_256``, ``dct``, ``rmsnorm``
+and ``flash_attention``, each in the reference's formula, layout and
+rounding order.  They are what the wrappers compute on CPU
 tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on the
 card.  The FFT is the reference kernel's own radix-2 recurrence (a
 bit-reversal pre-pass, then ``log2 N`` butterfly stages over float32
@@ -12,6 +14,7 @@ twiddle tables), not ``torch.fft``.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -216,3 +219,36 @@ def dct_mat(N: int, device: torch.device) -> torch.Tensor:
 def dct(x: torch.Tensor) -> torch.Tensor:
     """DCT-II over the last axis: ``x @ dct_matrix(N).T``. (B, N) → (B, N)"""
     return x @ dct_mat(x.shape[-1], x.device).T
+
+
+# ---------------------------------------------------------------------------
+# transformer hot spots (K15, K16)
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``(x * rsqrt(mean(x²) + eps))`` in float32, rounded to x's dtype,
+    then times ``w`` (one more rounding in that dtype), over the last
+    axis."""
+    dt = x.dtype
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * r).to(dt) * w
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Multi-head attention in float32, output in q's dtype: q (B, H, Tq,
+    D), k/v (B, H, Tk, D).  ``q_offset`` is the absolute position of q[0]
+    against k[0]; the causal mask is ``-inf``, so a row with no key left is
+    NaN, as in the reference."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        Tq, Tk = q.shape[2], k.shape[2]
+        qi = torch.arange(Tq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(Tk, device=q.device)[None, :]
+        logits = logits.masked_fill(ki > qi, -math.inf)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,255 @@
+"""Model building blocks: parameter templates, norms, RoPE, attention, MLP.
+
+Port of the reference's ``models/layers.py``.  Parameters are plain nested
+dicts of tensors, the reference's tree.  Each model defines a *template*
+tree of :class:`Spec` descriptors (shapes, logical axes, initializers),
+from which :func:`init_params` materializes random parameters.
+
+Departures from the reference, each with its reason:
+
+* The reference keeps float32 parameters and casts them to
+  ``COMPUTE_DTYPE`` at every use.  The port keeps each parameter as that
+  cast, done once at load (:func:`init_params`,
+  :func:`repro_torch.models.convert.params_from_reference`): the same
+  numbers, without re-reading the float32 weights on every step.  The
+  ``cast`` calls stay, and are no-ops on such parameters.
+* ``sharding.rules.constraint`` has no counterpart on one card and is
+  dropped; a :class:`Spec` keeps its logical axes as data.
+* Random draws come from an explicit ``torch.Generator`` on the target
+  device, so they are not JAX's draws: only ``params_from_reference``
+  makes the two packages compute the same function.  The distribution is
+  the reference's, including its fan-in: for a stacked layer tensor
+  (``stack_layers``) that is the leading layer count.
+* The decode flags ``decode_gqa_packed`` and ``decode_kv_int8`` are not
+  ported (ROADMAP Queue 1 item 5e): set, they raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from ..kernels import ops
+from ..runtime import flags
+
+COMPUTE_DTYPE = torch.bfloat16
+
+#: the reference's decode-attention mask value (its kernel's, too)
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Descriptor for one parameter tensor."""
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]      # logical sharding axes
+    init: str = "normal"                 # normal | zeros | ones
+    scale: Optional[float] = None        # fan-in scaling override
+
+    def materialize(self, gen: torch.Generator,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """The tensor on ``gen``'s device, in ``dtype``: zeros, ones, or a
+        float32 normal draw times ``scale`` (default 1/sqrt(fan-in)),
+        rounded once to ``dtype``."""
+        dev = gen.device
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=dev)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=dev)
+        scale = self.scale
+        if scale is None:
+            fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        t = torch.randn(self.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return t.mul_(scale).to(dtype)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts, in the dicts' order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_params(gen: torch.Generator, template) -> Any:
+    """Materialize every Spec of ``template`` on ``gen``'s device in
+    ``COMPUTE_DTYPE``, in the template's order."""
+    return tree_map(lambda s: s.materialize(gen, COMPUTE_DTYPE), template)
+
+
+def param_count(template) -> int:
+    shapes: list = []
+    tree_map(lambda s: shapes.append(s.shape), template)
+    return sum(math.prod(sh) for sh in shapes)
+
+
+def stack_layers(layer_template, n: int) -> Any:
+    """Prepend a 'layers' axis of ``n`` to every Spec in a layer template."""
+    return tree_map(
+        lambda s: Spec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale),
+        layer_template)
+
+
+def cast(x: torch.Tensor) -> torch.Tensor:
+    return x.to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+def rmsnorm(x, scale, eps):
+    return ops.rmsnorm(x, cast(scale), eps)
+
+
+def linear(x, w, b=None):
+    y = x @ cast(w)
+    if b is not None:
+        y = y + cast(b)
+    return y
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding in float32. x: (..., T, H, D); positions: (T,) or
+    (..., T)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., :, None].to(torch.float32) * freqs   # (..., T, half)
+    cos = torch.cos(ang)[..., :, None, :]                    # (..., T, 1, half)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def silu(x):
+    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, every
+    op rounded to x's dtype: ``jax.nn.silu`` is ``x * logistic(x)``, and
+    XLA expands ``logistic`` into those four ops, each rounded in bfloat16
+    (``torch.sigmoid`` rounds once, and differs in a quarter of bfloat16
+    inputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = silu(linear(x, w_gate)) * linear(x, w_up)
+    return linear(h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, RoPE, optional KV cache)
+# ---------------------------------------------------------------------------
+def attn_template(cfg) -> dict:
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t = {
+        "wq": Spec((D, H * Dh), ("embed_fsdp", "heads")),
+        "wk": Spec((D, Hkv * Dh), ("embed_fsdp", "kv_heads")),
+        "wv": Spec((D, Hkv * Dh), ("embed_fsdp", "kv_heads")),
+        "wo": Spec((H * Dh, D), ("heads", "embed_fsdp")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = Spec((H * Dh,), ("heads",), init="zeros")
+        t["bk"] = Spec((Hkv * Dh,), ("kv_heads",), init="zeros")
+        t["bv"] = Spec((Hkv * Dh,), ("kv_heads",), init="zeros")
+    return t
+
+
+def attn_qkv(p, cfg, x, positions):
+    """x: (B, T, D) → q (B, H, T, Dh), k/v (B, Hkv, T, Dh), RoPE on q, k."""
+    B, T, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(x, p["wq"], p.get("bq")).reshape(B, T, H, Dh)
+    k = linear(x, p["wk"], p.get("bk")).reshape(B, T, Hkv, Dh)
+    v = linear(x, p["wv"], p.get("bv")).reshape(B, T, Hkv, Dh)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def attn_out(p, x_attn):
+    """x_attn: (B, H, T, Dh) → (B, T, D)."""
+    B, H, T, Dh = x_attn.shape
+    y = x_attn.transpose(1, 2).reshape(B, T, H * Dh)
+    return linear(y, p["wo"])
+
+
+def self_attention(p, cfg, x, positions):
+    """Causal self-attention over x: (B, T, D), on K15."""
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    return attn_out(p, ops.flash_attention(q, k, v, causal=True))
+
+
+def _write_lanes(cache, new, pos):
+    """``cache[b, :, pos[b]] = new[b]`` for every lane, in place.  The
+    reference's ``.at[b, h, pos].set`` counts a negative index from the
+    end and drops one outside the cache; torch indexing would raise, so
+    such a lane rewrites its old row instead."""
+    Tmax = cache.shape[2]
+    idx = torch.where(pos < 0, pos + Tmax, pos)
+    keep = (idx >= 0) & (idx < Tmax)
+    idx = idx.clamp(0, Tmax - 1).long()
+    b = torch.arange(cache.shape[0], device=cache.device)
+    old = cache[b, :, idx]                                # (B, Hkv, Dh)
+    cache[b, :, idx] = torch.where(keep[:, None, None], new.to(cache.dtype),
+                                   old)
+
+
+def decode_attention(p, cfg, x, cache_k, cache_v, pos):
+    """One-token decode. x: (B, 1, D); cache_k/v: (B, Hkv, Tmax, Dh),
+    written in place; pos: an int (every lane at that position) OR a (B,)
+    int tensor of per-lane positions (continuous batching: each serving
+    slot may be at a different depth).  Returns (y, cache_k, cache_v)."""
+    if flags.FLAGS.decode_gqa_packed:
+        raise NotImplementedError(
+            "FLAGS.decode_gqa_packed is not ported yet (ROADMAP Queue 1 "
+            "item 5e, the decode flags)")
+    B = x.shape[0]
+    Hkv, Tmax = cfg.n_kv_heads, cache_k.shape[2]
+    per_lane = torch.is_tensor(pos) and pos.dim() == 1
+    if per_lane:
+        pos = pos.to(device=x.device, dtype=torch.int32)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    if per_lane:
+        _write_lanes(cache_k, k[:, :, 0], pos)
+        _write_lanes(cache_v, v[:, :, 0], pos)
+        row_pos = pos[:, None, None, None]
+    else:
+        # dynamic_update_slice clamps the start so that the row fits
+        start = min(max(pos, 0), Tmax - 1)
+        cache_k[:, :, start:start + 1] = k.to(cache_k.dtype)
+        cache_v[:, :, start:start + 1] = v.to(cache_v.dtype)
+        row_pos = pos
+    Hq = cfg.n_heads
+    scale = cfg.head_dim ** -0.5
+    kk = cache_k.repeat_interleave(Hq // Hkv, dim=1)
+    vv = cache_v.repeat_interleave(Hq // Hkv, dim=1)
+    # masked single-query attention over the cache (memory-bound; plain
+    # torch, as the reference's is plain jnp)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    mask = torch.arange(Tmax, device=x.device)[None, None, None, :] <= row_pos
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", w, vv.float()).to(x.dtype)
+    return attn_out(p, o), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits, labels, mask=None):
+    """logits (..., V) fp32 CE; labels int; mask optional weights."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -11,7 +11,10 @@ installed.  The step kernels' state is int32/bool: tolerance zero.  The
 DSP kernels are float32, held to the reference tests' tolerances (1e-5;
 1e-4 for the DCT and K6–K8; 1e-3 for the FFT; ``vector_add`` and
 ``vector_max`` bit for bit, NaN in the same places), at ragged batches
-that leave part of the last block empty.
+that leave part of the last block empty.  K15 and K16 take float32 and
+bfloat16 (K16 also float16): K16 within 1e-5 in float32 and 2e-2 in the
+16-bit types, K15 within 2e-3 and 2e-2, at ragged lengths and every head
+dim; the smoke model's kernel path within 1e-1 normwise of its plain path.
 """
 import pytest
 import torch
@@ -21,6 +24,8 @@ from repro_torch.core.hts import (batch, costs, cuda_step, machine, programs,
 from repro_torch.examples import dsp_pipeline
 from repro_torch.kernels import common as dsp
 from repro_torch.kernels import dsp_fir, dsp_spectral, dsp_vector, ops, ref
+from repro_torch.kernels import attention, rmsnorm
+from repro_torch.models import registry
 
 pytestmark = pytest.mark.cuda
 
@@ -325,3 +330,93 @@ def test_image_and_shared_pipelines_on_card_match_plain(card, tiles):
                                      ops.plain_dispatch_table())
         assert bool(torch.isfinite(out).all())
         torch.testing.assert_close(out, plain, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the transformer's K15 and K16
+# ---------------------------------------------------------------------------
+TF_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+                                           # (rmsnorm, attention)
+def _tf_counted(name, fn, *args, **kw):
+    """Call a transformer wrapper once; it must launch its kernel once."""
+    lib = dsp.TRANSFORMER_LIB
+    before = lib.launches[name]
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert lib.launches[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, 7, 33, 300])
+@pytest.mark.parametrize("d", [32, 100, 1536])
+@pytest.mark.parametrize("dtype", list(TF_TOL))
+def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype):
+    x = _frames(card, rows * d, rows, d).to(dtype)
+    w = _frames(card, d, d).to(dtype)
+    got = _tf_counted("rmsnorm", rmsnorm.rmsnorm, x, w, 1e-6)
+    tol = TF_TOL[dtype][0]
+    torch.testing.assert_close(got, ref.rmsnorm(x, w, 1e-6), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("tq,tk,q_offset", [(1, 77, 76), (5, 9, 4),
+                                            (200, 200, 0), (64, 300, 236),
+                                            (1000, 1000, 0)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, tq, tk, q_offset, d,
+                                              causal, dtype):
+    """Ragged query and key lengths (no multiple of the kernel's blocks),
+    q_offset, every head dim: held against the plain version.  q and k are
+    unscaled, so the scores' spread is about 1 and each query attends to a
+    few keys: a wrong mask, or probabilities rounded to bfloat16 before
+    P·V, lands well outside the float32 tolerance."""
+    q = _frames(card, tq + d, 3, tq, d).to(dtype)
+    k = _frames(card, tk + d + 1, 3, tk, d).to(dtype)
+    v = _frames(card, tk + d + 2, 3, tk, d).to(dtype)
+    got = _tf_counted("flash_attention", attention.flash_attention, q, k, v,
+                      causal=causal, q_offset=q_offset)
+    want = ref.flash_attention(q[:, None], k[:, None], v[:, None],
+                               causal=causal, q_offset=q_offset)[:, 0]
+    assert bool(torch.isfinite(got).all())
+    tol = TF_TOL[dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_transformer_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(2, 8, 48, device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        attention.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float64"):
+        rmsnorm.rmsnorm(torch.zeros(2, 8, device=card, dtype=torch.float64),
+                        torch.zeros(8, device=card, dtype=torch.float64))
+
+
+def test_smoke_model_kernel_path_matches_plain_path(card, monkeypatch):
+    """Qwen2-1.5B's smoke config on the card: prefill and decode steps
+    launch K15 (once a layer, prefill only) and K16 (twice a layer and
+    once more, every call), and the logits agree with the plain ops."""
+    m = registry.build_smoke("qwen2-1.5b")
+    p = m.init(0)
+    tok = torch.randint(0, m.cfg.vocab, (2, 100), device=card)
+    lib = dsp.TRANSFORMER_LIB
+    lib.reset_launches()
+    logits, cache = m.prefill(p, tok, 128)
+    step, cache = m.decode_step(p, cache, tok[:, :1], 100)
+    torch.cuda.synchronize()
+    L = m.cfg.n_layers
+    assert lib.launches == {"flash_attention": L, "rmsnorm": 2 * (2 * L + 1)}
+    # the plain path: ops calls the plain versions in place of the wrappers
+    monkeypatch.setattr(rmsnorm, "rmsnorm", ref.rmsnorm)
+    monkeypatch.setattr(
+        attention, "flash_attention",
+        lambda q, k, v, **kw: ref.flash_attention(
+            q[:, None], k[:, None], v[:, None], **kw)[:, 0])
+    plain, pcache = m.prefill(p, tok, 128)
+    pstep, _ = m.decode_step(p, pcache, tok[:, :1], 100)
+    torch.cuda.synchronize()
+    assert lib.launches == {"flash_attention": L, "rmsnorm": 2 * (2 * L + 1)}
+    for got, want in ((logits, plain), (step, pstep)):
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert float(err) <= 1e-1, float(err)

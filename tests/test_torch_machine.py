@@ -134,8 +134,9 @@ def test_compare_golden_event_skip_on_and_off():
                        device="cpu")
     assert rep.n_modes == 3 and set(rep.results) == {"hts_nospec",
                                                      "hts_spec"}
-    with pytest.raises(TypeError, match="one program"):
-        thts.compare([p, p], device="cpu")
+    pop = thts.compare([p, p], schedulers=("hts_spec",), device="cpu")
+    assert isinstance(pop, thts.PopulationCompareReport)
+    assert pop.cycles["hts_spec"].tolist() == [rep.cycles("hts_spec")] * 2
 
 
 @pytest.mark.parametrize("budget", [1, 7, 64])

@@ -106,3 +106,25 @@ def test_compare_population_passes_and_names_a_mismatch(monkeypatch):
                              r"event_skip=on"):
         thts.compare_population(progs, schedulers=("hts_spec",),
                                 device="cpu")
+
+
+def test_compare_on_a_sequence_delegates_to_compare_population():
+    """``compare`` handed a sequence of programs returns what the
+    reference's does: a population report with the same fields and the
+    same per-scheduler cycles."""
+    names = ("no_dependency", "random_dependency")
+    args = {"no_dependency": (1,), "random_dependency": (2,)}
+    scheds = ("naive", "hts_spec")
+    want = jhts.compare([getattr(jprograms, n)(*args[n]) for n in names],
+                        schedulers=scheds)
+    got = thts.compare([getattr(tprograms, n)(*args[n]) for n in names],
+                       schedulers=scheds, device="cpu")
+    assert type(got).__name__ == type(want).__name__ == \
+        "PopulationCompareReport"
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+    assert got.names == want.names == names
+    assert got.schedulers == want.schedulers == scheds
+    assert got.n_modes == want.n_modes == 3 and len(got) == 2
+    for s in scheds:
+        assert got.cycles[s].tolist() == np.asarray(want.cycles[s]).tolist()

@@ -1,0 +1,196 @@
+"""The port's K15 ``flash_attention`` and K16 ``rmsnorm`` (their plain
+versions, which the wrappers run on CPU tensors) held against the JAX
+reference.
+
+Inputs are made from a seed with numpy and handed to both packages.  The
+JAX ops run their Pallas kernels in interpret mode, as
+``tests/test_kernels_transformer.py`` runs them, at that file's shapes plus
+head dim 128 and GQA 6:1 (Qwen2-1.5B's 12 query heads on 2 KV heads), with
+its tolerances: rmsnorm 1e-5 in float32, 2e-2 in bfloat16; attention
+2e-3.  Unlike that file, q and k are not scaled down: the scores have a
+standard deviation of about 1, so each query attends to a few keys and a
+wrong mask or a coarse rounding of the probabilities shows.  The Pallas attention is compared only where its key
+length is at most 128 or a multiple of 128: above 128 and ragged, its last
+key block reads past the keys and the result is NaN (pinned below), so at
+ragged lengths the port is held against the JAX plain
+``ref.flash_attention``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+
+from repro_torch.kernels import attention, common, rmsnorm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+ATTN_TOL = 2e-3
+JNP = {np.float32: jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {np.float32: torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small eager ops: one intra-op thread is faster than eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def arr(seed, *shape):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def both(a, dtype=np.float32):
+    """The same values in both packages, rounded once to ``dtype``."""
+    j = jnp.asarray(a).astype(JNP[dtype])
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        TORCH[dtype])
+
+
+def f32(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("rows,d", [(1, 128), (300, 256), (8, 512),
+                                    (33, 1536)])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_rmsnorm_matches_the_pallas_op(rows, d, dtype):
+    jx, tx = both(arr(rows * d, rows, d), dtype)
+    jw, tw = both(arr(d, d), dtype)
+    tol = 1e-5 if dtype == np.float32 else 2e-2
+    got = tops.rmsnorm(tx, tw)
+    assert got.dtype == TORCH[dtype] and got.shape == (rows, d)
+    np.testing.assert_allclose(f32(got), f32(jops.rmsnorm(jx, jw)),
+                               rtol=tol, atol=tol)
+
+
+def test_rmsnorm_flattens_leading_dims_and_rounds_like_the_reference():
+    """(B, T, D) through the op equals the row wrapper on (B·T, D); in
+    bfloat16 ``x·r`` is rounded before the product with ``w``, bit for bit
+    the reference's plain version."""
+    jx, tx = both(arr(7, 2, 5, 64), "bfloat16")
+    jw, tw = both(arr(8, 64), "bfloat16")
+    got = tops.rmsnorm(tx, tw, 1e-5)
+    flat = rmsnorm.rmsnorm(tx.reshape(10, 64), tw, 1e-5).reshape(2, 5, 64)
+    assert torch.equal(got, flat)
+    np.testing.assert_array_equal(f32(got), f32(jref.rmsnorm(jx, jw, 1e-5)))
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d", [
+    (1, 4, 4, 128, 64),
+    (2, 8, 2, 256, 64),       # GQA
+    (1, 2, 1, 384, 128),      # MQA
+    (1, 2, 2, 128, 128),      # head dim 128
+    (1, 12, 2, 128, 128),     # GQA 6:1, Qwen2-1.5B's heads
+    (2, 4, 1, 64, 32),        # the smoke model's heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_the_pallas_op(b, hq, hkv, t, d, causal):
+    jq, tq = both(arr(1, b, hq, t, d))
+    jk, tk = both(arr(2, b, hkv, t, d))
+    jv, tv = both(arr(3, b, hkv, t, d))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+def test_flash_attention_q_offset_matches_the_pallas_op():
+    """Chunked decode: 64 queries at the end of a 256-key cache."""
+    jq, tq = both(arr(4, 2, 4, 64, 64))
+    jk, tk = both(arr(5, 2, 4, 256, 64))
+    jv, tv = both(arr(6, 2, 4, 256, 64))
+    got = tops.flash_attention(tq, tk, tv, causal=True, q_offset=192)
+    want = jops.flash_attention(jq, jk, jv, causal=True, q_offset=192)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("tq,tk,q_offset,causal", [
+    (200, 200, 0, True), (200, 200, 0, False), (64, 300, 236, True),
+    (1, 77, 76, True), (5, 9, 4, True)])
+def test_flash_attention_at_ragged_lengths_matches_the_plain_reference(
+        tq, tk, q_offset, causal):
+    """Ragged key lengths (and the decode shape, one query) against the
+    JAX plain version, GQA 6:1 at head dim 128."""
+    jq, tq_ = both(arr(7, 1, 12, tq, 128))
+    jk, tk_ = both(arr(8, 1, 2, tk, 128))
+    jv, tv_ = both(arr(9, 1, 2, tk, 128))
+    got = tops.flash_attention(tq_, tk_, tv_, causal=causal,
+                               q_offset=q_offset)
+    want = jref.flash_attention(jq, jnp.repeat(jk, 6, axis=1),
+                                jnp.repeat(jv, 6, axis=1), causal=causal,
+                                q_offset=q_offset)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+def test_reference_pallas_attention_is_nan_past_128_ragged_keys():
+    """The reference caveat: at T = 200 the JAX Pallas op's second key
+    block (keys 128..255) reads 56 rows past the keys; rows 128..199 come
+    out NaN in interpret mode.  The port masks those keys: finite, and
+    equal to the plain reference within the attention tolerance."""
+    jq, tq = both(arr(10, 1, 2, 200, 32))
+    jk, tk = both(arr(11, 1, 2, 200, 32))
+    jv, tv = both(arr(12, 1, 2, 200, 32))
+    pallas = f32(jops.flash_attention(jq, jk, jv, causal=True))
+    nan_rows = np.isnan(pallas).any(axis=(0, 1, 3))
+    assert not nan_rows[:128].any() and nan_rows[128:].all()
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert bool(torch.isfinite(got).all())
+    want = f32(jref.flash_attention(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(f32(got), want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    np.testing.assert_allclose(f32(got)[:, :, :128], pallas[:, :, :128],
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+def test_wrappers_on_the_cpu_are_the_plain_versions_and_count_nothing():
+    common.TRANSFORMER_LIB.reset_launches()
+    q = torch.from_numpy(arr(13, 6, 40, 32))
+    k = torch.from_numpy(arr(14, 6, 50, 32))
+    v = torch.from_numpy(arr(15, 6, 50, 32))
+    got = attention.flash_attention(q, k, v, causal=True, q_offset=10)
+    want = tref.flash_attention(q[:, None], k[:, None], v[:, None],
+                                causal=True, q_offset=10)[:, 0]
+    assert torch.equal(got, want)
+    x, w = torch.from_numpy(arr(16, 9, 48)), torch.from_numpy(arr(17, 48))
+    assert torch.equal(rmsnorm.rmsnorm(x, w, 1e-5), tref.rmsnorm(x, w, 1e-5))
+    assert common.TRANSFORMER_LIB.launches == {"rmsnorm": 0,
+                                               "flash_attention": 0}
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "flash_attention"])
+def test_the_ops_refuse_float16(op):
+    """The kernels take float32 and bfloat16 only; the ops say so on every
+    device rather than run float16 through the plain version."""
+    x = torch.zeros(1, 2, 8, 32, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        if op == "rmsnorm":
+            tops.rmsnorm(x, torch.zeros(32, dtype=torch.float16))
+        else:
+            tops.flash_attention(x, x, x, causal=True)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros(4, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rmsnorm.rmsnorm(x, torch.zeros(16, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="int32"):
+        rmsnorm.rmsnorm(x.int(), torch.zeros(16).int())
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm.rmsnorm(torch.zeros(16, 4).T, torch.zeros(16))
+    q = torch.zeros(2, 8, 32)
+    with pytest.raises(ValueError, match="q_offset"):
+        attention.flash_attention(q, q, q, q_offset=-1)
+    with pytest.raises(ValueError, match="shape"):
+        attention.flash_attention(q, torch.zeros(2, 8, 16), q)
+    with pytest.raises(ValueError, match="at least one key"):
+        attention.flash_attention(q, q[:, :0], q[:, :0])

@@ -10,8 +10,9 @@ source, all started together) and drives the port's paths on the card —
 the population scheduler machine through ``run_many``; the audio, image
 and shared pipelines, whose schedules run the DSP kernels; the paper's
 evaluation (Table II, Figs 7, 8 and 10 through ``sweep``, the nine
-synthetic schedules executed); and Qwen2-1.5B at full width through
-``prefill`` and the continuous-batching ``Server`` — then checks them:
+synthetic schedules executed); Qwen2-1.5B at full width through
+``prefill`` and the continuous-batching ``Server``; rwkv6-3b and zamba2-7b
+at full width through ``forward`` and the ``Server`` — then checks them:
 
 1. device and build: the card's name and power limit, the two kernel
    libraries' builds (time and ``-Xptxas -v`` report);
@@ -72,7 +73,7 @@ synthetic schedules executed); and Qwen2-1.5B at full width through
    KV heads of 128, d_ff 8960, vocab 151936, QKV bias) with random
    bfloat16 weights from a seed: (a) K15 ``flash_attention`` and K16
    ``rmsnorm`` against their plain versions at the model's shapes, a
-   ragged length of 1000, every head dim, ``q_offset`` and the decode
+   ragged length of 1000, every head dim (112 too), ``q_offset`` and the decode
    shape, and at 8192, 32 and ragged rows of 1536, in bfloat16 (2e-2) and
    float32 (1e-5), q and k unscaled so that attention is peaked; (b) ``prefill`` of 4 × 2048 tokens into a
    2560-position cache, then 32 greedy ``decode_step``s, on the kernels
@@ -85,18 +86,43 @@ synthetic schedules executed); and Qwen2-1.5B at full width through
    launches a step, ``ooo`` takes fewer steps; tokens/s, ms a step, a
    traced window's device busy share and peak memory are printed, and
    one staggered request against ``greedy_decode`` at B = 1 (not gated);
+10. the ssm and hybrid families, rwkv6-3b (32 layers, d_model 2560, 40
+   WKV heads of 64) and zamba2-7b (81 layers: 13 groups of 6 Mamba-2
+   layers and a shared attention block, then 3; d_model 3584, 112 SSD
+   heads of 64, attention head dim 112) with random weights from a seed,
+   one model on the card at a time: (a) K17 ``wkv6`` and K18 ``ssd``
+   against their plain versions at both models' forward shapes, the JAX
+   tests' shapes and a ragged T of 1000, in bfloat16 (rtol = atol = 2e-2)
+   and float32 (1e-5 normwise), K15 at zamba2's head dim 112, and K16 at
+   both forwards' and Servers' rows of 2560 and 3584 (2e-2, 1e-5); (b)
+   ``forward`` on 2 × 1024 tokens: in bfloat16 on the kernels (32 K17 and
+   65 K16 launches; 81 K18, 13 K15 and 108 K16), on the plain ops, and on
+   the kernels but K16 (the bf16 floor: one exact op swapped), the
+   divergences printed; then in float32, kernels against plain within
+   the model's ``FP32_LOGIT_TOL`` normwise, the gate (the bf16 floor of
+   these deep random-weight models is above any useful limit), and a
+   control, K17/K18 swapped for the plain recurrence with its state
+   rounded to bfloat16, which must fail that gate; tokens/s and peak
+   memory; (c) the
+   ``Server``, 8 slots, 16 requests of 16 prompt and 16 new tokens: every
+   request completes, 65 (108) K16 launches a step and no K15, K17 or
+   K18 (decode is plain, as in the reference); ms a step and a traced
+   window's busy share; (d) at the smoke configs in float32, ``forward``
+   on the kernels against token-by-token ``decode_step`` over T = 100 at
+   1e-3, the reference's own check;
 5b. kernel times: device, call, plain and library times of the DSP
-   kernels at each path's shape and of K15 and K16 at the prefill's,
-   beside the bound.
+   kernels at each path's shape, of K15 and K16 at the prefill's (K15 at
+   zamba2's too) and of K17 and K18 at the models' forward shapes, beside
+   the bound.
 
 The last lines are the card (``nvidia-smi``), one JSON object
-``{"kernels": [...]}`` (all sixteen kernels), and ``{"ok": true,
+``{"kernels": [...]}`` (all eighteen kernels), and ``{"ok": true,
 "device": {...}}``.  Any failed
 phase exits non-zero without the last line; so does a machine without a
 card, or a directory without the rest of the repository.  ``--only
 PREFIX ...`` runs the build and the phases whose names start with a
-prefix (``--only 9 "5b transformer"``: the model path) and prints no
-kernels line.
+prefix (``--only 9 "5b transformer"``: the dense model path; ``--only
+10``: the ssm and hybrid families) and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -232,7 +258,9 @@ CYCLES = {"image": 18238, "audio": 37509, "shared": 37510}
 # the model path (phase 9): K15 and K16 (csrc/transformer.cu)
 TF_SOURCE = "src/repro_torch/csrc/transformer.cu"
 TF_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
-               "flash_attention": "src/repro/kernels/attention.py:92"}
+               "flash_attention": "src/repro/kernels/attention.py:92",
+               "wkv6": "src/repro/kernels/rwkv6.py:65",
+               "ssd": "src/repro/kernels/mamba2.py:61"}
 BF16_TENSOR_OPS_PER_S = 989e12   # bf16 tensor cores, dense (on-chip guide)
 ARCH = "qwen2-1.5b"
 MODEL_SEED = 2024
@@ -253,10 +281,46 @@ LOGIT_TOL = 1e-1
 #: ragged 1000, each head dim, q_offset, the decode shape
 ATTN_CASES = [(48, 2048, 2048, 128, True, 0), (24, 1000, 1000, 128, True, 0),
               (24, 1000, 1000, 128, False, 0), (12, 1000, 1000, 64, True, 0),
-              (12, 1000, 1000, 32, False, 0), (12, 64, 300, 128, True, 236),
-              (12, 1, 77, 128, True, 76), (7, 200, 200, 32, True, 0)]
+              (12, 1000, 1000, 32, False, 0), (12, 1000, 1000, 112, True, 0),
+              (12, 64, 300, 128, True, 236), (12, 1, 77, 128, True, 76),
+              (7, 200, 200, 32, True, 0)]
 #: K16 cases (R, D): the prefill's rows, the Server's, ragged rows
 RMS_CASES = [(8192, 1536), (32, 1536), (33, 1536), (7, 100), (300, 1536)]
+
+# the ssm and hybrid families (phase 10): K17 and K18 (csrc/transformer.cu),
+# with K15 and K16 in zamba2's path
+SSM_ARCHS = ("rwkv6-3b", "zamba2-7b")
+#: forward over 2 sequences of 1024 tokens, kernels and plain
+SSM_B, SSM_T = 2, 1024
+#: the Server: 8 slots of 64 positions, 16 requests of 16 prompt tokens
+#: (equal lengths: these families decode at one position) and 16 new
+#: tokens, a traced window of 4 steps
+SSM_SLOTS, SSM_MAX_LEN, SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 8, 64, 16, 16, 16
+SSM_TRACE_STEPS = 4
+#: the float32 logic check: smoke configs, forward against token-by-token
+#: decode over T = 100 (past a multiple of the kernels' 32-step staging
+#: and of the reference's 64-step chunk) at rtol = atol = 1e-3
+SSM_LOGIC_T, SSM_LOGIC_TOL = 100, 1e-3
+#: K17 cases (B, T, H, K, V): rwkv6-3b's forward, the JAX tests', a ragged
+#: T; K18 cases (B, T, H, P, N): zamba2-7b's forward, the JAX tests', a
+#: ragged T; K15 at zamba2-7b's head dim 112, its forward's shape
+WKV_CASES = [(2, 1024, 40, 64, 64), (1, 64, 2, 32, 32), (2, 128, 4, 64, 64),
+             (1, 96, 1, 64, 128), (2, 1000, 40, 64, 64)]
+SSD_CASES = [(2, 1024, 112, 64, 64), (1, 64, 2, 32, 16), (2, 128, 4, 64, 64),
+             (1, 80, 3, 16, 32), (2, 1000, 112, 64, 64)]
+ATTN_112 = (64, 1024, 1024, 112, True, 0)
+#: K16 cases (R, D) at these paths' widths: each forward's 2 × 1024 rows
+#: and each Server's 8 slots, at d_model 2560 and 3584
+RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
+#: float32 logits, kernels against plain, normwise, by model: each limit
+#: lies between the kernels' reading and the control's (K17/K18 swapped
+#: for the plain recurrence with its state rounded to bfloat16), which
+#: must fail it (PERF.md §6)
+FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1}
+#: K17/K18 against plain: float32 normwise (largest difference over the
+#: largest plain magnitude; the sums run in another order), bfloat16
+#: rtol = atol (about one output ulp)
+REC_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def log(*a):
@@ -735,19 +799,118 @@ def tf_case(torch, name, shape, dtype, seed):
 
 
 @contextlib.contextmanager
-def plain_path(on, attention, rmsnorm, ref):
+def plain_path(on, ref, attention, rmsnorm, rwkv6, mamba2, only=None,
+               rec=None):
     """While ``on``, the model's ops call the plain versions in place of
-    the K15 and K16 wrappers; restored on exit.  The package has no such
-    switch: only this script builds the plain path it compares with."""
-    saved = attention.flash_attention, rmsnorm.rmsnorm
-    if on:
-        rmsnorm.rmsnorm = ref.rmsnorm
-        attention.flash_attention = lambda q, k, v, **kw: ref.flash_attention(
-            q[:, None], k[:, None], v[:, None], **kw)[:, 0]
+    the K15–K18 wrappers (or of those named in ``only``); restored on
+    exit.  ``rec`` stands for ``rec_plain`` as K17/K18's replacement (the
+    control).  The package has no such switch: only this script builds
+    the plain path it compares with."""
+    rec = rec or rec_plain
+    swaps = {
+        "flash_attention": (attention, lambda q, k, v, **kw:
+                            ref.flash_attention(q[:, None], k[:, None],
+                                                v[:, None], **kw)[:, 0]),
+        "rmsnorm": (rmsnorm, ref.rmsnorm),
+        "wkv6": (rwkv6, lambda *args, **kw: rec(ref, "wkv6", args)),
+        "ssd": (mamba2, lambda *args, **kw: rec(ref, "ssd", args)),
+    }
+    swaps = {n: v for n, v in swaps.items()
+             if on and (only is None or n in only)}
+    saved = {n: getattr(mod, n) for n, (mod, _) in swaps.items()}
+    for n, (mod, fn) in swaps.items():
+        setattr(mod, n, fn)
     try:
         yield
     finally:
-        attention.flash_attention, rmsnorm.rmsnorm = saved
+        for n, (mod, _) in swaps.items():
+            setattr(mod, n, saved[n])
+
+
+def rec_case(torch, name, shape, dtype, seed):
+    """Inputs of one K17 or K18 call on the card, made from ``seed`` as the
+    JAX tests draw them: K17 (r, k, v, w, u) on (B·H, T, ·) rows, r, k, v
+    0.5·N, w in (0.5, 1), u 0.3·N; K18 (x, a, b, c), x, b, c 0.5·N and a
+    = -|0.5·N| in float32."""
+    rng = np.random.default_rng(seed)
+
+    def f(*sh, scale=0.5, dt=dtype):
+        a = rng.standard_normal(sh, dtype=np.float32) * scale
+        return torch.from_numpy(a).to(DEVICE).to(dt)
+
+    if name == "wkv6":
+        B, T, H, K, V = shape
+        w = torch.sigmoid(f(B * H, T, K, scale=1.0, dt=torch.float32))
+        return (f(B * H, T, K), f(B * H, T, K), f(B * H, T, V),
+                (w * 0.5 + 0.5).to(dtype), f(B * H, K, scale=0.3))
+    B, T, H, P, N = shape
+    return (f(B, T, H, P), -f(B, T, H, dt=torch.float32).abs(), f(B, T, N),
+            f(B, T, N))
+
+
+def rec_plain(ref, name, args):
+    """The plain version of K17 (on rows: one sequence of B·H heads) or
+    K18 on a wrapper's arguments."""
+    if name == "wkv6":
+        r, k, v, w, u = args
+        return ref.rwkv6_scan(*(t.transpose(0, 1)[None]
+                                for t in (r, k, v, w)), u)[0].transpose(0, 1)
+    return ref.mamba2_ssd(*args)
+
+
+def rec_bf16_state(ref, name, args):
+    """The control of phase 10b's float32 gate: the plain recurrence of
+    K17 or K18 (``ref``'s loop, step for step) with its state rounded to
+    bfloat16 after every update, what a kernel keeping its state in
+    bfloat16 would compute."""
+    import torch
+    bf = torch.bfloat16
+    if name == "wkv6":
+        r, k, v, w, u = (t.float() for t in args)
+        S = torch.zeros(r.shape[0], r.shape[-1], v.shape[-1],
+                        device=r.device)
+        out = torch.empty(*v.shape, device=r.device)
+        for t in range(r.shape[1]):
+            kv = k[:, t, :, None] * v[:, t, None, :]
+            out[:, t] = torch.einsum("rk,rkv->rv", r[:, t],
+                                     S + u[:, :, None] * kv)
+            S = (w[:, t, :, None] * S + kv).to(bf).float()
+        return out.to(args[0].dtype)
+    x, a, b, c = (t.float() for t in args)
+    B, T, H, P = x.shape
+    h = torch.zeros(B, H, b.shape[-1], P, device=x.device)
+    y = torch.empty(B, T, H, P, device=x.device)
+    for t in range(T):
+        h = (torch.exp(a[:, t])[:, :, None, None] * h
+             + b[:, t, None, :, None] * x[:, t, :, None, :]).to(bf).float()
+        y[:, t] = torch.einsum("bn,bhnp->bhp", c[:, t], h)
+    return y.to(args[0].dtype)
+
+
+def rec_bound(name, args):
+    """Least time for K17 or K18 on these inputs: each input read once and
+    the output written once at HBM bandwidth, against the fp32 operations
+    a step needs on each state element (K17: 7, the rank-1 product, the
+    bonus term, the r-weighted sum and the decayed update; K18: 5, the
+    decayed update and the c-weighted sum); the larger, and which."""
+    if name == "wkv6":
+        r, k, v, w, u = args
+        BH, T, K = r.shape
+        V = v.shape[-1]
+        nbytes = r.element_size() * (3 * r.numel() + 2 * v.numel()
+                                     + u.numel())
+        ops = 7 * BH * T * K * V
+    else:
+        x, a, b, c = args
+        B, T, H, P = x.shape
+        N = b.shape[-1]
+        nbytes = (x.element_size() * 2 * x.numel() + a.element_size()
+                  * a.numel() + b.element_size() * (b.numel() + c.numel()))
+        ops = 5 * B * T * H * N * P
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def normwise(got, want) -> float:
@@ -783,9 +946,10 @@ def main(argv=None) -> int:
         from repro_torch.examples import dsp_pipeline
         from repro_torch.kernels import common as dsp
         from repro_torch.kernels import (attention, dsp_fir, dsp_spectral,
-                                         dsp_vector, ops, ref, rmsnorm)
+                                         dsp_vector, mamba2, ops, ref,
+                                         rmsnorm, rwkv6)
         from repro_torch.core.sched import serving, specdecode
-        from repro_torch.models import registry
+        from repro_torch.models import layers, registry
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT / 'src'} "
               f"({e}); run from the root of a checkout", file=sys.stderr)
@@ -1374,34 +1538,42 @@ def main(argv=None) -> int:
     tf_err = {k: 0.0 for k in tlib.launches}
     tf_launches: dict = {}
 
+    zero = dict.fromkeys(tlib.launches, 0)
+    kernels = dict(attention=attention, rmsnorm=rmsnorm, rwkv6=rwkv6,
+                   mamba2=mamba2)
+
+    def tf_check(name, shape, dt, seed):
+        """One K15 or K16 call against its plain version."""
+        args = tf_case(torch, name, shape, getattr(torch, dt), seed)
+        if name == "flash_attention":
+            q, k, v, causal, q_offset = args
+            got = attention.flash_attention(q, k, v, causal=causal,
+                                            q_offset=q_offset)
+            want = ref.flash_attention(
+                q[:, None], k[:, None], v[:, None], causal=causal,
+                q_offset=q_offset)[:, 0]
+            tol = TF_TOL[dt][1]
+        else:
+            got = rmsnorm.rmsnorm(*args)
+            want = ref.rmsnorm(*args)
+            tol = TF_TOL[dt][0]
+        torch.cuda.synchronize()
+        err = max_err(got.float(), want.float())
+        tf_err[name] = max(tf_err[name], err)
+        assert got.dtype == want.dtype and bool(
+            torch.isfinite(got).all()), f"{name} {shape}: not finite"
+        assert torch.allclose(got.float(), want.float(), rtol=tol,
+                              atol=tol), \
+            f"{name} {shape} {dt}: max abs err {err:.3g} > {tol}"
+        log(f"{name:15s} {str(shape):34s} {dt:8s} max abs err "
+            f"{err:.3g} (rtol = atol = {tol})")
+
     def tf_vs_plain():
         cases = [("flash_attention", c) for c in ATTN_CASES]
         cases += [("rmsnorm", c) for c in RMS_CASES]
         for i, (name, shape) in enumerate(cases):
             for dt in ("bfloat16", "float32"):
-                args = tf_case(torch, name, shape, getattr(torch, dt), 300 + i)
-                if name == "flash_attention":
-                    q, k, v, causal, q_offset = args
-                    got = attention.flash_attention(q, k, v, causal=causal,
-                                                    q_offset=q_offset)
-                    want = ref.flash_attention(
-                        q[:, None], k[:, None], v[:, None], causal=causal,
-                        q_offset=q_offset)[:, 0]
-                    tol = TF_TOL[dt][1]
-                else:
-                    got = rmsnorm.rmsnorm(*args)
-                    want = ref.rmsnorm(*args)
-                    tol = TF_TOL[dt][0]
-                torch.cuda.synchronize()
-                err = max_err(got.float(), want.float())
-                tf_err[name] = max(tf_err[name], err)
-                assert got.dtype == want.dtype and bool(
-                    torch.isfinite(got).all()), f"{name} {shape}: not finite"
-                assert torch.allclose(got.float(), want.float(), rtol=tol,
-                                      atol=tol), \
-                    f"{name} {shape} {dt}: max abs err {err:.3g} > {tol}"
-                log(f"{name:15s} {str(shape):34s} {dt:8s} max abs err "
-                    f"{err:.3g} (rtol = atol = {tol})")
+                tf_check(name, shape, dt, 300 + i)
         log(f"TF32 for float32 matmuls: "
             f"{torch.backends.cuda.matmul.allow_tf32} (the plain attention's "
             "einsums run in full float32)")
@@ -1434,13 +1606,13 @@ def main(argv=None) -> int:
         # warm-up, untimed: each path's first prefill and decode step pay
         # for cuBLAS's and the allocator's first calls at these shapes
         for path in ("kernels", "plain"):
-            with plain_path(path == "plain", attention, rmsnorm, ref):
+            with plain_path(path == "plain", ref, **kernels):
                 logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
                 model.decode_step(params, cache, tok[:, :1], PREFILL_T)
                 del logits, cache
         runs, feeds = {}, []
         for path in ("kernels", "plain"):
-            with plain_path(path == "plain", attention, rmsnorm, ref):
+            with plain_path(path == "plain", ref, **kernels):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 tlib.reset_launches()
@@ -1482,10 +1654,10 @@ def main(argv=None) -> int:
                 f"{dwall / DECODE_STEPS * 1e3:.2f} ms a step, launches "
                 f"{dcounts}  on {card}")
         k, pl = runs["kernels"], runs["plain"]
-        assert k["counts"] == {"flash_attention": Lr, "rmsnorm": 2 * Lr + 1}, \
-            k["counts"]
-        assert pl["counts"] == {"flash_attention": 0, "rmsnorm": 0}
-        assert k["dcounts"] == {"flash_attention": 0,
+        assert k["counts"] == {**zero, "flash_attention": Lr,
+                               "rmsnorm": 2 * Lr + 1}, k["counts"]
+        assert pl["counts"] == zero
+        assert k["dcounts"] == {**zero,
                                 "rmsnorm": DECODE_STEPS * (2 * Lr + 1)}
         tf_launches["prefill"] = k["counts"]
         tf_launches["decode"] = k["dcounts"]
@@ -1542,8 +1714,8 @@ def main(argv=None) -> int:
             assert st.completed == SERVE_REQUESTS and all(
                 r.done and len(r.out) == r.max_new for r in objs), \
                 f"{policy}: {st.completed} of {SERVE_REQUESTS} completed"
-            assert counts == {"flash_attention": 0,
-                              "rmsnorm": st.steps * (2 * Lr + 1)}, counts
+            assert counts == {**zero, "rmsnorm": st.steps * (2 * Lr + 1)}, \
+                counts
             log(f"Server {policy}: {SERVE_REQUESTS} requests, {st.steps} "
                 f"steps, utilization {st.utilization(SERVE_SLOTS):.4f}, "
                 f"{st.slot_busy_steps} slot-steps in {wall:.3f} s: "
@@ -1604,6 +1776,256 @@ def main(argv=None) -> int:
     if "model" in ctx:
         phase("9b prefill at full width", prefill_path)
         phase("9c the Server at full width", server_path)
+        ctx.pop("params", None)      # free Qwen2's weights; its cfg stays
+
+    # 10. the ssm and hybrid families at full width on K17 and K18 ----------
+    rec_wrappers = {"wkv6": rwkv6.wkv6, "ssd": mamba2.ssd}
+
+    def rec_vs_plain():
+        cases = [("wkv6", c) for c in WKV_CASES]
+        cases += [("ssd", c) for c in SSD_CASES]
+        for i, (name, shape) in enumerate(cases):
+            for dt in ("bfloat16", "float32"):
+                args = rec_case(torch, name, shape, getattr(torch, dt),
+                                700 + i)
+                got = rec_wrappers[name](*args)
+                want = rec_plain(ref, name, args)
+                torch.cuda.synchronize()
+                err = max_err(got.float(), want.float())
+                rel = normwise(got, want)
+                tf_err[name] = max(tf_err[name], err)
+                tol = REC_TOL[dt]
+                assert got.dtype == want.dtype and bool(
+                    torch.isfinite(got).all()), f"{name} {shape}: not finite"
+                if dt == "float32":
+                    assert rel <= tol, \
+                        f"{name} {shape}: normwise error {rel:.3g} > {tol}"
+                    how = f"normwise <= {tol}"
+                else:
+                    assert torch.allclose(got.float(), want.float(),
+                                          rtol=tol, atol=tol), \
+                        f"{name} {shape} bf16: max abs err {err:.3g} > {tol}"
+                    how = f"rtol = atol = {tol}"
+                log(f"{name:5s} {str(shape):24s} {dt:8s} max abs err "
+                    f"{err:.3g}, normwise {rel:.3g} ({how})")
+        for dt in ("bfloat16", "float32"):
+            tf_check("flash_attention", ATTN_112, dt, 800)
+            for i, shape in enumerate(RMS_SSM_CASES):
+                tf_check("rmsnorm", shape, dt, 810 + i)
+
+    def ssm_model(arch):
+        cfg = registry.get_config(arch)
+        model = registry.build(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(MODEL_SEED)
+        torch.cuda.synchronize()
+        log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads (head dim {cfg.head_dim}), ssm "
+            f"{cfg.ssm}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+            f"{model.param_count() / 1e9:.4f} B parameters, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card "
+            f"(seed {MODEL_SEED}, {time.perf_counter() - t0:.2f} s)")
+        ctx["ssm"] = (model, params)
+
+    def ssm_counts(cfg):
+        """K15–K18 launches of one ``forward`` and of one decode step."""
+        L = cfg.n_layers
+        if cfg.family == "ssm":
+            return ({**zero, "rmsnorm": 2 * L + 1, "wkv6": L},
+                    {**zero, "rmsnorm": 2 * L + 1})
+        groups = L // cfg.shared_attn_period
+        norms = L + 2 * groups + 1
+        return ({**zero, "rmsnorm": norms, "flash_attention": groups,
+                 "ssd": L}, {**zero, "rmsnorm": norms})
+
+    def ssm_forward(arch):
+        """forward on 2 x 1024 tokens: bf16 on the kernels (timed), on the
+        plain ops, and on the kernels with K16 alone on its plain version
+        (the bf16 floor: K16 is within an ulp of its plain version, so
+        this is what one exact op swapped costs these random-weight
+        models); then float32 (the same seed's draws, unrounded), kernels
+        against plain within the model's FP32_LOGIT_TOL, the gate, and
+        the control (K17/K18 as the plain recurrence with a bfloat16
+        state), which must fail the same gate."""
+        model, params = ctx["ssm"]
+        rng = np.random.default_rng(MODEL_SEED)
+        tok = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab, (SSM_B, SSM_T)).astype(np.int32)).to(DEVICE)
+        model.forward(params, tok)           # warm-up: cuBLAS, allocator
+
+        def run(path, p, dt):
+            swap = {"floor": ("rmsnorm",), "control": ("wkv6", "ssd")}
+            with plain_path(path != "kernels", ref, **kernels,
+                            only=swap.get(path),
+                            rec=rec_bf16_state if path == "control"
+                            else None):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                tlib.reset_launches()
+                t0 = time.perf_counter()
+                logits = model.forward(p, tok)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = dict(tlib.launches)
+            log(f"{arch} forward {dt} ({path}) B={SSM_B} T={SSM_T}: "
+                f"{wall * 1e3:.1f} ms, {SSM_B * SSM_T / wall:.0f} tokens/s, "
+                f"launches {counts}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  on {card}")
+            assert bool(torch.isfinite(logits).all()), f"{path}: not finite"
+            return logits, counts
+
+        def compare(what, got, want):
+            err = normwise(got, want)
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            log(f"{arch} logits, {what}: normwise {err:.3g}, argmax "
+                f"agreement {agree:.4f}")
+            return err
+
+        want = ssm_counts(model.cfg)[0]
+        k, kc = run("kernels", params, "bf16")
+        assert kc == want, kc
+        tf_launches[f"{arch}/forward"] = kc
+        pl, pc = run("plain", params, "bf16")
+        assert pc == zero, pc
+        fl, fc = run("floor", params, "bf16")
+        assert fc == {**want, "rmsnorm": 0}, fc
+        compare("bf16, kernels vs plain (reported)", k, pl)
+        compare("bf16, kernels with K16 plain vs kernels (the floor)", fl, k)
+        del k, pl, fl
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            p32 = model.init(MODEL_SEED)
+            k, kc = run("kernels", p32, "fp32")
+            assert kc == want, kc
+            pl, _ = run("plain", p32, "fp32")
+            ctl, cc = run("control", p32, "fp32")
+            assert cc == {**want, "wkv6": 0, "ssd": 0}, cc
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        del p32
+        tol = FP32_LOGIT_TOL[arch]
+
+        def gate(what, got):
+            err = compare(f"fp32, {what} vs plain (limit {tol})", got, pl)
+            assert err <= tol, f"{arch} fp32 logits differ ({err:.3g})"
+
+        gate("kernels", k)
+        try:
+            gate("control (K17/K18 plain, state rounded to bf16)", ctl)
+        except AssertionError as e:
+            log(f"{arch} control fails the fp32 gate, as it must: {e}")
+        else:
+            raise AssertionError(f"{arch}: the control passes the fp32 "
+                                 f"gate at {tol}: it cannot tell a kernel "
+                                 "with a bfloat16 state")
+
+    def ssm_server(arch):
+        model, params = ctx["ssm"]
+        rng = np.random.default_rng(SERVE_SEED)
+        reqs = [rng.integers(0, model.cfg.vocab, SSM_PROMPT).tolist()
+                for _ in range(SSM_REQUESTS)]
+
+        def server():
+            srv = serving.Server(model, params, n_slots=SSM_SLOTS,
+                                 max_len=SSM_MAX_LEN)
+            objs = [serving.Request(i, list(p), SSM_NEW)
+                    for i, p in enumerate(reqs)]
+            for r in objs:
+                srv.submit(r)
+            return srv, objs
+
+        srv, objs = server()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tlib.reset_launches()
+        t0 = time.perf_counter()
+        st = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(tlib.launches)
+        tf_launches[f"{arch}/server"] = counts
+        assert st.completed == SSM_REQUESTS and all(
+            r.done and len(r.out) == SSM_NEW for r in objs), \
+            f"{st.completed} of {SSM_REQUESTS} completed"
+        per_step = ssm_counts(model.cfg)[1]
+        assert counts == {k: v * st.steps for k, v in per_step.items()}, \
+            counts
+        log(f"{arch} Server: {SSM_REQUESTS} requests, {st.steps} steps, "
+            f"utilization {st.utilization(SSM_SLOTS):.4f}, "
+            f"{st.slot_busy_steps} slot-steps in {wall:.3f} s: "
+            f"{st.slot_busy_steps / wall:.1f} tokens/s, "
+            f"{wall / st.steps * 1e3:.2f} ms a step, K16 launches a step "
+            f"{counts['rmsnorm'] / st.steps:.0f}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  on {card}")
+
+        srv, _ = server()
+        for _ in range(4):
+            srv.step()
+
+        def steps(n):
+            for _ in range(n):
+                srv.step()
+        try:
+            events, wall_us = trace_window(torch, lambda: steps(1),
+                                           lambda: steps(SSM_TRACE_STEPS))
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"{arch} server step profile not measured (profiler: {e})")
+            return
+        busy = sum(us for _k, us in events)
+        n = SSM_TRACE_STEPS
+        log(f"{arch} Server step profile ({n} steps from step 6, "
+            f"{sum(srv.busy)} busy slots): {wall_us / n / 1e3:.3f} ms wall "
+            f"a step, device busy {busy / n / 1e3:.3f} ms a step "
+            f"({100 * busy / wall_us:.1f} %), {len(events) / n:.0f} device "
+            f"activities a step  on {card}")
+        for key, us, cnt in costliest(events, n):
+            log(f"    {us:9.1f} us/step  x{cnt:<4d} {key}")
+
+    def ssm_logic():
+        """forward on the kernels against token-by-token decode_step, in
+        float32, at the smoke configs (the reference's own check)."""
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            for arch in SSM_ARCHS:
+                m = registry.build_smoke(arch, device=DEVICE)
+                p = m.init(MODEL_SEED)
+                tok = torch.randint(0, m.cfg.vocab, (2, SSM_LOGIC_T),
+                                    generator=torch.Generator().manual_seed(
+                                        MODEL_SEED)).to(DEVICE)
+                tlib.reset_launches()
+                seq = m.forward(p, tok)
+                torch.cuda.synchronize()
+                counts = dict(tlib.launches)
+                assert counts == ssm_counts(m.cfg)[0], counts
+                cache = m.init_cache(2, SSM_LOGIC_T)
+                dec = torch.stack([
+                    m.decode_step(p, cache, tok[:, t:t + 1], t)[0][:, 0]
+                    for t in range(SSM_LOGIC_T)], 1)
+                assert seq.dtype == torch.float32
+                err = max_err(dec, seq)
+                log(f"{arch} smoke, float32: forward (launches {counts}) vs "
+                    f"{SSM_LOGIC_T} decode steps: max abs err {err:.3g} "
+                    f"(rtol = atol = {SSM_LOGIC_TOL})")
+                assert torch.allclose(dec, seq, rtol=SSM_LOGIC_TOL,
+                                      atol=SSM_LOGIC_TOL), err
+        finally:
+            layers.COMPUTE_DTYPE = saved
+
+    phase("10a K17, K18 and K15 at head dim 112 vs plain", rec_vs_plain)
+    for arch in SSM_ARCHS:
+        phase(f"10 {arch} setup", functools.partial(ssm_model, arch))
+        if "ssm" in ctx:
+            phase(f"10b {arch} forward at full width",
+                  functools.partial(ssm_forward, arch))
+            phase(f"10c {arch} Server at full width",
+                  functools.partial(ssm_server, arch))
+        ctx.pop("ssm", None)            # one model on the card at a time
+    phase("10d forward vs decode in float32", ssm_logic)
 
     # 5b. DSP kernel times at each path's shape -----------------------------
     def dsp_times():
@@ -1657,14 +2079,28 @@ def main(argv=None) -> int:
 
     def tf_times():
         F = torch.nn.functional
-        cfg = ctx["model"].cfg
-        H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        B, T = PREFILL_B, PREFILL_T
-        shapes = {"flash_attention": (B * H, T, T, Dh, True, 0),
-                  "rmsnorm": (B * T, cfg.d_model)}
-        for i, name in enumerate(tlib.launches):
-            args = tf_case(torch, name, shapes[name], torch.bfloat16, 500 + i)
-            if name == "flash_attention":
+        shapes, names = {}, []
+        if "model" in ctx:
+            cfg = ctx["model"].cfg
+            H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            B, T = PREFILL_B, PREFILL_T
+            shapes.update(flash_attention=(B * H, T, T, Dh, True, 0),
+                          rmsnorm=(B * T, cfg.d_model))
+            names += ["rmsnorm", "flash_attention"]
+        if all(f"{a}/forward" in tf_launches for a in SSM_ARCHS):
+            shapes.update(wkv6=WKV_CASES[0], ssd=SSD_CASES[0])
+            names += ["wkv6", "ssd"]
+        for i, name in enumerate(names):
+            if name in rec_wrappers:
+                args = rec_case(torch, name, shapes[name], torch.bfloat16,
+                                500 + i)
+                wrapper = functools.partial(rec_wrappers[name], *args)
+                plain = functools.partial(rec_plain, ref, name, args)
+                bound, by = rec_bound(name, args)
+                fp32_ms, lib_call = None, None
+            elif name == "flash_attention":
+                args = tf_case(torch, name, shapes[name], torch.bfloat16,
+                               500 + i)
                 q, k, v, causal, q_offset = args
                 kw = dict(causal=causal, q_offset=q_offset)
                 wrapper = functools.partial(attention.flash_attention, q, k,
@@ -1684,21 +2120,29 @@ def main(argv=None) -> int:
                     F.scaled_dot_product_attention, q4, k4, v4,
                     is_causal=True)
                 lib_name = "scaled_dot_product_attention"
+                bound, by, fp32_ms = tf_bound(name, args)
             else:
+                args = tf_case(torch, name, shapes[name], torch.bfloat16,
+                               500 + i)
                 x, w = args
                 wrapper = functools.partial(rmsnorm.rmsnorm, x, w, cfg.norm_eps)
                 plain = functools.partial(ref.rmsnorm, x, w, cfg.norm_eps)
                 lib_call = functools.partial(F.rms_norm, x, (x.shape[1],), w,
                                              cfg.norm_eps)
                 lib_name = "rms_norm"
-            bound, by, fp32_ms = tf_bound(name, args)
+                bound, by, fp32_ms = tf_bound(name, args)
             calls = [wrapper] * 23
             k_call = events_ms(torch, calls)
-            p_call = events_ms(torch, [plain] * 8)
+            # plain: 5 timed after 3 warm-ups; K17/K18's 0.1 s loops: 3
+            # after 1
+            p_call = (events_ms(torch, [plain] * 4, warm=1)
+                      if name in rec_wrappers else
+                      events_ms(torch, [plain] * 8))
             k_dev = profiled_ms(torch, calls, f"{name}_kernel")
-            lib = events_ms(torch, [lib_call] * 23)
+            lib = None if lib_call is None else events_ms(torch,
+                                                          [lib_call] * 23)
             by_path = {path: c.get(name, 0) for path, c in tf_launches.items()}
-            rows.append(dict(
+            row = dict(
                 name=name, route="cuda", source=TF_SOURCE,
                 replaces=TF_REPLACES[name],
                 launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1708,14 +2152,30 @@ def main(argv=None) -> int:
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
                 bound_by=by, library_ms=lib,
                 shape=list(shapes[name][:4] if name == "flash_attention"
-                           else shapes[name]), dtype="bfloat16"))
+                           else shapes[name]), dtype="bfloat16")
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
+            libs = ("none (no single call)" if lib is None
+                    else f"{lib:.4f} ms ({lib_name})")
+            extra = "" if fp32_ms is None else \
+                f"; its work at the fp32 CUDA-core rate {fp32_ms:.4f} ms"
+            if name == "flash_attention" and "wkv6" in shapes:
+                # zamba2-7b's shape, head dim 112 (not a row of its own)
+                a112 = tf_case(torch, name, ATTN_112, torch.bfloat16, 600)
+                c112 = [functools.partial(
+                    attention.flash_attention, *a112[:3], causal=True)] * 23
+                row["ms_d112"] = profiled_ms(torch, c112, f"{name}_kernel")
+                row["call_ms_d112"] = events_ms(torch, c112)
+                row["bound_ms_d112"] = tf_bound(name, a112)[0]
+                extra += (f"; at {ATTN_112[:4]} (zamba2-7b): kernel "
+                          f"{row['ms_d112']} ms on the device, "
+                          f"{row['call_ms_d112']:.4f} ms per call, bound "
+                          f"{row['bound_ms_d112']:.4f} ms")
+            rows.append(row)
             log(f"{name:15s} {shapes[name]} bf16  kernel {dev} on the "
                 f"device, {k_call:.4f} ms per call  plain {p_call:.4f} ms  "
-                f"library {lib:.4f} ms ({lib_name})  bound {bound:.4f} ms "
-                f"({by}; its work at the fp32 CUDA-core rate "
-                f"{fp32_ms:.4f} ms)  launches {by_path}  on {card}")
-    if {"prefill", "decode", "server/ooo", "server/naive"} <= set(tf_launches):
+                f"library {libs}  bound {bound:.4f} ms ({by}{extra})  "
+                f"launches {by_path}  on {card}")
+    if tf_launches:
         phase("5b transformer kernel times", tf_times)
 
     n_kernels = len(cuda_step.KERNELS) + len(dsp.launches) + len(tlib.launches)

@@ -14,11 +14,13 @@ paper's scheduler to a model server:
                                  is drained before new requests are admitted
                                  (static batching).
 
-The engine drives the ``decode_step`` of a registry Model with per-lane
-positions (every ported family is dense); prompts are absorbed
-token-by-token into the slot's cache lane.  The cache is written in place,
-and the step's argmax is read back to the host once per step, as the
-reference reads it.
+The engine drives the ``decode_step`` of a registry Model; prompts are
+absorbed token-by-token into the slot's cache lane.  The dense family
+decodes at per-lane positions (true continuous batching); the others at
+one position, the largest over the active slots, as in the reference
+(their callers submit prompts of equal length).  The cache is written in
+place, and the step's argmax is read back to the host once per step, as
+the reference reads it.
 """
 from __future__ import annotations
 
@@ -86,9 +88,10 @@ class Server:
                 self._reset_slot_cache(s)
 
     def _reset_slot_cache(self, s: int):
-        """Zero slot ``s`` of every cache tensor (each is (L, B, ...))."""
-        for leaf in self.cache.values():
-            leaf[:, s].zero_()
+        """Zero slot ``s`` of every cache tensor, along the axis that
+        ``model.cache_axes`` names ``"cache_batch"``."""
+        for name, axes in self.model.cache_axes.items():
+            self.cache[name].select(axes.index("cache_batch"), s).zero_()
 
     # -- one engine step: feed every busy slot one token --------------------
     def step(self):
@@ -107,7 +110,10 @@ class Server:
                 feed[s][0] = req.out[-1]
         dev = self.model.device
         tokens = torch.tensor(feed, dtype=torch.int32, device=dev)
-        pos = torch.tensor(self.slot_pos, dtype=torch.int32, device=dev)
+        if self.model.cfg.family in ("dense", "moe", "vlm"):
+            pos = torch.tensor(self.slot_pos, dtype=torch.int32, device=dev)
+        else:
+            pos = max(self.slot_pos[s] for s in active)
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     tokens, pos)
         nxt = logits[:, -1].argmax(dim=-1).tolist()

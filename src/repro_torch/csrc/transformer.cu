@@ -1,16 +1,18 @@
-// The transformer's hot spots for Hopper (sm_90a): K16 rmsnorm and K15
-// flash_attention (forward).
+// The transformer's hot spots for Hopper (sm_90a): K16 rmsnorm, K15
+// flash_attention (forward), and the two recurrences of the ssm and hybrid
+// families, K17 wkv6 (RWKV-6) and K18 ssd (Mamba-2).
 //
 // Each kernel replaces one of the reference's Pallas kernels
-// (src/repro/kernels/rmsnorm.py, src/repro/kernels/attention.py) and
+// (src/repro/kernels/rmsnorm.py, attention.py, rwkv6.py, mamba2.py) and
 // computes the same function on the layouts the reference's ops hand it:
 // (R, D) rows for the norm, (BH, T, D) heads flattened and GQA repeated
-// for attention.  Inputs are float32 or bfloat16 (the dtype code is an
-// argument: 0, 1); all arithmetic is float32 and every output is
-// rounded once to the input's dtype.  The reference tiles rows into blocks
-// and pads; here each kernel computes its own offsets (64-bit) and masks
-// the ragged edges itself, so nothing is padded and nothing past the end of
-// an input is read.
+// for attention, (BH, T, K) for wkv6, (B, T, H, P) for ssd.  Inputs are
+// float32 or bfloat16 (the dtype code is an argument: 0, 1; ssd's decay
+// exponents are float32 always); all arithmetic is float32 and every
+// output is rounded once to the input's dtype.  The reference tiles rows
+// and time into blocks and pads; here each kernel computes its own offsets
+// (64-bit) and masks the ragged edges itself, so nothing is padded and
+// nothing past the end of an input is read.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through ctypes (kernels/common.py).
@@ -302,11 +304,276 @@ int attention_for_dim(int BH, int Tq, int Tk, int D, int causal,
     case 64:
       return launch_attention<T, 64>(BH, Tq, Tk, causal, q_offset, scale, q,
                                      k, v, o, stream);
+    case 112:   // zamba2-7b: d_model 3584 over 32 heads
+      return launch_attention<T, 112>(BH, Tq, Tk, causal, q_offset, scale, q,
+                                      k, v, o, stream);
     case 128:
       return launch_attention<T, 128>(BH, Tq, Tk, causal, q_offset, scale, q,
                                       k, v, o, stream);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The recurrences K17 and K18.  The reference's Pallas grid is (rows,
+// T/C) with the chunk axis sequential and the state carried across chunks
+// in VMEM scratch; here one CTA walks a row's whole sequence, its state in
+// registers, and the chunk is only how much input it stages in shared
+// memory at a time (REC_C steps, then one barrier, then REC_C steps with
+// no barrier).  The state's columns are independent, so a thread owns one
+// column: its KP (or NP) state values stay in its registers and no sum
+// crosses threads.  The row's per-step vectors are broadcast from shared
+// memory (every thread reads the same word: no bank conflict).  The state
+// dimension is padded to KP in {16, 32, 64, 128} with zeros: a zero k, r,
+// w and u (or b, c) keep the padded state zero and out of every sum.
+// Steps at t >= T are neither read (zero-filled) nor written.
+// Bound: both do ~5-7 operations per state element per step on the
+// CUDA cores (fp32), against 2-byte inputs read once: operations.  A CTA a
+// row at one step at a time is latency-bound (the row's steps are
+// sequential); splitting a row's columns over more CTAs and overlapping
+// the next chunk's loads with this chunk's steps are later work.
+// ---------------------------------------------------------------------------
+constexpr int REC_C = 32;                // steps staged a chunk
+constexpr int REC_MAX_THREADS = 128;     // state columns a CTA
+
+__device__ __forceinline__ float4 ld4(const float* p, int i) {
+  return *reinterpret_cast<const float4*>(p + i);
+}
+
+// ---------------------------------------------------------------------------
+// K17 wkv6 — replaces src/repro/kernels/rwkv6.py wkv6 (_wkv6_kernel,
+// pl.pallas_call at rwkv6.py:65).  Per row (b, h) of BH, state S (K, V)
+// from zero:
+//   o_t[v] = sum_k r_t[k] (S[k, v] + u[k] k_t[k] v_t[v])
+//   S[k, v] <- w_t[k] S[k, v] + k_t[k] v_t[v]
+// the exact rank-1 update (no decay-ratio reformulation).  r, k, w: (BH,
+// T, K); v, o: (BH, T, V); u: (BH, K).  Grid (BH, ceil(V / VT)), VT =
+// min(V rounded up to 32, REC_MAX_THREADS) threads, thread = column v.
+// Shared: r, k, w of REC_C steps at pitch KP, u, and v's REC_C x VT block.
+// ---------------------------------------------------------------------------
+template <typename T, int KP>
+__global__ void __launch_bounds__(REC_MAX_THREADS)
+wkv6_kernel(int Tn, int K, int V, const T* __restrict__ r,
+            const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ w, const T* __restrict__ u,
+            T* __restrict__ o) {
+  extern __shared__ __align__(16) float rsmem[];  // float4 reads
+  const int VT = blockDim.x;
+  float* sr = rsmem;                     // [REC_C][KP]
+  float* sk = sr + REC_C * KP;           // [REC_C][KP]
+  float* sw = sk + REC_C * KP;           // [REC_C][KP]
+  float* su = sw + REC_C * KP;           // [KP]
+  float* sv = su + KP;                   // [REC_C][VT]
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x;
+  const int c0 = blockIdx.y * VT;
+  const int col = c0 + tid;
+  const bool live = col < V;
+  const size_t kbase = (size_t)row * Tn * K, vbase = (size_t)row * Tn * V;
+
+  for (int i = tid; i < KP; i += VT)
+    su[i] = i < K ? to_f(u[(size_t)row * K + i]) : 0.f;
+
+  float S[KP];
+#pragma unroll
+  for (int i = 0; i < KP; ++i) S[i] = 0.f;
+
+  for (int t0 = 0; t0 < Tn; t0 += REC_C) {
+    __syncthreads();                     // the last chunk's reads are done
+    for (int e = tid; e < REC_C * KP; e += VT) {
+      const int j = e / KP, i = e % KP;
+      const bool in = t0 + j < Tn && i < K;
+      const size_t g = kbase + (size_t)(t0 + j) * K + i;
+      sr[e] = in ? to_f(r[g]) : 0.f;
+      sk[e] = in ? to_f(k[g]) : 0.f;
+      sw[e] = in ? to_f(w[g]) : 0.f;
+    }
+    for (int j = 0; j < REC_C; ++j)
+      sv[j * VT + tid] = (t0 + j < Tn && live)
+                             ? to_f(v[vbase + (size_t)(t0 + j) * V + col])
+                             : 0.f;
+    __syncthreads();
+    const int steps = min(REC_C, Tn - t0);
+    for (int j = 0; j < steps; ++j) {
+      const float vt = sv[j * VT + tid];
+      const float* rj = sr + j * KP;
+      const float* kj = sk + j * KP;
+      const float* wj = sw + j * KP;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < KP; i += 4) {
+        const float4 r4 = ld4(rj, i), k4 = ld4(kj, i),
+                     w4 = ld4(wj, i), u4 = ld4(su, i);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+        const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float kv = kk[q] * vt;
+          acc[q] += rr[q] * (S[i + q] + uu[q] * kv);
+          S[i + q] = ww[q] * S[i + q] + kv;
+        }
+      }
+      if (live)
+        o[vbase + (size_t)(t0 + j) * V + col] =
+            from_f<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K18 ssd — replaces src/repro/kernels/mamba2.py ssd (_ssd_kernel,
+// pl.pallas_call at mamba2.py:61).  Per sequence b and head h, state
+// (N, P) from zero:
+//   h[n, p] <- exp(a_t) h[n, p] + b_t[n] x_t[p]
+//   y_t[p]   = sum_n c_t[n] h[n, p]
+// x, y: (B, T, H, P); a: (B, T, H) float32 whatever x's dtype; b, c: (B,
+// T, N), shared by the heads.  The reference's block holds all H heads'
+// state (1.8 MB at zamba2-7b, past an SM's shared memory); the heads are
+// independent, so the grid is (B*H, ceil(P / PT)): a CTA a (sequence,
+// head), thread = column p.  exp(a_t) is taken once a step while staging.
+// ---------------------------------------------------------------------------
+template <typename T, int NP>
+__global__ void __launch_bounds__(REC_MAX_THREADS)
+ssd_kernel(int Tn, int H, int P, int N, const T* __restrict__ x,
+           const float* __restrict__ a, const T* __restrict__ b,
+           const T* __restrict__ c, T* __restrict__ y) {
+  extern __shared__ __align__(16) float rsmem[];
+  const int PT = blockDim.x;
+  float* sb = rsmem;                     // [REC_C][NP]
+  float* sc = sb + REC_C * NP;           // [REC_C][NP]
+  float* sd = sc + REC_C * NP;           // [REC_C] exp(a_t)
+  float* sx = sd + REC_C;                // [REC_C][PT]
+  const int tid = threadIdx.x;
+  const int seq = blockIdx.x / H, head = blockIdx.x % H;
+  const int p0 = blockIdx.y * PT;
+  const int col = p0 + tid;
+  const bool live = col < P;
+  const size_t nbase = (size_t)seq * Tn * N;
+
+  float h[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) h[i] = 0.f;
+
+  for (int t0 = 0; t0 < Tn; t0 += REC_C) {
+    __syncthreads();
+    for (int e = tid; e < REC_C * NP; e += PT) {
+      const int j = e / NP, i = e % NP;
+      const bool in = t0 + j < Tn && i < N;
+      const size_t g = nbase + (size_t)(t0 + j) * N + i;
+      sb[e] = in ? to_f(b[g]) : 0.f;
+      sc[e] = in ? to_f(c[g]) : 0.f;
+    }
+    for (int j = tid; j < REC_C; j += PT)
+      sd[j] = t0 + j < Tn
+                  ? expf(a[((size_t)seq * Tn + t0 + j) * H + head]) : 0.f;
+    for (int j = 0; j < REC_C; ++j)
+      sx[j * PT + tid] =
+          (t0 + j < Tn && live)
+              ? to_f(x[(((size_t)seq * Tn + t0 + j) * H + head) * P + col])
+              : 0.f;
+    __syncthreads();
+    const int steps = min(REC_C, Tn - t0);
+    for (int j = 0; j < steps; ++j) {
+      const float dec = sd[j], xt = sx[j * PT + tid];
+      const float* bj = sb + j * NP;
+      const float* cj = sc + j * NP;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NP; i += 4) {
+        const float4 b4 = ld4(bj, i), c4 = ld4(cj, i);
+        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          h[i + q] = dec * h[i + q] + bb[q] * xt;
+          acc[q] += cc[q] * h[i + q];
+        }
+      }
+      if (live)
+        y[(((size_t)seq * Tn + t0 + j) * H + head) * P + col] =
+            from_f<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    }
+  }
+}
+
+// the state dimension's register pad: 16, 32, 64 or 128 (0: too large)
+inline int state_pad(int n) {
+  return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : n <= 128 ? 128 : 0;
+}
+
+// threads a CTA: the columns rounded up to a warp, at most REC_MAX_THREADS
+inline int rec_threads(int cols) {
+  const int t = ((cols + 31) / 32) * 32;
+  return t < REC_MAX_THREADS ? t : REC_MAX_THREADS;
+}
+
+template <typename F>
+int set_smem(F* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int KP>
+int launch_wkv6(int BH, int Tn, int K, int V, const void* r, const void* k,
+                const void* v, const void* w, const void* u, void* o,
+                cudaStream_t stream) {
+  const int VT = rec_threads(V);
+  const size_t smem = sizeof(float) * ((size_t)3 * REC_C * KP + KP +
+                                       (size_t)REC_C * VT);
+  const int err = set_smem(wkv6_kernel<T, KP>, smem);
+  if (err) return err;
+  const dim3 grid((unsigned)BH, (unsigned)((V + VT - 1) / VT));
+  wkv6_kernel<T, KP><<<grid, VT, smem, stream>>>(
+      Tn, K, V, (const T*)r, (const T*)k, (const T*)v, (const T*)w,
+      (const T*)u, (T*)o);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wkv6_for_dim(int BH, int Tn, int K, int V, const void* r, const void* k,
+                 const void* v, const void* w, const void* u, void* o,
+                 cudaStream_t s) {
+  switch (state_pad(K)) {
+    case 16: return launch_wkv6<T, 16>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    case 32: return launch_wkv6<T, 32>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    case 64: return launch_wkv6<T, 64>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    case 128: return launch_wkv6<T, 128>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int NP>
+int launch_ssd(int B, int Tn, int H, int P, int N, const void* x,
+               const void* a, const void* b, const void* c, void* y,
+               cudaStream_t stream) {
+  const int PT = rec_threads(P);
+  const size_t smem = sizeof(float) * ((size_t)2 * REC_C * NP + REC_C +
+                                       (size_t)REC_C * PT);
+  const int err = set_smem(ssd_kernel<T, NP>, smem);
+  if (err) return err;
+  const long long rows = (long long)B * H;
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)rows, (unsigned)((P + PT - 1) / PT));
+  ssd_kernel<T, NP><<<grid, PT, smem, stream>>>(
+      Tn, H, P, N, (const T*)x, (const float*)a, (const T*)b, (const T*)c,
+      (T*)y);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ssd_for_dim(int B, int Tn, int H, int P, int N, const void* x,
+                const void* a, const void* b, const void* c, void* y,
+                cudaStream_t s) {
+  switch (state_pad(N)) {
+    case 16: return launch_ssd<T, 16>(B, Tn, H, P, N, x, a, b, c, y, s);
+    case 32: return launch_ssd<T, 32>(B, Tn, H, P, N, x, a, b, c, y, s);
+    case 64: return launch_ssd<T, 64>(B, Tn, H, P, N, x, a, b, c, y, s);
+    case 128: return launch_ssd<T, 128>(B, Tn, H, P, N, x, a, b, c, y, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -342,6 +609,34 @@ int tf_flash_attention(int BH, int Tq, int Tk, int D, int dtype, int causal,
                                               q_offset, scale, q, k, v, o, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tf_wkv6(int BH, int Tn, int K, int V, int dtype, void* r, void* k,
+            void* v, void* w, void* u, void* o, void* stream) {
+  if (BH < 0 || Tn < 0 || K < 1 || V < 1)
+    return (int)cudaErrorInvalidValue;
+  if (BH == 0 || Tn == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case DT_F32: return wkv6_for_dim<float>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    case DT_BF16:
+      return wkv6_for_dim<__nv_bfloat16>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int tf_ssd(int B, int Tn, int H, int P, int N, int dtype, void* x, void* a,
+           void* b, void* c, void* y, void* stream) {
+  if (B < 0 || Tn < 0 || H < 1 || P < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Tn == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case DT_F32: return ssd_for_dim<float>(B, Tn, H, P, N, x, a, b, c, y, s);
+    case DT_BF16:
+      return ssd_for_dim<__nv_bfloat16>(B, Tn, H, P, N, x, a, b, c, y, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

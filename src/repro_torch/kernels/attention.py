@@ -3,8 +3,8 @@
 
 Counterpart of the reference's ``kernels/attention.py``.  The kernel takes
 heads already flattened and GQA already repeated (``ops.flash_attention``
-does both), head dims 32, 64 and 128, and float32 or bfloat16
-inputs.  It masks keys at index ``>= Tk`` itself: the reference kernel's
+does both), head dims 32, 64, 112 (zamba2-7b's shared attention) and
+128, and float32 or bfloat16 inputs.  It masks keys at index ``>= Tk`` itself: the reference kernel's
 last key block reads past ``Tk`` and returns NaN when ``Tk`` is above its
 block of 128 and not a multiple of it.
 """
@@ -16,7 +16,7 @@ from . import ref
 from .common import DTYPE_CODES, TRANSFORMER_LIB, check, on_card
 
 #: head dims the kernel is built for (a template parameter each)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,6 +1,6 @@
 """What the kernel wrappers share: the two CUDA libraries (``csrc/dsp.cu``
-for the DSP kernels, ``csrc/transformer.cu`` for K15 and K16), their
-launch counters, and the input checks.
+for the DSP kernels, ``csrc/transformer.cu`` for K15–K18), their launch
+counters, and the input checks.
 
 Each library is built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` (:mod:`repro_torch._build`); nothing is compiled at
@@ -37,14 +37,19 @@ launches, reset_launches = LIB.launches, LIB.reset_launches
 on_card = _build.on_card
 
 
-#: ``csrc/transformer.cu``: K16 ``rmsnorm`` and K15 ``flash_attention``,
-#: with their own launch counters; the input's dtype goes to the C entries
-#: as an int (:data:`DTYPE_CODES`)
+#: ``csrc/transformer.cu``: K16 ``rmsnorm``, K15 ``flash_attention``, K17
+#: ``wkv6`` and K18 ``ssd``, with their own launch counters; the input's
+#: dtype goes to the C entries as an int (:data:`DTYPE_CODES`)
 TRANSFORMER_LIB = _build.Library("transformer.cu", {
     # sizes..., dtype, flags..., scalars..., pointers..., stream
     "tf_rmsnorm": [_I] * 3 + [_F] + [_P] * 3 + [_P],
     "tf_flash_attention": [_I] * 7 + [_F] + [_P] * 4 + [_P],
-}, ("rmsnorm", "flash_attention"))
+    "tf_wkv6": [_I] * 5 + [_P] * 6 + [_P],
+    "tf_ssd": [_I] * 6 + [_P] * 5 + [_P],
+}, ("rmsnorm", "flash_attention", "wkv6", "ssd"))
+#: the recurrences' state dimension (wkv6's K, ssd's N) lives in a
+#: thread's registers, padded to 16, 32, 64 or 128
+MAX_STATE = 128
 #: the dtypes the transformer kernels take, and their codes in the C entries
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

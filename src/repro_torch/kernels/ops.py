@@ -1,5 +1,6 @@
 """The public ops: the ten Table II functions with the accelerator
-dispatch table, and the transformer's ``rmsnorm`` and ``flash_attention``.
+dispatch table, the transformer's ``rmsnorm`` and ``flash_attention``, and
+the recurrences ``rwkv6_scan`` and ``mamba2_ssd``.
 
 Counterpart of the reference's ``kernels/ops.py``.  The ops need no row
 padding: the kernels mask the ragged edge themselves (the reference pads
@@ -15,8 +16,10 @@ import torch
 
 from ..core.hts.costs import FUNCTIONS
 from . import attention as _attn
+from . import mamba2 as _m2
 from . import ref
 from . import rmsnorm as _rms
+from . import rwkv6 as _rwkv
 from .dsp_fir import adaptive_fir, complex_fir, iir, real_fir
 from .dsp_spectral import dct, fft_256
 from .dsp_vector import correlation, vector_add, vector_dot, vector_max
@@ -24,7 +27,7 @@ from .dsp_vector import correlation, vector_add, vector_dot, vector_max
 __all__ = ["real_fir", "complex_fir", "adaptive_fir", "iir", "vector_dot",
            "vector_add", "vector_max", "correlation", "fft_256", "dct",
            "dsp_dispatch_table", "plain_dispatch_table", "DispatchTable",
-           "rmsnorm", "flash_attention"]
+           "rmsnorm", "flash_attention", "rwkv6_scan", "mamba2_ssd"]
 
 
 class DispatchTable(dict):
@@ -158,3 +161,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v.reshape(B * Hq, Tk, D).contiguous(),
         causal=causal, scale=scale, q_offset=int(q_offset))
     return out.reshape(B, Hq, Tq, D)
+
+
+# ---------------------------------------------------------------------------
+# recurrences (K17, K18)
+# ---------------------------------------------------------------------------
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, *,
+               chunk: int = _rwkv.DEFAULT_CHUNK) -> torch.Tensor:
+    """r, k, w: (B, T, H, K); v: (B, T, H, V); u: (H, K) → (B, T, H, V).
+
+    The heads go to the kernel as rows of (B·H, T, ·), b-major and head
+    minor, with u tiled B times."""
+    B, T, H, _ = r.shape
+    V = v.shape[-1]
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(B * H, T, -1).contiguous()
+
+    o = _rwkv.wkv6(flat(r), flat(k), flat(v), flat(w),
+                   u.tile(B, 1).contiguous(), chunk=chunk)
+    return o.reshape(B, H, T, V).transpose(1, 2)
+
+
+def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, *,
+               chunk: int = _m2.DEFAULT_CHUNK) -> torch.Tensor:
+    """x: (B, T, H, P); a: (B, T, H); b, c: (B, T, N) → (B, T, H, P).
+
+    Straight through to the kernel (a in float32, as the reference's
+    kernel reads it; views made contiguous)."""
+    return _m2.ssd(x.contiguous(), a.float().contiguous(), b.contiguous(),
+                   c.contiguous(), chunk=chunk)

@@ -1,10 +1,12 @@
 """Plain torch versions of the kernels: the DSP kernels (the paper's Table
-II) and the transformer's K15 ``flash_attention`` and K16 ``rmsnorm``.
+II), the transformer's K15 ``flash_attention`` and K16 ``rmsnorm``, and the
+recurrences K17 ``rwkv6_scan`` and K18 ``mamba2_ssd``.
 
 Counterpart of the reference's ``kernels/ref.py`` for ``real_fir``,
 ``complex_fir``, ``adaptive_fir``, ``iir``, ``vector_dot``, ``vector_add``,
-``vector_max``, ``correlation``, ``fft``/``fft_256``, ``dct``, ``rmsnorm``
-and ``flash_attention``, each in the reference's formula, layout and
+``vector_max``, ``correlation``, ``fft``/``fft_256``, ``dct``, ``rmsnorm``,
+``flash_attention``, ``rwkv6_scan`` and ``mamba2_ssd``, each in the
+reference's formula, layout and
 rounding order.  They are what the wrappers compute on CPU
 tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on the
 card.  The FFT is the reference kernel's own radix-2 recurrence (a
@@ -252,3 +254,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = logits.masked_fill(ki > qi, -math.inf)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# recurrences (K17, K18): a loop over time in float32, as the reference's
+# lax.scan, the output rounded once to the input's dtype
+# ---------------------------------------------------------------------------
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """RWKV-6 (Finch) WKV recurrence, per head.
+
+    r, k, w: (B, T, H, K); v: (B, T, H, V); u: (H, K).
+    ``o_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)``, ``S_t = diag(w_t) S_{t-1} +
+    k_tᵀ v_t``, S from zero.  Returns o: (B, T, H, V) in r's dtype.
+    """
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[:, :, None]                                 # (H, K, 1)
+    S = torch.zeros(B, H, K, V, dtype=torch.float32, device=r.device)
+    out = torch.empty(B, T, H, V, dtype=torch.float32, device=r.device)
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # (B, H, K, V)
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], S + uf * kv)
+        S = wf[:, t, :, :, None] * S + kv
+    return out.to(r.dtype)
+
+
+def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD recurrence (state-space dual), per head.
+
+    x: (B, T, H, P); a: (B, T, H) decay exponents; b, c: (B, T, N), shared
+    across heads.  ``h_t = exp(a_t) h_{t-1} + b_t ⊗ x_t``, ``y_t = c_t ·
+    h_t``, h from zero.  Returns y: (B, T, H, P) in x's dtype.
+    """
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    xf, af, bf, cf = (t.float() for t in (x, a, b, c))
+    h = torch.zeros(B, H, N, P, dtype=torch.float32, device=x.device)
+    y = torch.empty(B, T, H, P, dtype=torch.float32, device=x.device)
+    for t in range(T):
+        h = (torch.exp(af[:, t])[:, :, None, None] * h
+             + bf[:, t, None, :, None] * xf[:, t, :, None, :])
+        y[:, t] = torch.einsum("bn,bhnp->bhp", cf[:, t], h)
+    return y.to(x.dtype)

@@ -1,5 +1,6 @@
-"""Serving launcher: the continuous-batching server over a dense ``--arch``
-(smoke-sized with ``--smoke``), on the CUDA card unless ``--device cpu``.
+"""Serving launcher: the continuous-batching server over a ported
+``--arch`` (the dense, ssm and hybrid families; smoke-sized with
+``--smoke``), on the CUDA card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu --requests 16 --slots 4

@@ -12,7 +12,10 @@ Departures from the reference, each with its reason:
   cast, done once at load (:func:`init_params`,
   :func:`repro_torch.models.convert.params_from_reference`): the same
   numbers, without re-reading the float32 weights on every step.  The
-  ``cast`` calls stay, and are no-ops on such parameters.
+  ``cast`` calls stay, and are no-ops on such parameters.  The leaves the
+  reference reads without ``cast`` (each family module's
+  ``FLOAT32_LEAVES``) stay float32, and the arithmetic around them
+  promotes as the reference's does.
 * ``sharding.rules.constraint`` has no counterpart on one card and is
   dropped; a :class:`Spec` keeps its logical axes as data.
 * Random draws come from an explicit ``torch.Generator`` on the target
@@ -74,10 +77,29 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def init_params(gen: torch.Generator, template) -> Any:
-    """Materialize every Spec of ``template`` on ``gen``'s device in
-    ``COMPUTE_DTYPE``, in the template's order."""
-    return tree_map(lambda s: s.materialize(gen, COMPUTE_DTYPE), template)
+def leaf_dtype(name: str, float32_leaves=frozenset()) -> torch.dtype:
+    """The dtype the port holds the leaf called ``name`` in: float32 if
+    it is one of the family's ``float32_leaves`` (read by the reference
+    without ``cast``), else ``COMPUTE_DTYPE``."""
+    return torch.float32 if name in float32_leaves else COMPUTE_DTYPE
+
+
+def tree_map_named(fn, tree, name: str = ""):
+    """``fn(leaf, name)`` over the leaves of a tree of dicts, ``name`` the
+    key the leaf sits under, in the dicts' order."""
+    if isinstance(tree, dict):
+        return {k: tree_map_named(fn, v, k) for k, v in tree.items()}
+    return fn(tree, name)
+
+
+def init_params(gen: torch.Generator, template,
+                float32_leaves=frozenset()) -> Any:
+    """Materialize every Spec of ``template`` on ``gen``'s device, in
+    ``COMPUTE_DTYPE`` (``float32_leaves`` in float32), in the template's
+    order."""
+    return tree_map_named(
+        lambda s, name: s.materialize(gen, leaf_dtype(name, float32_leaves)),
+        template)
 
 
 def param_count(template) -> int:
@@ -91,6 +113,27 @@ def stack_layers(layer_template, n: int) -> Any:
     return tree_map(
         lambda s: Spec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale),
         layer_template)
+
+
+def unstack(tree, depth: int = 1) -> list:
+    """A stacked subtree (every leaf with the same leading axes) as a list
+    of per-index subtrees of views, nested ``depth`` axes deep."""
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    items = [tree_map(lambda t, i=i: t[i], tree) for i in range(leaf.shape[0])]
+    return items if depth == 1 else [unstack(t, depth - 1) for t in items]
+
+
+def unstack_params(params: dict, stacked: dict) -> dict:
+    """The parameter tree with each subtree of ``stacked`` (the family's
+    ``STACKED``: template key → number of leading stacked axes) split into
+    (nested) lists of views, walked by the models' Python loops."""
+    out = dict(params)
+    for key, depth in stacked.items():
+        if key in params:
+            out[key] = unstack(params[key], depth)
+    return out
 
 
 def cast(x: torch.Tensor) -> torch.Tensor:
@@ -126,13 +169,24 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+def sigmoid(x):
+    """``1 / (1 + exp(-x))``, every op rounded to x's dtype: XLA expands
+    ``jax.nn.sigmoid`` (``logistic``) into those ops, each rounded in
+    bfloat16 (``torch.sigmoid`` rounds once, and differs in 3 % of the
+    bfloat16 values)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x):
-    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, every
-    op rounded to x's dtype: ``jax.nn.silu`` is ``x * logistic(x)``, and
-    XLA expands ``logistic`` into those four ops, each rounded in bfloat16
-    (``torch.sigmoid`` rounds once, and differs in a quarter of bfloat16
-    inputs)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``x * sigmoid(x)`` with :func:`sigmoid`'s rounding, as
+    ``jax.nn.silu`` (``x * logistic(x)``)."""
+    return x * sigmoid(x)
+
+
+def softplus(x):
+    """``max(x, 0) + log1p(exp(-|x|))``, ``jax.nn.softplus``'s formula
+    (``logaddexp(x, 0)``; ``F.softplus`` cuts over to x above 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def swiglu(x, w_gate, w_up, w_down):

@@ -2,13 +2,15 @@
 
 Port of the reference's ``models/registry.py``.  ``build(cfg)`` returns a
 :class:`Model` bound to a device (``None`` = the CUDA card; without one it
-raises unless the caller passes ``device="cpu"``).  Only ``family ==
-"dense"`` is ported; every other family raises ``NotImplementedError``
-naming the slice that ports it.
+raises unless the caller passes ``device="cpu"``).  The families ``dense``
+(:mod:`.transformer`), ``ssm`` (:mod:`.rwkv6`) and ``hybrid``
+(:mod:`.zamba2`) are ported; every other family raises
+``NotImplementedError`` naming the slice that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
+from types import ModuleType
 from typing import Any
 
 import torch
@@ -17,13 +19,15 @@ from ..configs.base import ArchConfig
 from ..configs.registry import get_config
 from ..core.hts.machine import resolve_device
 from . import layers as L
+from . import rwkv6 as R
 from . import transformer as T
+from . import zamba2 as Z
 
+#: the module that implements each ported family
+FAMILIES = {"dense": T, "ssm": R, "hybrid": Z}
 #: the ROADMAP item (Queue 1) that ports each family not ported yet
 LATER = {"moe": "5c (MoE and the VLM prefix)",
          "vlm": "5c (MoE and the VLM prefix)",
-         "ssm": "5b (rwkv6-3b and zamba2-7b, K17 and K18)",
-         "hybrid": "5b (rwkv6-3b and zamba2-7b, K17 and K18)",
          "audio": "5d (whisper)"}
 
 
@@ -32,38 +36,63 @@ class Model:
     cfg: ArchConfig
     template: Any
     device: torch.device
+    impl: ModuleType          # the family's module (``FAMILIES``)
 
     def init(self, seed: int = 0):
         """Random parameters on the model's device, drawn from a
         ``torch.Generator`` seeded with ``seed`` (not JAX's draws)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = L.init_params(gen, self.template)
-        return T.unstack_layers(params, self.cfg.n_layers)
+        return L.unstack_params(
+            L.init_params(gen, self.template, self.impl.FLOAT32_LEAVES),
+            self.impl.STACKED)
 
     def param_count(self) -> int:
         return L.param_count(self.template)
 
+    def forward(self, params, tokens):
+        """The sequence path of every family (the reference's
+        family-uniform prefill, ``launch/dryrun.py`` ``_prefill_logits``):
+        tokens (B, T) → logits (B, T, V)."""
+        return self.impl.forward(params, self.cfg, tokens)[0]
+
+    def _dense_only(self, what: str):
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} is the dense family's (as in the "
+                f"reference); the {self.cfg.family!r} family has forward "
+                "and decode_step")
+
     def prefill(self, params, tokens, max_len: int):
+        self._dense_only("prefill")
         return T.prefill(params, self.cfg, tokens, max_len)
 
-    def decode_step(self, params, cache, tokens, pos):
-        return T.decode_step(params, self.cfg, cache, tokens, pos)
-
     def chunk_step(self, params, cache, tokens, pos: int):
+        self._dense_only("chunk_step")
         return T.chunk_step(params, self.cfg, cache, tokens, pos)
 
+    def decode_step(self, params, cache, tokens, pos):
+        return self.impl.decode_step(params, self.cfg, cache, tokens, pos)
+
     def init_cache(self, batch: int, max_len: int):
-        return T.init_cache(self.cfg, batch, max_len, device=self.device)
+        return self.impl.init_cache(self.cfg, batch, max_len,
+                                    device=self.device)
+
+    @property
+    def cache_axes(self) -> dict:
+        """Each cache leaf's logical axes; ``"cache_batch"`` names its
+        batch (slot) axis."""
+        return self.impl.cache_axes(self.cfg)
 
 
 def build(cfg: ArchConfig, device=None) -> Model:
-    if cfg.family != "dense":
+    impl = FAMILIES.get(cfg.family)
+    if impl is None:
         item = LATER.get(cfg.family, "none yet")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP Queue 1 item {item})")
-    return Model(cfg=cfg, template=T.template(cfg),
-                 device=resolve_device(device))
+    return Model(cfg=cfg, template=impl.template(cfg),
+                 device=resolve_device(device), impl=impl)
 
 
 def build_arch(arch: str, device=None) -> Model:

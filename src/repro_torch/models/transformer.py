@@ -47,6 +47,12 @@ def block_template(cfg) -> dict:
     }
 
 
+#: the leaves the reference reads without ``cast`` (none here), and the
+#: stacked subtrees with their number of leading stacked axes
+FLOAT32_LEAVES = frozenset()
+STACKED = {"layers": 1}
+
+
 def template(cfg) -> dict:
     t = {
         "embed": Spec((cfg.vocab, cfg.d_model), ("vocab", "embed_fsdp"),
@@ -57,15 +63,6 @@ def template(cfg) -> dict:
     if not cfg.tie_embeddings:
         t["lm_head"] = Spec((cfg.d_model, cfg.vocab), ("embed_fsdp", "vocab"))
     return t
-
-
-def unstack_layers(params: dict, n_layers: int) -> dict:
-    """The tree with its stacked ``layers`` (every leaf (L, ...)) split
-    into a list of L per-layer dicts of views."""
-    out = dict(params)
-    out["layers"] = [L.tree_map(lambda t, i=i: t[i], params["layers"])
-                     for i in range(n_layers)]
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +129,16 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+_KV_AXES = ("layers", "cache_batch", "kv_heads", "kv_seq", None)
+
+
+def cache_axes(cfg):
+    """Each cache leaf's logical axes (the reference's
+    ``Model.cache_axes`` for the dense family)."""
+    del cfg
+    return {"k": _KV_AXES, "v": _KV_AXES}
 
 
 def decode_step(params, cfg, cache, tokens, pos):

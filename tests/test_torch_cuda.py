@@ -12,9 +12,13 @@ DSP kernels are float32, held to the reference tests' tolerances (1e-5;
 1e-4 for the DCT and K6–K8; 1e-3 for the FFT; ``vector_add`` and
 ``vector_max`` bit for bit, NaN in the same places), at ragged batches
 that leave part of the last block empty.  K15 and K16 take float32 and
-bfloat16 (K16 also float16): K16 within 1e-5 in float32 and 2e-2 in the
-16-bit types, K15 within 2e-3 and 2e-2, at ragged lengths and every head
-dim; the smoke model's kernel path within 1e-1 normwise of its plain path.
+bfloat16: K16 within 1e-5 in float32 and 2e-2 in bfloat16, K15 within
+1e-5 and 2e-2, at ragged lengths and every head dim (112 included).  K17
+and K18 in float32 within 1e-5 normwise (largest difference over the
+largest plain magnitude: their sums run in another order than the plain
+version's), in bfloat16 at rtol = atol = 2e-2 (about one output ulp), at
+ragged T.  Each smoke model's kernel path (Qwen2, rwkv6, zamba2) within
+1e-1 normwise of its plain path.
 """
 import pytest
 import torch
@@ -24,7 +28,7 @@ from repro_torch.core.hts import (batch, costs, cuda_step, machine, programs,
 from repro_torch.examples import dsp_pipeline
 from repro_torch.kernels import common as dsp
 from repro_torch.kernels import dsp_fir, dsp_spectral, dsp_vector, ops, ref
-from repro_torch.kernels import attention, rmsnorm
+from repro_torch.kernels import attention, mamba2, rmsnorm, rwkv6
 from repro_torch.models import registry
 
 pytestmark = pytest.mark.cuda
@@ -362,7 +366,7 @@ def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype):
 @pytest.mark.parametrize("tq,tk,q_offset", [(1, 77, 76), (5, 9, 4),
                                             (200, 200, 0), (64, 300, 236),
                                             (1000, 1000, 0)])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, tq, tk, q_offset, d,
@@ -406,7 +410,9 @@ def test_smoke_model_kernel_path_matches_plain_path(card, monkeypatch):
     step, cache = m.decode_step(p, cache, tok[:, :1], 100)
     torch.cuda.synchronize()
     L = m.cfg.n_layers
-    assert lib.launches == {"flash_attention": L, "rmsnorm": 2 * (2 * L + 1)}
+    want = {"flash_attention": L, "rmsnorm": 2 * (2 * L + 1), "wkv6": 0,
+            "ssd": 0}
+    assert lib.launches == want
     # the plain path: ops calls the plain versions in place of the wrappers
     monkeypatch.setattr(rmsnorm, "rmsnorm", ref.rmsnorm)
     monkeypatch.setattr(
@@ -416,7 +422,117 @@ def test_smoke_model_kernel_path_matches_plain_path(card, monkeypatch):
     plain, pcache = m.prefill(p, tok, 128)
     pstep, _ = m.decode_step(p, pcache, tok[:, :1], 100)
     torch.cuda.synchronize()
-    assert lib.launches == {"flash_attention": L, "rmsnorm": 2 * (2 * L + 1)}
+    assert lib.launches == want
     for got, want in ((logits, plain), (step, pstep)):
         err = (got.float() - want.float()).abs().max() / want.float().abs().max()
         assert float(err) <= 1e-1, float(err)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences K17 and K18
+# ---------------------------------------------------------------------------
+REC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _rec_close(got, want, dtype):
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= REC_TOL[dtype], float(err)
+    else:
+        tol = REC_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("bh,t,kd,vd", [(2, 64, 32, 32), (8, 128, 64, 64),
+                                        (1, 96, 64, 128), (3, 1000, 64, 64),
+                                        (5, 33, 16, 200), (2, 70, 100, 24)])
+@pytest.mark.parametrize("dtype", list(REC_TOL))
+def test_wkv6_kernel_matches_plain(card, bh, t, kd, vd, dtype):
+    """Ragged T (no multiple of the staged chunk), a K padded to its
+    register width, V split over CTAs; w in (0.5, 1) as the JAX test."""
+    r = (_frames(card, 1, bh, t, kd) * 0.5).to(dtype)
+    k = (_frames(card, 2, bh, t, kd) * 0.5).to(dtype)
+    v = (_frames(card, 3, bh, t, vd) * 0.5).to(dtype)
+    w = (torch.sigmoid(_frames(card, 4, bh, t, kd)) * 0.5 + 0.5).to(dtype)
+    u = (_frames(card, 5, bh, kd) * 0.3).to(dtype)
+    lib = dsp.TRANSFORMER_LIB
+    before = lib.launches["wkv6"]
+    got = rwkv6.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert lib.launches["wkv6"] == before + 1
+    want = ref.rwkv6_scan(*(x.transpose(0, 1)[None] for x in (r, k, v, w)),
+                          u)[0].transpose(0, 1)
+    _rec_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("b,t,h,p,n", [(1, 64, 2, 32, 16), (2, 128, 4, 64, 64),
+                                       (1, 80, 3, 16, 32), (2, 1000, 5, 64, 64),
+                                       (1, 33, 2, 200, 100)])
+@pytest.mark.parametrize("dtype", list(REC_TOL))
+def test_ssd_kernel_matches_plain(card, b, t, h, p, n, dtype):
+    """Ragged T, odd N and P; a <= 0 in float32 whatever x's dtype."""
+    x = (_frames(card, 6, b, t, h, p) * 0.5).to(dtype)
+    a = -(_frames(card, 7, b, t, h) * 0.5).abs()
+    bb = (_frames(card, 8, b, t, n) * 0.5).to(dtype)
+    c = (_frames(card, 9, b, t, n) * 0.5).to(dtype)
+    lib = dsp.TRANSFORMER_LIB
+    before = lib.launches["ssd"]
+    got = mamba2.ssd(x, a, bb, c)
+    torch.cuda.synchronize()
+    assert lib.launches["ssd"] == before + 1
+    _rec_close(got, ref.mamba2_ssd(x, a, bb, c), dtype)
+
+
+def test_recurrence_kernels_refuse_a_state_past_their_registers(card):
+    r = torch.zeros(1, 4, 129, device=card)
+    with pytest.raises(ValueError, match="K <= 128"):
+        rwkv6.wkv6(r, r, r, r, torch.zeros(1, 129, device=card))
+    x, b = torch.zeros(1, 4, 1, 8, device=card), torch.zeros(1, 4, 129,
+                                                           device=card)
+    with pytest.raises(ValueError, match="N <= 128"):
+        mamba2.ssd(x, torch.zeros(1, 4, 1, device=card), b, b)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_ssm_smoke_model_kernel_path_matches_plain_path(card, arch,
+                                                        monkeypatch):
+    """rwkv6's and zamba2's smoke configs on the card: ``forward`` at a
+    ragged T launches K17 once a layer (rwkv6), or K18 once a Mamba layer
+    and K15 once a group (zamba2), K16 for every norm; the logits agree
+    with the plain ops' within 1e-1 normwise."""
+    m = registry.build_smoke(arch)
+    p = m.init(0)
+    tok = torch.randint(0, m.cfg.vocab, (2, 100), device=card)
+    lib = dsp.TRANSFORMER_LIB
+    lib.reset_launches()
+    logits = m.forward(p, tok)
+    torch.cuda.synchronize()
+    L = m.cfg.n_layers
+    if arch == "rwkv6-3b":
+        want = {"flash_attention": 0, "rmsnorm": 2 * L + 1, "wkv6": L,
+                "ssd": 0}
+    else:
+        groups = L // m.cfg.shared_attn_period
+        want = {"flash_attention": groups, "rmsnorm": L + 2 * groups + 1,
+                "wkv6": 0, "ssd": L}
+    assert lib.launches == want
+    monkeypatch.setattr(rmsnorm, "rmsnorm", ref.rmsnorm)
+    monkeypatch.setattr(
+        attention, "flash_attention",
+        lambda q, k, v, **kw: ref.flash_attention(
+            q[:, None], k[:, None], v[:, None], **kw)[:, 0])
+    monkeypatch.setattr(
+        rwkv6, "wkv6",
+        lambda r, k, v, w, u, **kw: ref.rwkv6_scan(
+            *(x.transpose(0, 1)[None] for x in (r, k, v, w)),
+            u)[0].transpose(0, 1))
+    monkeypatch.setattr(mamba2, "ssd",
+                        lambda x, a, b, c, **kw: ref.mamba2_ssd(x, a, b, c))
+    plain = m.forward(p, tok)
+    torch.cuda.synchronize()
+    assert lib.launches == want
+    err = (logits.float() - plain.float()).abs().max() / \
+        plain.float().abs().max()
+    assert float(err) <= 1e-1, float(err)

@@ -63,7 +63,7 @@ def pair(request, monkeypatch):
     jp = reference_params(jm)
     tm = tregistry.build_smoke(ARCH, device="cpu")
     tp = convert.params_from_reference(jax.tree.map(np.asarray, jp),
-                                       device="cpu")
+                                       tm.cfg, device="cpu")
     return jm, jp, tm, tp, NORM_TOL[request.param]
 
 
@@ -236,7 +236,6 @@ def test_random_init_follows_the_reference_distribution():
 
 def test_unported_families_and_flags_raise():
     for arch, item in (("qwen2-moe-a2.7b", "5c"), ("paligemma-3b", "5c"),
-                       ("rwkv6-3b", "5b"), ("zamba2-7b", "5b"),
                        ("whisper-base", "5d")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tregistry.build_arch(arch, device="cpu")
@@ -263,4 +262,5 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         tregistry.build_smoke(ARCH)
     with pytest.raises(RuntimeError, match="cuda"):
-        convert.params_from_reference({"layers": {}})
+        convert.params_from_reference({"layers": {}},
+                                      tconfigs.get_config(ARCH))

@@ -50,7 +50,7 @@ def pair(monkeypatch):
     jp = jm.init(jax.random.PRNGKey(0))
     tm = tregistry.build_smoke(ARCH, device="cpu")
     tp = convert.params_from_reference(jax.tree.map(np.asarray, jp),
-                                       device="cpu")
+                                       tm.cfg, device="cpu")
     return jm, jp, tm, tp
 
 

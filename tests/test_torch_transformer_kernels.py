@@ -23,7 +23,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
-from repro_torch.kernels import attention, common, rmsnorm
+from repro_torch.kernels import attention, common, mamba2, rmsnorm, rwkv6
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -163,8 +163,16 @@ def test_wrappers_on_the_cpu_are_the_plain_versions_and_count_nothing():
     assert torch.equal(got, want)
     x, w = torch.from_numpy(arr(16, 9, 48)), torch.from_numpy(arr(17, 48))
     assert torch.equal(rmsnorm.rmsnorm(x, w, 1e-5), tref.rmsnorm(x, w, 1e-5))
+    r, u = torch.from_numpy(arr(18, 3, 20, 16)), torch.from_numpy(arr(19, 3, 16))
+    want = tref.rwkv6_scan(*[r.transpose(0, 1)[None]] * 4, u)[0].transpose(0, 1)
+    assert torch.equal(rwkv6.wkv6(r, r, r, r, u), want)
+    xs, a = torch.from_numpy(arr(20, 1, 20, 2, 4)), -torch.from_numpy(
+        np.abs(arr(21, 1, 20, 2)))
+    assert torch.equal(mamba2.ssd(xs, a, r[:1], r[:1]),
+                       tref.mamba2_ssd(xs, a, r[:1], r[:1]))
     assert common.TRANSFORMER_LIB.launches == {"rmsnorm": 0,
-                                               "flash_attention": 0}
+                                               "flash_attention": 0,
+                                               "wkv6": 0, "ssd": 0}
 
 
 @pytest.mark.parametrize("op", ["rmsnorm", "flash_attention"])

@@ -14,8 +14,9 @@ synthetic schedules executed); Qwen2-1.5B at full width through
 ``prefill`` and the continuous-batching ``Server``; rwkv6-3b and zamba2-7b
 at full width through ``forward`` and the ``Server`` — then checks them:
 
-1. device and build: the card's name and power limit, the two kernel
-   libraries' builds (time and ``-Xptxas -v`` report);
+1. device and build: the card's name and power limit, the three kernel
+   libraries' builds (time and ``-Xptxas -v`` report); the registers and
+   spills of each instance of K13 ``fft_kernel<L>``;
 2. kernels against plain: for the first 64 trips of the main-path
    population, and 64 trips from the middle of its run, every K1–K4 launch
    is checked against its plain torch version on a clone of the same carry
@@ -111,9 +112,10 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    on the kernels against token-by-token ``decode_step`` over T = 100 at
    1e-3, the reference's own check;
 5b. kernel times: device, call, plain and library times of the DSP
-   kernels at each path's shape, of K15 and K16 at the prefill's (K15 at
-   zamba2's too) and of K17 and K18 at the models' forward shapes, beside
-   the bound.
+   kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
+   ``scaled_dot_product_attention`` at zamba2's too) and of K17 and K18 at
+   the models' forward shapes, beside the bound.  ``--only 5b`` times them
+   all on their own (launches are counted only on the paths that ran).
 
 The last lines are the card (``nvidia-smi``), one JSON object
 ``{"kernels": [...]}`` (all eighteen kernels), and ``{"ok": true,
@@ -130,6 +132,7 @@ import contextlib
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -745,6 +748,35 @@ def max_err(got, want) -> float:
 
 
 # ---------------------------------------------------------------------------
+# what the compiler made of the redesigned K13
+# ---------------------------------------------------------------------------
+def ptxas_facts(report: str, pattern: str, label: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name matches
+    ``pattern`` (one group: its template argument) in a ``-Xptxas -v``
+    report, as ``{"label<arg>": {"registers", "spill_stores",
+    "spill_loads"}}``."""
+    facts: dict = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(pattern, m.group(1))
+            name = f"{label}<{t.group(1)}>" if t else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            facts.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            facts.setdefault(name, {})["registers"] = int(m.group(1))
+    return facts
+
+
+# ---------------------------------------------------------------------------
 # the model path (K15, K16)
 # ---------------------------------------------------------------------------
 def attention_pairs(Tq, Tk, causal, q_offset) -> int:
@@ -996,6 +1028,19 @@ def main(argv=None) -> int:
     phase("1 build", build)
     if failures:
         return 1
+
+    # the redesigned K13: ptxas's registers and spills of each instance
+    facts: dict = {}
+
+    def build_facts():
+        if not dsp.LIB.info:
+            log("fft: cached build, no ptxas report")
+            return
+        facts["fft"] = {"ptxas": ptxas_facts(
+            dsp.LIB.info["ptxas"], r"fft_kernelILi(\d+)E", "fft_kernel")}
+        for fn, f in facts["fft"]["ptxas"].items():
+            log(f"ptxas {fn:16s} {f}")
+    phase("1 ptxas of K13", build_facts)
 
     ctx: dict = {}
 
@@ -2065,7 +2110,8 @@ def main(argv=None) -> int:
                 ms=k_dev if k_dev is not None else k_call,
                 kernel_ms=k_dev if k_dev is not None else k_call,
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
-                bound_by=by, library_ms=lib, shape=[b, n]))
+                bound_by=by, library_ms=lib, shape=[b, n],
+                **facts.get(name, {})))
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             libs = "none" if lib is None else f"{lib:.4f} ms"
             log(f"{name:11s} B={b} N={n}  kernel {dev} on the device, "
@@ -2074,20 +2120,23 @@ def main(argv=None) -> int:
                 f"{by_path}  on {card}")
     paths = {"audio_bnt", "audio_bt", "image", "shared", "table2"}
     paths |= {f"synthetic/{name}" for name in dsp_pipeline.SYNTHETIC}
-    if paths <= set(path_launches):
+    # with --only the times run on their own, launches counted only where
+    # the paths ran
+    if paths <= set(path_launches) or only:
         phase("5b DSP kernel times", dsp_times)
 
     def tf_times():
         F = torch.nn.functional
         shapes, names = {}, []
-        if "model" in ctx:
-            cfg = ctx["model"].cfg
+        if "model" in ctx or only:
+            cfg = (ctx["model"].cfg if "model" in ctx
+                   else model_config(registry.get_config))
             H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
             B, T = PREFILL_B, PREFILL_T
             shapes.update(flash_attention=(B * H, T, T, Dh, True, 0),
                           rmsnorm=(B * T, cfg.d_model))
             names += ["rmsnorm", "flash_attention"]
-        if all(f"{a}/forward" in tf_launches for a in SSM_ARCHS):
+        if all(f"{a}/forward" in tf_launches for a in SSM_ARCHS) or only:
             shapes.update(wkv6=WKV_CASES[0], ssd=SSD_CASES[0])
             names += ["wkv6", "ssd"]
         for i, name in enumerate(names):
@@ -2166,16 +2215,24 @@ def main(argv=None) -> int:
                 row["ms_d112"] = profiled_ms(torch, c112, f"{name}_kernel")
                 row["call_ms_d112"] = events_ms(torch, c112)
                 row["bound_ms_d112"] = tf_bound(name, a112)[0]
+                # the yardstick on zamba2's layout: (B, H, T, D), causal
+                Bz = SSM_B
+                q4, k4, v4 = (t.view(Bz, ATTN_112[0] // Bz, *t.shape[1:])
+                              for t in a112[:3])
+                row["library_ms_d112"] = events_ms(torch, [functools.partial(
+                    F.scaled_dot_product_attention, q4, k4, v4,
+                    is_causal=True)] * 23)
                 extra += (f"; at {ATTN_112[:4]} (zamba2-7b): kernel "
                           f"{row['ms_d112']} ms on the device, "
-                          f"{row['call_ms_d112']:.4f} ms per call, bound "
-                          f"{row['bound_ms_d112']:.4f} ms")
+                          f"{row['call_ms_d112']:.4f} ms per call, library "
+                          f"{row['library_ms_d112']:.4f} ms ({lib_name}), "
+                          f"bound {row['bound_ms_d112']:.4f} ms")
             rows.append(row)
             log(f"{name:15s} {shapes[name]} bf16  kernel {dev} on the "
                 f"device, {k_call:.4f} ms per call  plain {p_call:.4f} ms  "
                 f"library {libs}  bound {bound:.4f} ms ({by}{extra})  "
                 f"launches {by_path}  on {card}")
-    if tf_launches:
+    if tf_launches or only:
         phase("5b transformer kernel times", tf_times)
 
     n_kernels = len(cuda_step.KERNELS) + len(dsp.launches) + len(tlib.launches)

@@ -35,7 +35,6 @@ namespace {
 constexpr int FIR_THREADS = 256;
 constexpr int DOT_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int CORR_WARPS = 8;            // one warp per row, at most 8 a block
-constexpr int FFT_THREADS = 256;
 constexpr int ADD_THREADS = 256;
 constexpr int MAX_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int DCT_THREADS = 256;         // 16 x 16: column x row groups
@@ -397,70 +396,160 @@ __global__ void correlation_kernel(int B, int N, int L,
 // ---------------------------------------------------------------------------
 // K13 fft — replaces src/repro/kernels/dsp_spectral.py fft (_fft_kernel,
 // pl.pallas_call at dsp_spectral.py:78; fft_256 is its 256-point case).
-//   Radix-2 decimation-in-time FFT of (B, N, 2) re/im frames, N a power of
-//   two: bit-reversal permutation, then log2 N stages of N/2 butterflies
-//   with the caller's float32 (stages, N/2) twiddle tables.
-// Bound: B*N*2*4 bytes read plus the same written; 5 N log2 N flops a
-// frame is far below the fp32 rate.  Design: a frame lives in shared
-// memory as re/im planes for all its stages, so device memory sees it
-// once each way.  The reference's bit-reversal pre-pass (dsp_spectral.py
-// :77, a separate gather over the whole batch) moves into the load: each
-// thread reads consecutive samples (coalesced) and stores them at their
-// bit-reversed place (__brev).  min(N/2, 256) threads per frame, each
-// taking every tpf-th butterfly of a stage, __syncthreads() between
-// stages; 256 / tpf frames a block (two at N = 256).  The butterfly and
-// its twiddle index are the reference's: stage s has half-span m = 2^s,
-// pair (g*2m + j, g*2m + j + m) uses twiddle j.
+//   Radix-2 decimation-in-time FFT of (B, N, 2) re/im frames, N = 2^L a
+//   power of two: bit-reversal permutation, then L stages of N/2
+//   butterflies with the float32 twiddles of the (stages, N/2) tables;
+//   the caller passes their last row (N/2 entries), see below.
+// Bound: B*N*8 bytes read plus the same written (0.080 ms at 65536 x 256);
+// 5 N log2 N flops a frame are far below the fp32 rate.  So the design
+// keeps a frame out of device memory between its stages and spends as
+// little as it can on everything else:
+//   Points in registers.  A thread holds R = 16 complex points of a frame
+//   (N/16 threads a frame; for N < 16 one thread holds all N): those whose
+//   index in the bit-reversed order differs only in four bits.  The four
+//   stages that pair along those bits run on the registers with no
+//   barrier (a pass); between passes the frame goes once through shared
+//   memory (an exchange: each thread writes its 16 points, reads the 16
+//   of the next pass).  N = 256: passes of stages 0-3 and 4-7, one
+//   exchange; N = 4096: three passes.  When L is not a multiple of four the
+//   last pass pairs along fewer bits and its thread holds a few bits below
+//   them too.  A frame of N <= 512 lies in one warp, so its exchange syncs
+//   the warp only.  The buffer holds a padding point after every 16, so
+//   neither the exchange's writes nor its reads conflict in the banks.
+//   Butterflies.  The reference's own: stage s (half-span m = 2^s) pairs
+//   (e, e + m), twiddles the odd point by entry j = e mod m of row s, the
+//   same expressions in the same order; only their grouping into passes
+//   differs.  Row s's entry j equals the last row's entry j * 2^(L-1-s)
+//   bit for bit (the same dyadic angle in float64 before the cast to
+//   float32; tests/test_torch_dsp.py pins it for every N), so the kernel
+//   takes that one row and the block stages it in shared memory, once.
+//   Loads and stores.  The bit-reversal is folded into which points a
+//   thread loads: in the first pass thread t's point u sits at index
+//   rev(u) * N/16 + rev(t) of the input, so for each u a frame's threads
+//   read one run of consecutive samples; the last pass stores runs of
+//   consecutive samples too.  One 8-byte (re, im) load or store a point.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(FFT_THREADS)
-fft_kernel(int B, int N, int bits, const float* __restrict__ x,
-           const float* __restrict__ twr, const float* __restrict__ twi,
-           float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int half = N >> 1;
-  const int tpf = half < FFT_THREADS ? half : FFT_THREADS;
-  const int fpb = FFT_THREADS / tpf;
-  const int f = threadIdx.x / tpf, t = threadIdx.x % tpf;
-  const size_t frame = (size_t)blockIdx.x * fpb + f;
-  const bool live = frame < (size_t)B;
-  float* re = smem + (size_t)f * 2 * N;
-  float* im = re + N;
+constexpr int FFT_BLOCK = 128;           // threads a block (more for N > 2048)
+constexpr int FFT_MAX_BITS = 12;         // N <= 4096
+
+// the pass structure of an N = 2^L point transform
+template <int L> struct FftPlan {
+  static constexpr int LR = L < 4 ? L : 4;             // bits a thread holds
+  static constexpr int R = 1 << LR;                    // points a thread
+  static constexpr int T = (1 << L) / R;               // threads a frame
+  static constexpr int BT = T > FFT_BLOCK ? T : FFT_BLOCK;  // threads a block
+  static constexpr int FPB = BT / T;                   // frames a block
+  static constexpr int PASSES = (L + LR - 1) / LR;
+  static constexpr int PADN = (1 << L) + ((1 << L) >> 4);  // buffer points
+  static constexpr size_t SMEM =
+      sizeof(float2) * ((size_t)(1 << L) / 2 +
+                        (PASSES > 1 ? (size_t)FPB * PADN : 0));
+  // pass p pairs along bits [lo, lo + w) of the bit-reversed index
+  static __host__ __device__ constexpr int lo(int p) { return LR * p; }
+  static __host__ __device__ constexpr int w(int p) {
+    return L - LR * p < LR ? L - LR * p : LR;
+  }
+  // the thread's LR bits are [c, c + LR): the pass's bits and, below them,
+  // LR - w filler bits
+  static __host__ __device__ constexpr int c(int p) {
+    return lo(p) - (LR - w(p));
+  }
+  // bit-reversed index of the thread's point u in pass p: u's low w bits
+  // are the pass's bits, its high bits the filler; t fills the rest
+  static __device__ __forceinline__ int idx(int p, int u, int t) {
+    const int f = LR - w(p);
+    const int pos = ((u & ((1 << w(p)) - 1)) << f) | (u >> w(p));
+    return (t & ((1 << c(p)) - 1)) | (pos << c(p)) |
+           ((t >> c(p)) << (c(p) + LR));
+  }
+};
+
+__device__ __forceinline__ int fft_pad(int i) { return i + (i >> 4); }
+
+template <int L>
+__global__ void __launch_bounds__(FftPlan<L>::BT)
+fft_kernel(int B, const float2* __restrict__ x, const float* __restrict__ twr,
+           const float* __restrict__ twi, float2* __restrict__ out) {
+  using P = FftPlan<L>;
+  constexpr int N = 1 << L, R = P::R, T = P::T;
+  extern __shared__ float2 fsm[];
+  float2* tw = fsm;                                   // the last row, N/2
+  float2* buf = fsm + N / 2 + (threadIdx.x / T) * P::PADN;
+  const int t = threadIdx.x % T;
+  const long long frame = (long long)blockIdx.x * P::FPB + threadIdx.x / T;
+  const bool live = frame < B;
+
+  for (int k = threadIdx.x; k < N / 2; k += P::BT)
+    tw[k] = make_float2(twr[k], twi[k]);
+
+  float2 v[R];
+  const float2* xf = x + frame * N;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int i = P::idx(0, u, t);
+    const int src = (int)(__brev((unsigned)i) >> (32 - L));
+    v[u] = live ? xf[src] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();                                    // the twiddles
+
+#pragma unroll
+  for (int p = 0; p < P::PASSES; ++p) {
+    if (p > 0) {                                      // the exchange
+      if (p > 1) {
+        if (T <= 32) __syncwarp(); else __syncthreads();
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) buf[fft_pad(P::idx(p - 1, u, t))] = v[u];
+      if (T <= 32) __syncwarp(); else __syncthreads();
+#pragma unroll
+      for (int u = 0; u < R; ++u) v[u] = buf[fft_pad(P::idx(p, u, t))];
+    }
+#pragma unroll
+    for (int b = 0; b < P::w(p); ++b) {
+      const int s = P::lo(p) + b;                     // the stage
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        if (u & (1 << b)) continue;
+        const int ue = u, uo = u | (1 << b);
+        const int j = P::idx(p, ue, t) & ((1 << s) - 1);
+        const float2 wv = tw[j << (L - 1 - s)];
+        const float orr = v[uo].x, oii = v[uo].y;
+        const float tr = orr * wv.x - oii * wv.y;     // twiddled odd
+        const float ti = orr * wv.y + oii * wv.x;
+        const float er = v[ue].x, ei = v[ue].y;
+        v[ue] = make_float2(er + tr, ei + ti);
+        v[uo] = make_float2(er - tr, ei - ti);
+      }
+    }
+  }
+
   if (live) {
-    const float* xf = x + frame * 2 * (size_t)N;
-    for (int i = t; i < N; i += tpf) {
-      const int r = (int)(__brev((unsigned)i) >> (32 - bits));
-      re[r] = __ldg(xf + 2 * i);
-      im[r] = __ldg(xf + 2 * i + 1);
+    float2* of = out + frame * N;
+#pragma unroll
+    for (int u = 0; u < R; ++u) of[P::idx(P::PASSES - 1, u, t)] = v[u];
+  }
+}
+
+template <int L>
+int launch_fft(int B, const void* x, const void* twr, const void* twi,
+               void* out, cudaStream_t stream) {
+  using P = FftPlan<L>;
+  if (P::SMEM > (size_t)SMEM_LIMIT) {
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fft_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)P::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      configured = true;
     }
   }
-  __syncthreads();
-  for (int s = 0; s < bits; ++s) {
-    const int m = 1 << s;
-    const float* wr_s = twr + (size_t)s * half;
-    const float* wi_s = twi + (size_t)s * half;
-    for (int b = t; b < half; b += tpf) {
-      const int j = b & (m - 1);
-      const int e = ((b >> s) << (s + 1)) + j;   // group * 2m + j
-      const int o = e + m;
-      const float wr = __ldg(wr_s + j), wi = __ldg(wi_s + j);
-      const float orr = re[o], oii = im[o];
-      const float tr = orr * wr - oii * wi;      // twiddled odd
-      const float ti = orr * wi + oii * wr;
-      const float er = re[e], ei = im[e];
-      re[e] = er + tr;
-      im[e] = ei + ti;
-      re[o] = er - tr;
-      im[o] = ei - ti;
-    }
-    __syncthreads();
-  }
-  if (live) {
-    float* of = out + frame * 2 * (size_t)N;
-    for (int i = t; i < N; i += tpf) {
-      of[2 * i] = re[i];
-      of[2 * i + 1] = im[i];
-    }
-  }
+  const long long blocks = ((long long)B + P::FPB - 1) / P::FPB;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  fft_kernel<L><<<(unsigned)blocks, P::BT, P::SMEM, stream>>>(
+      B, (const float2*)x, (const float*)twr, (const float*)twi,
+      (float2*)out);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -674,22 +763,27 @@ int dsp_correlation(int B, int N, int L, void* x, void* y, void* out,
   return (int)cudaGetLastError();
 }
 
+// twr, twi: the last row (N/2 entries) of the (stages, N/2) twiddle tables
 int dsp_fft(int B, int N, void* x, void* twr, void* twi, void* out,
             void* stream) {
-  if (N < 2 || (N & (N - 1))) return (int)cudaErrorInvalidValue;
-  if (B > 0) {
-    const int bits = 31 - __builtin_clz((unsigned)N);
-    const int half = N >> 1;
-    const int tpf = half < FFT_THREADS ? half : FFT_THREADS;
-    const int fpb = FFT_THREADS / tpf;
-    const size_t smem = (size_t)fpb * 2 * N * sizeof(float);
-    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    fft_kernel<<<(B + fpb - 1) / fpb, FFT_THREADS, smem,
-                 (cudaStream_t)stream>>>(B, N, bits, (const float*)x,
-                                         (const float*)twr, (const float*)twi,
-                                         (float*)out);
+  if (N < 2 || (N & (N - 1)) || N > (1 << FFT_MAX_BITS))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (31 - __builtin_clz((unsigned)N)) {
+    case 1: return launch_fft<1>(B, x, twr, twi, out, s);
+    case 2: return launch_fft<2>(B, x, twr, twi, out, s);
+    case 3: return launch_fft<3>(B, x, twr, twi, out, s);
+    case 4: return launch_fft<4>(B, x, twr, twi, out, s);
+    case 5: return launch_fft<5>(B, x, twr, twi, out, s);
+    case 6: return launch_fft<6>(B, x, twr, twi, out, s);
+    case 7: return launch_fft<7>(B, x, twr, twi, out, s);
+    case 8: return launch_fft<8>(B, x, twr, twi, out, s);
+    case 9: return launch_fft<9>(B, x, twr, twi, out, s);
+    case 10: return launch_fft<10>(B, x, twr, twi, out, s);
+    case 11: return launch_fft<11>(B, x, twr, twi, out, s);
+    default: return launch_fft<12>(B, x, twr, twi, out, s);
   }
-  return (int)cudaGetLastError();
 }
 
 // m: the (N, N) DCT-II matrix as ref.dct_matrix builds it (row k is the

@@ -114,8 +114,11 @@ int launch_rmsnorm(int R, int D, float eps, const void* x, const void* w,
 // V rows are zero in shared memory and their scores masked.
 // Bound: at the model's prefill shape (BH = 48, T = 2048, D = 128, causal)
 // 51.6 GFLOP against 100.7 MB: operations.  This first kernel does them on
-// the CUDA cores in float32 (67 TFLOP/s; the bf16 tensor cores' 989 are
-// later work, which must first argue the rounding of P).  Design: one CTA
+// the CUDA cores in float32 (67 TFLOP/s).  The bf16 tensor cores' 989 are
+// later work: rounding P to bf16 moves the output by at most 2^-9 max |v|
+// (PERF.md), but a wgmma kernel's other rounding of S moves the
+// random-weight Qwen2-1.5B's bf16 logits past chip_smoke.py's check of
+// them, which must first be revised (ROADMAP Queue 3).  Design: one CTA
 // of 16 x 16 threads a (head-batch, block of FA_BQ query rows), heavy
 // causal blocks launched first; it loops over blocks of FA_BK keys up to
 // the last one its rows can see (fully masked causal blocks are never

@@ -4,9 +4,13 @@
 Counterpart of the reference's ``kernels/dsp_spectral.py`` ``fft`` /
 ``fft_256`` and ``dct``, with its numpy constants (``_bitrev``,
 ``_twiddle_tables``, ``dct_matrix``, kept in :mod:`.ref`, whose plain
-versions use them too).  The FFT kernel does the bit-reversal in its load
-and takes the same float32 twiddle tables; the DCT kernel takes the same
-float32 DCT-II matrix and multiplies in full fp32 on the CUDA cores.
+versions use them too).  The FFT kernel keeps 16 points of a frame in
+each thread's registers, runs four stages at a time on them and goes
+through shared memory once between those passes; it does the
+bit-reversal in its load and takes the last row of the same float32
+twiddle tables, whose every row is a stride of it
+(:func:`kernel_twiddles`).  The DCT kernel takes the same float32 DCT-II
+matrix and multiplies in full fp32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -17,9 +21,10 @@ from .common import check, launch, on_card
 # the reference's numpy constants, copied
 from .ref import _bitrev, _twiddle_tables, dct_matrix  # noqa: F401
 
-#: one frame's re/im planes must fit the 48 KB of shared memory a block
-#: uses.  Checked on the card route only (the plain version takes any
-#: power of two); the C entry refuses the same sizes as a backstop.
+#: the kernel is built for frames of 2 to 4096 points (the block stages one
+#: frame and its twiddles in shared memory).  Checked on the card route
+#: only (the plain version takes any power of two); the C entry refuses
+#: the same sizes as a backstop.
 FFT_MAX_N = 4096
 #: the DCT kernel keeps a tile of 64 rows and the whole (N, N) matrix in
 #: shared memory: 99 KB at N = 128, the reference tests' widest.  Checked
@@ -41,10 +46,19 @@ def fft(x: torch.Tensor) -> torch.Tensor:
     if N > FFT_MAX_N:
         raise ValueError(f"the fft kernel takes frames of at most "
                          f"{FFT_MAX_N} samples, got {N}")
-    twr, twi = ref.twiddles(N, dev)
+    twr, twi = kernel_twiddles(N, dev)
+    if x.data_ptr() % 8:             # the kernel loads (re, im) as 8 bytes
+        x = x.clone()
     out = torch.empty_like(x)
     launch("fft", B, N, x, twr, twi, out)
     return out
+
+
+def kernel_twiddles(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The twiddles the fft kernel takes: the last row (N/2 entries) of
+    the (stages, N/2) tables.  Row s's entry j is the last row's entry
+    j * 2^(stages-1-s), bit for bit, so no stage needs its own row."""
+    return tuple(t[-1] for t in ref.twiddles(N, device))
 
 
 def fft_256(x: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,12 @@ installed.  The step kernels' state is int32/bool: tolerance zero.  The
 DSP kernels are float32, held to the reference tests' tolerances (1e-5;
 1e-4 for the DCT and K6–K8; 1e-3 for the FFT; ``vector_add`` and
 ``vector_max`` bit for bit, NaN in the same places), at ragged batches
-that leave part of the last block empty.  K15 and K16 take float32 and
+that leave part of the last block empty (the FFT also at 17 and 1000
+frames of 256, 8 frames a block).  K15 and K16 take float32 and
 bfloat16: K16 within 1e-5 in float32 and 2e-2 in bfloat16, K15 within
-1e-5 and 2e-2, at ragged lengths and every head dim (112 included).  K17
+1e-5 and 2e-2, at ragged lengths and every head dim (112 included), and
+in bfloat16 at the models' block-aligned lengths (2048, 1024) and a chunk
+of 100 queries at q_offset 512.  K17
 and K18 in float32 within 1e-5 normwise (largest difference over the
 largest plain magnitude: their sums run in another order than the plain
 version's), in bfloat16 at rtol = atol = 2e-2 (about one output ulp), at
@@ -229,6 +232,19 @@ def test_fft_kernel_matches_plain(card, b, n):
                                atol=1e-3 * max(1.0, n / 256))
 
 
+@pytest.mark.parametrize("b", [17, 1000])
+def test_fft_kernel_matches_plain_over_many_frames_a_block(card, b):
+    """At N = 256 a block holds 8 frames of 16 threads: ragged batches that
+    leave part of the last block empty, against the plain version and
+    torch.fft at the tolerances above."""
+    x = _frames(card, b + 11, b, 256, 2)
+    got = _counted("fft", dsp_spectral.fft, x)
+    torch.testing.assert_close(got, ref.fft(x), rtol=1e-3, atol=1e-3)
+    want = torch.fft.fft(torch.view_as_complex(x))
+    torch.testing.assert_close(torch.view_as_complex(got), want, rtol=1e-3,
+                               atol=1e-3)
+
+
 @pytest.mark.parametrize("b", [1, 64, 300])
 @pytest.mark.parametrize("n,k", [(40, 8), (96, 12)])
 def test_complex_fir_kernel_matches_plain(card, b, n, k):
@@ -385,6 +401,28 @@ def test_flash_attention_kernel_matches_plain(card, tq, tk, q_offset, d,
                                causal=causal, q_offset=q_offset)[:, 0]
     assert bool(torch.isfinite(got).all())
     tol = TF_TOL[dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,q_offset", [
+    (4, 2048, 2048, 128, 0), (4, 1024, 1024, 128, 0),
+    (4, 2048, 2048, 112, 0), (4, 1024, 1024, 112, 0),
+    (3, 100, 612, 128, 512)])
+def test_flash_attention_bf16_kernel_matches_plain_at_full_blocks(
+        card, bh, tq, tk, d, q_offset):
+    """The bfloat16 kernel at block-aligned model lengths (the prefill's
+    2048 and zamba2-7b's 1024, at head dims 128 and 112), causal,
+    and at a query length that is not a multiple of 64 with q_offset > 0
+    (a chunk appended to a cache): the tolerance of the ragged cases."""
+    q = _frames(card, tq + d + 7, bh, tq, d).to(torch.bfloat16)
+    k = _frames(card, tk + d + 8, bh, tk, d).to(torch.bfloat16)
+    v = _frames(card, tk + d + 9, bh, tk, d).to(torch.bfloat16)
+    got = _tf_counted("flash_attention", attention.flash_attention, q, k, v,
+                      causal=True, q_offset=q_offset)
+    want = ref.flash_attention(q[:, None], k[:, None], v[:, None],
+                               causal=True, q_offset=q_offset)[:, 0]
+    assert bool(torch.isfinite(got).all())
+    tol = TF_TOL[torch.bfloat16][1]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 

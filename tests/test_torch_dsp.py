@@ -146,6 +146,24 @@ def test_fft_constants_equal_reference(n):
         np.testing.assert_array_equal(mine, theirs)
 
 
+@pytest.mark.parametrize("n", [2 ** b for b in range(1, 13)])
+def test_every_twiddle_row_is_a_stride_of_the_kernels_row(n):
+    """The fft kernel takes only the last row of the twiddle tables and
+    reads stage s's entry j at j * 2^(stages-1-s): for every frame size it
+    takes (2 to 4096) that entry is row s's entry j bit for bit."""
+    tables = dsp_spectral._twiddle_tables(n)
+    rows = dsp_spectral.kernel_twiddles(n, torch.device("cpu"))
+    stages = tables[0].shape[0]
+    for table, row in zip(tables, rows):
+        row = row.numpy()
+        assert row.shape == (n // 2,)
+        for s in range(stages):
+            m = 1 << s
+            np.testing.assert_array_equal(
+                table[s, :m].view(np.uint32),
+                row[::1 << (stages - 1 - s)][:m].view(np.uint32))
+
+
 @pytest.mark.parametrize("name", sorted(TOL))
 @pytest.mark.parametrize("n", [40, 64, 256])
 def test_dispatch_entry_matches_jax(name, n):

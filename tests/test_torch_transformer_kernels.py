@@ -15,6 +15,8 @@ key block reads past the keys and the result is NaN (pinned below), so at
 ragged lengths the port is held against the JAX plain
 ``ref.flash_attention``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -131,6 +133,53 @@ def test_flash_attention_at_ragged_lengths_matches_the_plain_reference(
                                 q_offset=q_offset)
     np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
                                atol=ATTN_TOL)
+
+
+def attention_with_p_in_bf16(q, k, v, causal, q_offset):
+    """The plain attention as a tensor-core attention rounds it (as
+    FlashAttention and SDPA do): scores and softmax in float32, p = exp(s
+    - max) in [0, 1] rounded to bfloat16 before P·V, the normaliser summed
+    from the float32 p; the output left in float32.  q, k, v: (BH, T, D)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * q.shape[-1] ** -0.5
+    if causal:
+        qi = torch.arange(q.shape[1])[:, None] + q_offset
+        s = s.masked_fill(torch.arange(k.shape[1])[None, :] > qi, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    pv = torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(), vf)
+    return pv / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,causal,q_offset", [
+    (3, 1, 77, 128, True, 76), (3, 5, 9, 32, True, 4),
+    (3, 200, 200, 64, False, 0), (3, 64, 300, 128, True, 236),
+    (3, 1000, 1000, 112, True, 0), (3, 100, 612, 128, True, 512),
+    (1, 2048, 2048, 128, True, 0), (1, 1024, 1024, 112, True, 0)])
+def test_rounding_p_to_bf16_stays_inside_the_bf16_tolerance(
+        bh, tq, tk, d, causal, q_offset):
+    """The argument for rounding P to bfloat16 in a tensor-core K15
+    (PERF.md), on the card tests' kind of input (bfloat16 q, k, v, unit
+    normal and unscaled, so attention is
+    peaked): rounding p in [0, 1] once to bfloat16 moves each weight by at
+    most 2^-9 relative, so the output moves by at most 2^-9 · max |v|
+    (plus float32 summation error); after the output's own rounding to
+    bfloat16 it stays within the card's bf16 tolerance (2e-2) of the plain
+    version, which keeps p in float32."""
+    rng = np.random.default_rng(tq * 7 + tk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (bh, t, d)).astype(np.float32)).to(torch.bfloat16)
+        for t in (tq, tk, tk))
+    got = attention_with_p_in_bf16(q, k, v, causal, q_offset)
+    want = tref.flash_attention(q[:, None].float(), k[:, None].float(),
+                                v[:, None].float(), causal=causal,
+                                q_offset=q_offset)[:, 0]
+    bound = 2.0 ** -9 * float(v.float().abs().max())
+    moved = float((got - want).abs().max())
+    assert 0 < moved <= bound + 1e-5, (moved, bound)
+    plain = tref.flash_attention(q[:, None], k[:, None], v[:, None],
+                                 causal=causal, q_offset=q_offset)[:, 0]
+    torch.testing.assert_close(got.to(torch.bfloat16).float(), plain.float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_reference_pallas_attention_is_nan_past_128_ragged_keys():

@@ -16,7 +16,10 @@ at full width through ``forward`` and the ``Server`` — then checks them:
 
 1. device and build: the card's name and power limit, the three kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
-   spills of each instance of K13 ``fft_kernel<L>``;
+   spills of each instance of K13 ``fft_kernel<L>``, K14
+   ``dct_kernel<C>`` and bf16 K15 ``flash_attention_wgmma<DP>``, and the
+   ``HGMMA`` (tensor-core) instructions in K15's SASS: each bf16 instance
+   must have them, each float32 one none;
 2. kernels against plain: for the first 64 trips of the main-path
    population, and 64 trips from the middle of its run, every K1–K4 launch
    is checked against its plain torch version on a clone of the same carry
@@ -76,12 +79,23 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    ``rmsnorm`` against their plain versions at the model's shapes, a
    ragged length of 1000, every head dim (112 too), ``q_offset`` and the decode
    shape, and at 8192, 32 and ragged rows of 1536, in bfloat16 (2e-2) and
-   float32 (1e-5), q and k unscaled so that attention is peaked; (b) ``prefill`` of 4 × 2048 tokens into a
-   2560-position cache, then 32 greedy ``decode_step``s, on the kernels
-   (28 K15 and 57 K16 launches a prefill, 57 K16 a step) and on the plain
-   ops (``plain_path``: the wrappers swapped for the plain versions, fed
-   the kernel path's tokens): the
-   logits agree normwise within ``LOGIT_TOL``; (c) the ``Server``, 32
+   float32 (1e-5), q and k unscaled so that attention is peaked; (b)
+   ``prefill`` of 4 × 2048 tokens into a 2560-position cache, then 32
+   greedy ``decode_step``s, on the kernels (28 K15 and 57 K16 launches a
+   prefill, 57 K16 a step) and on the plain ops (``plain_path``: the
+   wrappers swapped for the plain versions, fed the kernel path's
+   tokens), timed, their bfloat16 logits compared and reported (not
+   gated: with random weights the scaled scores span ±300, attention is
+   near one-hot, and any other rounding of S resolves near-ties otherwise
+   through 28 layers); then two gates, each with a control that must fail
+   it: (A) the same in float32 (the seed's draws unrounded), the
+   prefill's and every decode step's logits on the kernels within
+   ``FP32_LOGIT_TOL`` normwise of the plain ops', the control K15 swapped
+   for the plain attention with its scaled scores rounded to bfloat16;
+   (B) each of the 28 layers' attention inputs, caught in a bfloat16
+   prefill on the plain ops, through K15 within its bf16 tolerance (2e-2)
+   normwise of the plain attention, the same control beside it and
+   SDPA's reading printed; (c) the ``Server``, 32
    slots of 512 positions, 64 requests (prompts of 16–128 tokens, 16–64
    new), under ``ooo`` and ``naive``: every request completes, 57 K16
    launches a step, ``ooo`` takes fewer steps; tokens/s, ms a step, a
@@ -133,6 +147,7 @@ import functools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -264,6 +279,9 @@ TF_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
                "flash_attention": "src/repro/kernels/attention.py:92",
                "wkv6": "src/repro/kernels/rwkv6.py:65",
                "ssd": "src/repro/kernels/mamba2.py:61"}
+#: the kernel a transformer wrapper launches in bfloat16 (the dtype 5b
+#: times), as the profiler names it, where it is not ``<name>_kernel``
+TF_KERNEL = {"flash_attention": "flash_attention_wgmma"}
 BF16_TENSOR_OPS_PER_S = 989e12   # bf16 tensor cores, dense (on-chip guide)
 ARCH = "qwen2-1.5b"
 MODEL_SEED = 2024
@@ -277,9 +295,6 @@ PROMPT_LEN, MAX_NEW = (16, 128), (16, 64)
 SERVE_SEED, TRACE_STEPS, STAGGERED = 2025, 8, 40
 #: kernel against plain, by dtype: (rmsnorm, flash_attention)
 TF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
-#: the model's logits, kernel path against plain path: normwise (largest
-#: difference over the largest plain logit)
-LOGIT_TOL = 1e-1
 #: K15 cases (BH, Tq, Tk, D, causal, q_offset): the prefill's shape, a
 #: ragged 1000, each head dim, q_offset, the decode shape
 ATTN_CASES = [(48, 2048, 2048, 128, True, 0), (24, 1000, 1000, 128, True, 0),
@@ -315,11 +330,14 @@ ATTN_112 = (64, 1024, 1024, 112, True, 0)
 #: K16 cases (R, D) at these paths' widths: each forward's 2 × 1024 rows
 #: and each Server's 8 slots, at d_model 2560 and 3584
 RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
-#: float32 logits, kernels against plain, normwise, by model: each limit
-#: lies between the kernels' reading and the control's (K17/K18 swapped
-#: for the plain recurrence with its state rounded to bfloat16), which
-#: must fail it (PERF.md §6)
-FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1}
+#: float32 logits, kernels against plain, normwise (largest difference
+#: over the largest plain logit), by model: each limit lies between the
+#: kernels' reading and the control's, which must fail it (PERF.md §6).
+#: The controls: for rwkv6-3b and zamba2-7b K17/K18 swapped for the plain
+#: recurrence with its state rounded to bfloat16 (10b); for Qwen2-1.5B K15
+#: swapped for the plain attention with its scaled scores rounded to
+#: bfloat16 (9b, prefill and every decode step)
+FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2}
 #: K17/K18 against plain: float32 normwise (largest difference over the
 #: largest plain magnitude; the sums run in another order), bfloat16
 #: rtol = atol (about one output ulp)
@@ -776,6 +794,30 @@ def ptxas_facts(report: str, pattern: str, label: str) -> dict:
     return facts
 
 
+def sass_counts(lib_path, opcode: str, patterns: dict) -> dict:
+    """How many ``opcode`` instructions ``cuobjdump -sass`` shows in each
+    function of a built library whose mangled name matches a pattern (one
+    group: its template argument), as ``{"label<arg>": count}``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = None
+            for pattern, label in patterns.items():
+                t = re.search(pattern, m.group(1))
+                if t:
+                    name = f"{label}<{t.group(1)}>"
+                    counts.setdefault(name, 0)
+            continue
+        if name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # the model path (K15, K16)
 # ---------------------------------------------------------------------------
@@ -832,17 +874,18 @@ def tf_case(torch, name, shape, dtype, seed):
 
 @contextlib.contextmanager
 def plain_path(on, ref, attention, rmsnorm, rwkv6, mamba2, only=None,
-               rec=None):
+               rec=None, attn=None):
     """While ``on``, the model's ops call the plain versions in place of
     the K15–K18 wrappers (or of those named in ``only``); restored on
-    exit.  ``rec`` stands for ``rec_plain`` as K17/K18's replacement (the
-    control).  The package has no such switch: only this script builds
-    the plain path it compares with."""
+    exit.  ``rec`` stands for ``rec_plain`` as K17/K18's replacement and
+    ``attn`` for the plain attention as K15's (the controls).  The package
+    has no such switch: only this script builds the plain path it compares
+    with."""
     rec = rec or rec_plain
+    attn = attn or plain_attention
     swaps = {
         "flash_attention": (attention, lambda q, k, v, **kw:
-                            ref.flash_attention(q[:, None], k[:, None],
-                                                v[:, None], **kw)[:, 0]),
+                            attn(ref, q, k, v, **kw)),
         "rmsnorm": (rmsnorm, ref.rmsnorm),
         "wkv6": (rwkv6, lambda *args, **kw: rec(ref, "wkv6", args)),
         "ssd": (mamba2, lambda *args, **kw: rec(ref, "ssd", args)),
@@ -917,6 +960,51 @@ def rec_bf16_state(ref, name, args):
              + b[:, t, None, :, None] * x[:, t, :, None, :]).to(bf).float()
         y[:, t] = torch.einsum("bn,bhnp->bhp", c[:, t], h)
     return y.to(args[0].dtype)
+
+
+def plain_attention(ref, q, k, v, **kw):
+    """K15's plain version on the wrapper's (BH, T, D) arguments."""
+    return ref.flash_attention(q[:, None], k[:, None], v[:, None],
+                               **kw)[:, 0]
+
+
+def attention_bf16_scores(ref, q, k, v, *, causal=True, scale=None,
+                          q_offset=0):
+    """The control of phase 9b's gates: the plain attention (``ref``'s
+    einsums, mask and softmax in float32) with the scaled scores S rounded
+    to bfloat16 before the softmax, what a kernel keeping S in bfloat16
+    would compute.  q: (BH, Tq, D); k, v: (BH, Tk, D)."""
+    import torch
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = (torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+         ).to(torch.bfloat16).float()
+    if causal:
+        qi = torch.arange(q.shape[1], device=q.device)[:, None] + q_offset
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(ki > qi, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+@contextlib.contextmanager
+def capture_attention(attention, ref):
+    """While open, ``attention.flash_attention`` (which
+    ``ops.flash_attention`` calls once a layer, heads flattened, GQA
+    repeated and RoPE applied) records each call's ``(q, k, v, kwargs)``
+    in the list it yields, and returns the plain attention of them."""
+    calls = []
+    saved = attention.flash_attention
+
+    def record(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return plain_attention(ref, q, k, v, **kw)
+
+    attention.flash_attention = record
+    try:
+        yield calls
+    finally:
+        attention.flash_attention = saved
 
 
 def rec_bound(name, args):
@@ -1029,18 +1117,37 @@ def main(argv=None) -> int:
     if failures:
         return 1
 
-    # the redesigned K13: ptxas's registers and spills of each instance
+    # the redesigned kernels: ptxas's registers and spills of each instance
+    # of K13, K14 and bf16 K15, and the tensor-core instructions (HGMMA)
+    # in K15's SASS: the bf16 kernel must have them, the float32 one none
     facts: dict = {}
 
     def build_facts():
-        if not dsp.LIB.info:
-            log("fft: cached build, no ptxas report")
-            return
-        facts["fft"] = {"ptxas": ptxas_facts(
-            dsp.LIB.info["ptxas"], r"fft_kernelILi(\d+)E", "fft_kernel")}
-        for fn, f in facts["fft"]["ptxas"].items():
-            log(f"ptxas {fn:16s} {f}")
-    phase("1 ptxas of K13", build_facts)
+        tf = dsp.TRANSFORMER_LIB
+        for name, lib, pattern, label in (
+                ("fft", dsp.LIB, r"fft_kernelILi(\d+)E", "fft_kernel"),
+                ("dct", dsp.LIB, r"dct_kernelILi(\d+)E", "dct_kernel"),
+                ("flash_attention", tf, r"flash_attention_wgmmaILi(\d+)E",
+                 "flash_attention_wgmma")):
+            facts[name] = {}
+            if not lib.info:
+                log(f"{label}: cached build, no ptxas report")
+                continue
+            facts[name]["ptxas"] = ptxas_facts(lib.info["ptxas"], pattern,
+                                               label)
+            for fn, f in facts[name]["ptxas"].items():
+                log(f"ptxas {fn:28s} {f}")
+        hgmma = sass_counts(tf.build(), "HGMMA", {
+            r"flash_attention_wgmmaILi(\d+)E": "flash_attention_wgmma",
+            r"flash_attention_kernelILi(\d+)E": "flash_attention_kernel"})
+        facts["flash_attention"]["hgmma"] = hgmma
+        log(f"HGMMA instructions in the SASS of K15: {hgmma}")
+        bf16 = {k: n for k, n in hgmma.items() if "wgmma" in k}
+        fp32 = {k: n for k, n in hgmma.items() if "wgmma" not in k}
+        assert len(bf16) == 2 and all(bf16.values()), \
+            f"bf16 K15 without tensor-core instructions: {bf16}"
+        assert len(fp32) == 4 and not any(fp32.values()), fp32
+    phase("1 ptxas of K13, K14 and K15, SASS of K15", build_facts)
 
     ctx: dict = {}
 
@@ -1641,12 +1748,74 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t0:.2f} s)")
         ctx.update(model=model, params=params)
 
-    def prefill_path():
-        model, params = ctx["model"], ctx["params"]
+    def drive(model, params, tok, feeds, on=False, **swap):
+        """``prefill`` of ``tok``, then DECODE_STEPS ``decode_step``s, on
+        the path ``on`` and ``swap`` select (``plain_path``'s arguments;
+        off: the kernels).  Greedy when ``feeds`` is empty (it is filled
+        with the tokens fed), else fed ``feeds`` (teacher-forced).
+        Returns the last-position prefill logits, each step's logits, the
+        launches, walls and peak memory of both."""
+        with plain_path(on, ref, **kernels, **swap):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tlib.reset_launches()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
+            last = logits[:, -1].float()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(tlib.launches)
+            peak = torch.cuda.max_memory_allocated()
+            del logits
+            greedy = not feeds
+            if greedy:
+                feeds.append(last.argmax(-1))
+            steps = []
+            tlib.reset_launches()
+            torch.cuda.synchronize()
+            d0 = time.perf_counter()
+            for i in range(DECODE_STEPS):
+                lg, cache = model.decode_step(
+                    params, cache, feeds[i][:, None].to(torch.int32),
+                    PREFILL_T + i)
+                steps.append(lg[:, -1].float())
+                if greedy:
+                    feeds.append(steps[-1].argmax(-1))
+            torch.cuda.synchronize()
+            dwall = time.perf_counter() - d0
+            dcounts = dict(tlib.launches)
+            del cache
+        assert bool(torch.isfinite(last).all()) and all(
+            bool(torch.isfinite(x).all()) for x in steps), "not finite"
+        return dict(last=last, steps=steps, counts=counts, dcounts=dcounts,
+                    wall=wall, dwall=dwall, peak=peak)
+
+    def logit_errors(what, got, want, limit=None):
+        """Normwise errors of the last-position prefill logits and of each
+        decode step's, with argmax agreement, printed; the largest."""
+        err = normwise(got["last"], want["last"])
+        errs = [normwise(a, b) for a, b in zip(got["steps"], want["steps"])]
+        agree = np.mean([float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                         for a, b in zip([got["last"]] + got["steps"],
+                                         [want["last"]] + want["steps"])])
+        gate = "not gated" if limit is None else f"limit {limit}"
+        log(f"{what}: normwise, prefill {err:.3g}, {DECODE_STEPS} decode "
+            f"steps (teacher-forced) max {max(errs):.3g} mean "
+            f"{np.mean(errs):.3g} ({gate}); argmax agreement {agree:.3f}")
+        return max([err] + errs)
+
+    def prompt_tokens(model):
         rng = np.random.default_rng(MODEL_SEED)
-        tok = torch.from_numpy(rng.integers(
+        return torch.from_numpy(rng.integers(
             0, model.cfg.vocab, (PREFILL_B, PREFILL_T)).astype(np.int32)
         ).to(DEVICE)
+
+    def prefill_path():
+        """bfloat16 prefill and decode on the kernels and on the plain ops,
+        timed; their logits are reported, not gated (the gates are the
+        float32 logits and the per-layer attention below)."""
+        model, params = ctx["model"], ctx["params"]
+        tok = prompt_tokens(model)
         Lr = model.cfg.n_layers
         # warm-up, untimed: each path's first prefill and decode step pay
         # for cuBLAS's and the allocator's first calls at these shapes
@@ -1655,73 +1824,115 @@ def main(argv=None) -> int:
                 logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
                 model.decode_step(params, cache, tok[:, :1], PREFILL_T)
                 del logits, cache
-        runs, feeds = {}, []
-        for path in ("kernels", "plain"):
-            with plain_path(path == "plain", ref, **kernels):
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                tlib.reset_launches()
-                t0 = time.perf_counter()
-                logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
-                last = logits[:, -1].float()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                counts = dict(tlib.launches)
-                peak = torch.cuda.max_memory_allocated()
-                del logits
-                # greedy on the kernel path; the plain path is fed the
-                # kernel path's tokens (teacher-forced)
-                if path == "kernels":
-                    feeds.append(last.argmax(-1))
-                steps = []
-                tlib.reset_launches()
-                torch.cuda.synchronize()
-                d0 = time.perf_counter()
-                for i in range(DECODE_STEPS):
-                    lg, cache = model.decode_step(
-                        params, cache, feeds[i][:, None].to(torch.int32),
-                        PREFILL_T + i)
-                    steps.append(lg[:, -1].float())
-                    if path == "kernels":
-                        feeds.append(steps[-1].argmax(-1))
-                torch.cuda.synchronize()
-                dwall = time.perf_counter() - d0
-                dcounts = dict(tlib.launches)
-                del cache
-            runs[path] = dict(last=last, steps=steps, counts=counts,
-                              dcounts=dcounts)
-            assert bool(torch.isfinite(last).all()), f"{path}: not finite"
+        feeds: list = []
+        runs = {"kernels": drive(model, params, tok, feeds),
+                "plain": drive(model, params, tok, feeds, on=True)}
+        for path, r in runs.items():
             log(f"prefill ({path}) B={PREFILL_B} T={PREFILL_T} max_len "
-                f"{PREFILL_MAX_LEN}: {wall * 1e3:.1f} ms, "
-                f"{PREFILL_B * PREFILL_T / wall:.0f} tokens/s, launches "
-                f"{counts}, peak device memory {peak / 1e9:.3f} GB; "
-                f"{DECODE_STEPS} decode steps at B={PREFILL_B}: "
-                f"{dwall / DECODE_STEPS * 1e3:.2f} ms a step, launches "
-                f"{dcounts}  on {card}")
+                f"{PREFILL_MAX_LEN}: {r['wall'] * 1e3:.1f} ms, "
+                f"{PREFILL_B * PREFILL_T / r['wall']:.0f} tokens/s, launches "
+                f"{r['counts']}, peak device memory {r['peak'] / 1e9:.3f} "
+                f"GB; {DECODE_STEPS} decode steps at B={PREFILL_B}: "
+                f"{r['dwall'] / DECODE_STEPS * 1e3:.2f} ms a step, launches "
+                f"{r['dcounts']}  on {card}")
         k, pl = runs["kernels"], runs["plain"]
         assert k["counts"] == {**zero, "flash_attention": Lr,
                                "rmsnorm": 2 * Lr + 1}, k["counts"]
-        assert pl["counts"] == zero
+        assert pl["counts"] == zero and pl["dcounts"] == zero
         assert k["dcounts"] == {**zero,
                                 "rmsnorm": DECODE_STEPS * (2 * Lr + 1)}
         tf_launches["prefill"] = k["counts"]
         tf_launches["decode"] = k["dcounts"]
-        err = normwise(k["last"], pl["last"])
-        agree = float((k["last"].argmax(-1) == pl["last"].argmax(-1))
-                      .float().mean())
-        log(f"prefill last-position logits, kernels vs plain: normwise "
-            f"error {err:.3g} (tolerance {LOGIT_TOL}), argmax agreement "
-            f"{agree:.3f}")
-        assert err <= LOGIT_TOL, f"prefill logits differ ({err:.3g})"
-        errs = [normwise(a, b) for a, b in zip(k["steps"], pl["steps"])]
-        agree = np.mean([float((a.argmax(-1) == b.argmax(-1)).float().mean())
-                         for a, b in zip(k["steps"], pl["steps"])])
-        log(f"{DECODE_STEPS} decode steps teacher-forced on the kernel "
-            f"path's tokens: normwise error per step max {max(errs):.3g}, "
-            f"mean {np.mean(errs):.3g} (tolerance {LOGIT_TOL}), argmax "
-            f"agreement {agree:.3f}")
-        assert max(errs) <= LOGIT_TOL, f"decode logits differ ({errs})"
+        logit_errors("bf16 logits, kernels vs plain", k, pl)
         ctx["prefill_tokens"] = tok
+
+    def fp32_logit_gate():
+        """Gate A: in float32 (the same seed's draws, unrounded), the
+        logits of prefill and of every decode step on the kernels against
+        the plain ops within FP32_LOGIT_TOL, and a control, K15 swapped for
+        the plain attention with its scores rounded to bfloat16, which must
+        fail the same limit."""
+        model = ctx["model"]
+        tok = prompt_tokens(model)
+        Lr = model.cfg.n_layers
+        tol = FP32_LOGIT_TOL[ARCH]
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            p32 = model.init(MODEL_SEED)
+            feeds: list = []
+            k = drive(model, p32, tok, feeds)
+            pl = drive(model, p32, tok, feeds, on=True)
+            ctl = drive(model, p32, tok, feeds, on=True,
+                        only=("flash_attention",),
+                        attn=attention_bf16_scores)
+            del p32
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        assert k["counts"] == {**zero, "flash_attention": Lr,
+                               "rmsnorm": 2 * Lr + 1}, k["counts"]
+        assert ctl["counts"] == {**zero, "rmsnorm": 2 * Lr + 1}, \
+            ctl["counts"]
+        log(f"float32 prefill (kernels): {k['wall'] * 1e3:.1f} ms, "
+            f"{DECODE_STEPS} decode steps "
+            f"{k['dwall'] / DECODE_STEPS * 1e3:.2f} ms a step  on {card}")
+        err = logit_errors("fp32 logits, kernels vs plain", k, pl, tol)
+        c_err = logit_errors("fp32 logits, control (K15 plain, scores "
+                             "rounded to bf16) vs plain", ctl, pl, tol)
+        assert err <= tol, f"fp32 logits differ ({err:.3g} > {tol})"
+        if c_err <= tol:
+            raise AssertionError(f"the control passes the fp32 gate at "
+                                 f"{tol} ({c_err:.3g}): it cannot tell a "
+                                 "kernel with bfloat16 scores")
+        log(f"the control fails the fp32 gate, as it must ({c_err:.3g} > "
+            f"{tol})")
+
+    def attention_layer_gate():
+        """Gate B: one bfloat16 prefill on the plain ops at the reference's
+        init, each layer's attention inputs caught; on each layer's
+        inputs K15 against the plain attention, normwise, within K15's
+        bf16 tolerance, and the control (scores rounded to bf16), which
+        must fail it; SDPA's reading printed beside them (not a gate)."""
+        model, params = ctx["model"], ctx["params"]
+        tok = prompt_tokens(model)
+        tol = TF_TOL["bfloat16"][1]
+        F = torch.nn.functional
+        with plain_path(True, ref, **kernels), \
+                capture_attention(attention, ref) as calls:
+            logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
+            del logits, cache
+        assert len(calls) == model.cfg.n_layers, len(calls)
+        tlib.reset_launches()
+        reads = {"kernel": [], "control": [], "sdpa": []}
+        for q, k, v, kw in calls:
+            want = plain_attention(ref, q, k, v, **kw)
+            assert kw.get("q_offset", 0) == 0 and q.shape == k.shape
+            got = {"kernel": attention.flash_attention(q, k, v, **kw),
+                   "control": attention_bf16_scores(ref, q, k, v, **kw),
+                   "sdpa": F.scaled_dot_product_attention(
+                       q, k, v, is_causal=kw["causal"])}
+            for name, out in got.items():
+                assert bool(torch.isfinite(out).all()), name
+                reads[name].append(normwise(out, want))
+            del got, want
+        assert tlib.launches["flash_attention"] == len(calls)
+        q, k = calls[0][0].float(), calls[0][1].float()
+        spread = float((q @ k.transpose(1, 2)).abs().max()) * \
+            q.shape[-1] ** -0.5
+        log(f"per-layer bf16 attention on {len(calls)} layers' inputs "
+            f"{tuple(calls[0][0].shape)} (layer 0's scaled scores span "
+            f"±{spread:.0f}), normwise against plain, limit {tol}:")
+        for name, r in reads.items():
+            log(f"    {name:8s} max {max(r):.3g} mean {np.mean(r):.3g}  per "
+                f"layer {[float(f'{x:.3g}') for x in r]}")
+        assert max(reads["kernel"]) <= tol, \
+            f"K15 per-layer error {max(reads['kernel']):.3g} > {tol}"
+        if max(reads["control"]) <= tol:
+            raise AssertionError(f"the control passes the per-layer gate at "
+                                 f"{tol}: it cannot tell bfloat16 scores")
+        log(f"the control fails the per-layer gate, as it must "
+            f"({max(reads['control']):.3g} > {tol})")
+        del calls
 
     def serve_requests():
         rng = np.random.default_rng(SERVE_SEED)
@@ -1820,6 +2031,8 @@ def main(argv=None) -> int:
         phase(name, fn)
     if "model" in ctx:
         phase("9b prefill at full width", prefill_path)
+        phase("9b float32 logits gate", fp32_logit_gate)
+        phase("9b per-layer bf16 attention gate", attention_layer_gate)
         phase("9c the Server at full width", server_path)
         ctx.pop("params", None)      # free Qwen2's weights; its cfg stays
 
@@ -2187,7 +2400,8 @@ def main(argv=None) -> int:
             p_call = (events_ms(torch, [plain] * 4, warm=1)
                       if name in rec_wrappers else
                       events_ms(torch, [plain] * 8))
-            k_dev = profiled_ms(torch, calls, f"{name}_kernel")
+            kname = TF_KERNEL.get(name, f"{name}_kernel")
+            k_dev = profiled_ms(torch, calls, kname)
             lib = None if lib_call is None else events_ms(torch,
                                                           [lib_call] * 23)
             by_path = {path: c.get(name, 0) for path, c in tf_launches.items()}
@@ -2201,7 +2415,8 @@ def main(argv=None) -> int:
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
                 bound_by=by, library_ms=lib,
                 shape=list(shapes[name][:4] if name == "flash_attention"
-                           else shapes[name]), dtype="bfloat16")
+                           else shapes[name]), dtype="bfloat16",
+                **facts.get(name, {}))
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             libs = ("none (no single call)" if lib is None
                     else f"{lib:.4f} ms ({lib_name})")
@@ -2212,7 +2427,7 @@ def main(argv=None) -> int:
                 a112 = tf_case(torch, name, ATTN_112, torch.bfloat16, 600)
                 c112 = [functools.partial(
                     attention.flash_attention, *a112[:3], causal=True)] * 23
-                row["ms_d112"] = profiled_ms(torch, c112, f"{name}_kernel")
+                row["ms_d112"] = profiled_ms(torch, c112, kname)
                 row["call_ms_d112"] = events_ms(torch, c112)
                 row["bound_ms_d112"] = tf_bound(name, a112)[0]
                 # the yardstick on zamba2's layout: (B, H, T, D), causal

@@ -37,8 +37,7 @@ constexpr int DOT_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int CORR_WARPS = 8;            // one warp per row, at most 8 a block
 constexpr int ADD_THREADS = 256;
 constexpr int MAX_THREADS = 256;         // one warp per row: 8 rows a block
-constexpr int DCT_THREADS = 256;         // 16 x 16: column x row groups
-constexpr int DCT_ROWS = 64;             // rows of x a block holds
+constexpr int DCT_THREADS = 128;         // at most: column x row threads
 constexpr int DCT_MAX_N = 128;
 constexpr int SMEM_LIMIT = 48 * 1024;    // default-launch shared memory cap
 constexpr int CFIR_THREADS = 256;
@@ -558,89 +557,202 @@ int launch_fft(int B, const void* x, const void* twr, const void* twi,
 //   out[b, k] = sum_i x[b, i] * m[k, i], with m the (N, N) DCT-II matrix,
 //   row k the k-th basis vector (ref.dct_matrix): out = x @ m^T.
 // Bound: B*N*4 bytes read plus the same written, against 2*B*N*N flops:
-// at N = 64 the flops take 0.8 of the bytes' time, so the multiply-adds
-// must run near the fp32 rate.  Full fp32 on the CUDA cores, one fmaf per
-// term in i order: TF32 tensor cores keep about three digits and the
-// reference tests the DCT at 1e-4.  Design: a block holds a tile of
-// DCT_ROWS rows of x and the whole matrix (zero rows up to a multiple of
-// 16) in shared memory, both with an odd row pitch, so the column reads
-// below hit 32 distinct banks; each thread accumulates 4 rows x C columns
-// (columns tx + 16c) in registers.  Per term a warp reads 4 x values (two
-// addresses each, broadcast) and C matrix values (16 addresses each,
-// broadcast to the two row groups).  The tile's load and store are one
-// contiguous run of rows*N floats, coalesced; the outputs are staged back
-// through the x tile to store them that way.  N = 128 needs 99 KB of
-// shared memory, above the 48 KB default: the C entry raises the limit.
+// at N = 64 the flops take 0.8 of the bytes' time, so only a kernel that
+// overlaps its loads with multiply-adds near the fp32 rate approaches the
+// bound.  Full fp32 on the CUDA cores, one fmaf per term in i order: TF32
+// tensor cores keep about three digits and the reference tests the DCT at
+// 1e-4.  Design: persistent CTAs, as many as fit on the card (two per SM
+// at N = 64), at most one per tile.  Each loads the matrix into shared
+// memory once, transposed (mt[i][k] = m[k][i], columns zero-padded to NP
+// = 16 C), then walks tiles of R rows of x: tile t+1 is copied by cp.async
+// into the second of two buffers while tile t is computed.  A thread owns
+// 8 rows (ty + a TY: a warp's rows sit 16 bytes apart in the banks, the
+// row pitch being round4(N) + 4 floats) x 8 columns (4 tx.. and NP/2 +
+// 4 tx..) in registers; per 4 terms it reads its rows' x[i..i+3] and the
+// matrix's 4 rows of its columns, 16 128-bit loads per 256 FMAs.  The
+// outputs go straight from registers to memory: a warp's 16-byte stores
+// cover 128 contiguous bytes of each of its rows, which measured faster
+// than staging them through shared memory (PERF.md §6).  Where N is not a
+// multiple of 4 or x or out is not 16-byte aligned, the copies and the
+// stores move 4 bytes each.
 // ---------------------------------------------------------------------------
 template <int C>                                 // 16*C >= N columns
-__global__ void __launch_bounds__(DCT_THREADS)
-dct_kernel(int B, int N, const float* __restrict__ x,
+struct DctShape {
+  static constexpr int NP = 16 * C;              // padded columns
+  static constexpr int TX = 2 * C;               // 8 columns a thread
+  static constexpr int TY = DCT_THREADS / TX;    // 8 rows a thread
+  static constexpr int THREADS = TX * TY;
+  static constexpr int R = 8 * TY;               // rows a tile
+  static size_t smem(int N) {                    // matrix + two x tiles
+    const int N4 = (N + 3) & ~3;
+    return sizeof(float) * ((size_t)N4 * NP + 2 * (size_t)R * (N4 + 4));
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {  // all but newest
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+template <int C>
+__global__ void __launch_bounds__(DCT_THREADS, 1)
+dct_kernel(int B, int N, int vec, const float* __restrict__ x,
            const float* __restrict__ m, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int ld = N | 1;                          // odd pitch
-  float* xs = smem;                              // DCT_ROWS x ld
-  float* ms = smem + DCT_ROWS * ld;              // 16*C x ld
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const size_t r0 = (size_t)blockIdx.x * DCT_ROWS;
-  const size_t left = (size_t)B - r0;
-  const int rows = left < (size_t)DCT_ROWS ? (int)left : DCT_ROWS;
-  for (int e = t; e < 16 * C * N; e += DCT_THREADS) {
-    const int k = e / N, i = e - k * N;
-    ms[k * ld + i] = k < N ? __ldg(m + e) : 0.f;
+  using S = DctShape<C>;
+  extern __shared__ __align__(16) float smem[];
+  const int N4 = (N + 3) & ~3, XP = N4 + 4;
+  float* mt = smem;                              // [N4][NP]
+  float* xb0 = smem + N4 * S::NP;                // [R][XP], twice
+  float* xb1 = xb0 + S::R * XP;
+  const int t = threadIdx.x, tx = t % S::TX, ty = t / S::TX;
+  const int ntiles = (int)(((size_t)B + S::R - 1) / S::R);
+
+  for (int e = t; e < N4 * S::NP; e += S::THREADS) {
+    const int i = e / S::NP, k = e - i * S::NP;
+    mt[e] = (i < N && k < N) ? __ldg(m + (size_t)k * N + i) : 0.f;
   }
-  const float* xt = x + r0 * (size_t)N;
-  const int cnt = rows * N;
-  for (int e = t; e < DCT_ROWS * N; e += DCT_THREADS) {
-    const int r = e / N, i = e - r * N;
-    xs[r * ld + i] = e < cnt ? __ldg(xt + e) : 0.f;
+  // x's columns N..N4-1 stay zero: those terms add fmaf(0, 0, acc)
+  for (int e = t; e < 2 * S::R * (N4 - N); e += S::THREADS) {
+    const int r = e / (N4 - N), i = N + e % (N4 - N);
+    xb0[r * XP + i] = 0.f;                       // r < 2R spans both
   }
-  __syncthreads();
-  float acc[4][C];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[a][c] = 0.f;
-  const float* xrow = xs + ty * 4 * ld;
-  const float* mrow = ms + tx * ld;
-  for (int i = 0; i < N; ++i) {
-    float xv[4], mv[C];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) xv[a] = xrow[a * ld + i];
-#pragma unroll
-    for (int c = 0; c < C; ++c) mv[c] = mrow[c * 16 * ld + i];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[a][c] = fmaf(xv[a], mv[c], acc[a][c]);
-  }
-  __syncthreads();                               // all reads of xs done
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int k = tx + 16 * c;
-      if (k < N) xs[(ty * 4 + a) * ld + k] = acc[a][c];
+
+  auto rows_of = [&](int tile) {
+    const size_t left = (size_t)B - (size_t)tile * S::R;
+    return left < (size_t)S::R ? (int)left : S::R;
+  };
+  auto load = [&](int tile, float* buf) {
+    const int rows = rows_of(tile);
+    const float* src = x + (size_t)tile * S::R * N;
+    if (vec) {
+      const int q = N >> 2;                      // 16-byte chunks a row
+      for (int e = t; e < rows * q; e += S::THREADS) {
+        const int r = e / q, c = e - r * q;
+        cp_async16(buf + r * XP + 4 * c, src + (size_t)r * N + 4 * c);
+      }
+    } else {
+      for (int e = t; e < rows * N; e += S::THREADS) {
+        const int r = e / N, i = e - r * N;
+        cp_async4(buf + r * XP + i, src + e);
+      }
     }
-  __syncthreads();
-  float* ot = out + r0 * (size_t)N;
-  for (int e = t; e < cnt; e += DCT_THREADS) {
-    const int r = e / N, i = e - r * N;
-    ot[e] = xs[r * ld + i];
+  };
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) load(tile, xb0);
+  cp_async_commit();
+  float* cur = xb0;
+  float* nxt = xb1;
+  for (; tile < ntiles; tile += gridDim.x) {
+    if (tile + (int)gridDim.x < ntiles) load(tile + gridDim.x, nxt);
+    cp_async_commit();                           // (empty on the last)
+    cp_async_wait_prior();                       // this tile's copies
+    __syncthreads();
+
+    float acc[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+    const float* xr = cur + ty * XP;
+    const float* mc = mt + 4 * tx;
+#pragma unroll 2
+    for (int i = 0; i < N4; i += 4) {
+      float4 xv[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+        xv[a] = *reinterpret_cast<const float4*>(xr + a * S::TY * XP + i);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* mrow = mc + (i + u) * S::NP;
+        const float4 m0 = *reinterpret_cast<const float4*>(mrow);
+        const float4 m1 = *reinterpret_cast<const float4*>(mrow + S::NP / 2);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          const float xa = lane4(xv[a], u);
+          acc[a][0] = fmaf(xa, m0.x, acc[a][0]);
+          acc[a][1] = fmaf(xa, m0.y, acc[a][1]);
+          acc[a][2] = fmaf(xa, m0.z, acc[a][2]);
+          acc[a][3] = fmaf(xa, m0.w, acc[a][3]);
+          acc[a][4] = fmaf(xa, m1.x, acc[a][4]);
+          acc[a][5] = fmaf(xa, m1.y, acc[a][5]);
+          acc[a][6] = fmaf(xa, m1.z, acc[a][6]);
+          acc[a][7] = fmaf(xa, m1.w, acc[a][7]);
+        }
+      }
+    }
+    __syncthreads();                             // all reads of the tile
+
+    // the outputs straight from registers: at N = 64 a warp's 16-byte
+    // stores cover 128 contiguous bytes of each of its 4 rows
+    const int rows = rows_of(tile);
+    float* dst = out + (size_t)tile * S::R * N;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int r = ty + a * S::TY;
+      if (r >= rows) continue;
+      float* orow = dst + (size_t)r * N;
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const int k0 = 4 * tx + g * (S::NP / 2);
+        if (vec && k0 + 4 <= N) {
+          __stcs(reinterpret_cast<float4*>(orow + k0),
+                 make_float4(acc[a][4 * g], acc[a][4 * g + 1],
+                             acc[a][4 * g + 2], acc[a][4 * g + 3]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (k0 + c < N) orow[k0 + c] = acc[a][4 * g + c];
+        }
+      }
+    }
+    float* swap = cur;
+    cur = nxt;
+    nxt = swap;
   }
 }
 
 template <int C>
 cudaError_t launch_dct(int B, int N, const float* x, const float* m,
                        float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)(DCT_ROWS + 16 * C) * (N | 1) * sizeof(float);
-  if (smem > (size_t)SMEM_LIMIT) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dct_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const size_t blocks = ((size_t)B + DCT_ROWS - 1) / DCT_ROWS;
-  dct_kernel<C><<<(unsigned)blocks, DCT_THREADS, smem, stream>>>(B, N, x, m,
-                                                                 out);
+  using S = DctShape<C>;
+  const size_t smem = S::smem(N);
+  cudaError_t e = cudaFuncSetAttribute(
+      dct_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, dct_kernel<C>, S::THREADS, smem)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const size_t tiles = ((size_t)B + S::R - 1) / S::R;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const size_t grid = tiles < (size_t)sms * per_sm ? tiles
+                                                   : (size_t)sms * per_sm;
+  const int vec = N % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                  (uintptr_t)out % 16 == 0;
+  dct_kernel<C><<<(unsigned)grid, S::THREADS, smem, stream>>>(B, N, vec, x,
+                                                              m, out);
   return cudaGetLastError();
 }
 

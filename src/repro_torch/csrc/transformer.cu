@@ -9,10 +9,12 @@
 // for attention, (BH, T, K) for wkv6, (B, T, H, P) for ssd.  Inputs are
 // float32 or bfloat16 (the dtype code is an argument: 0, 1; ssd's decay
 // exponents are float32 always); all arithmetic is float32 and every
-// output is rounded once to the input's dtype.  The reference tiles rows
-// and time into blocks and pads; here each kernel computes its own offsets
-// (64-bit) and masks the ragged edges itself, so nothing is padded and
-// nothing past the end of an input is read.
+// output is rounded once to the input's dtype; bfloat16 K15 alone runs
+// its products on the tensor cores (bf16 operands, float32 sums) and
+// rounds its softmax weights to bf16 for P V.  The reference tiles rows
+// and time into blocks and pads; here each kernel computes its own
+// offsets (64-bit) and masks the ragged edges itself, so nothing is
+// padded and nothing past the end of an input is read.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through ctypes (kernels/common.py).
@@ -20,6 +22,7 @@
 // cudaGetLastError().  No --use_fast_math: expf and rsqrtf are the
 // library's accurate versions.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -113,17 +116,18 @@ int launch_rmsnorm(int R, int D, float eps, const void* x, const void* w,
 // NaN in interpret mode), keys at index >= Tk are never read: their K and
 // V rows are zero in shared memory and their scores masked.
 // Bound: at the model's prefill shape (BH = 48, T = 2048, D = 128, causal)
-// 51.6 GFLOP against 100.7 MB: operations.  This first kernel does them on
-// the CUDA cores in float32 (67 TFLOP/s).  The bf16 tensor cores' 989 are
-// later work: rounding P to bf16 moves the output by at most 2^-9 max |v|
-// (PERF.md), but a wgmma kernel's other rounding of S moves the
-// random-weight Qwen2-1.5B's bf16 logits past chip_smoke.py's check of
-// them, which must first be revised (ROADMAP Queue 3).  Design: one CTA
-// of 16 x 16 threads a (head-batch, block of FA_BQ query rows), heavy
-// causal blocks launched first; it loops over blocks of FA_BK keys up to
-// the last one its rows can see (fully masked causal blocks are never
-// visited).  Q, the K and V block and P live in shared memory as float32;
-// a thread owns FA_BQ/16 rows x (FA_BK/16 score, D/16 output) columns, so
+// 51.6 GFLOP against 100.7 MB: operations.  Two kernels, by dtype:
+// bfloat16 runs flash_attention_wgmma on the tensor cores (below);
+// float32 runs flash_attention_kernel on the CUDA cores (67 TFLOP/s),
+// since TF32 tensor cores keep about three digits and the float32
+// tolerance is 1e-5.  Both visit key blocks up to the last one the CTA's
+// rows can see (fully masked causal blocks are never loaded) and launch
+// the heavy causal blocks (the last query blocks) first.
+//
+// flash_attention_kernel (float32): one CTA of 16 x 16 threads a
+// (head-batch, block of FA_BQ query rows); it loops over blocks of FA_BK
+// keys.  Q, the K and V block and P live in shared memory as float32; a
+// thread owns FA_BQ/16 rows x (FA_BK/16 score, D/16 output) columns, so
 // its rows' running max, normaliser and accumulator stay in registers.
 // Pitches: Q's D+4 keeps the two row groups of a warp in different banks,
 // K's odd D+1 makes the 16 key rows of a column walk conflict-free.
@@ -141,12 +145,12 @@ constexpr size_t fa_smem_bytes() {
                           (size_t)FA_BK * D + (size_t)FA_BQ * (FA_BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(int BH, int Tq, int Tk, int nqb, int causal,
-                       int q_offset, float scale, const T* __restrict__ q,
-                       const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o) {
+                       int q_offset, float scale, const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o) {
   constexpr int QP = D + 4, KP = D + 1, VP = D, PP = FA_BK + 1;
   constexpr int OCT = D / 16;            // output columns a thread
   extern __shared__ float smem[];
@@ -165,8 +169,7 @@ flash_attention_kernel(int BH, int Tq, int Tk, int nqb, int causal,
 
   for (int e = tid; e < FA_BQ * D; e += FA_THREADS) {
     const int r = e / D, c = e % D;
-    sq[r * QP + c] = (q0 + r < Tq) ? to_f(q[qbase + (size_t)(q0 + r) * D + c])
-                                   : 0.f;
+    sq[r * QP + c] = (q0 + r < Tq) ? q[qbase + (size_t)(q0 + r) * D + c] : 0.f;
   }
 
   float m[FA_RPT], l[FA_RPT], acc[FA_RPT][OCT];
@@ -190,8 +193,8 @@ flash_attention_kernel(int BH, int Tq, int Tk, int nqb, int causal,
       const int r = e / D, c = e % D;
       const bool in = k0 + r < Tk;
       const size_t g = kbase + (size_t)(k0 + r) * D + c;
-      sk[r * KP + c] = in ? to_f(k[g]) : 0.f;
-      sv[r * VP + c] = in ? to_f(v[g]) : 0.f;
+      sk[r * KP + c] = in ? k[g] : 0.f;
+      sv[r * VP + c] = in ? v[g] : 0.f;
     }
     __syncthreads();
 
@@ -267,13 +270,13 @@ flash_attention_kernel(int BH, int Tq, int Tk, int nqb, int causal,
     const int row = q0 + ty * FA_RPT + i;
     if (row >= Tq) continue;
     const float inv = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + qbase + (size_t)row * D;
+    float* orow = o + qbase + (size_t)row * D;
 #pragma unroll
-    for (int j = 0; j < OCT; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / inv);
+    for (int j = 0; j < OCT; ++j) orow[tx + 16 * j] = acc[i][j] / inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_attention(int BH, int Tq, int Tk, int causal, int q_offset,
                      float scale, const void* q, const void* k, const void* v,
                      void* o, cudaStream_t stream) {
@@ -281,7 +284,7 @@ int launch_attention(int BH, int Tq, int Tk, int causal, int q_offset,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
+        flash_attention_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
@@ -289,30 +292,538 @@ int launch_attention(int BH, int Tq, int Tk, int causal, int q_offset,
   const int nqb = (Tq + FA_BQ - 1) / FA_BQ;
   const long long blocks = (long long)BH * nqb;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<T, D><<<(unsigned)blocks, FA_THREADS, smem, stream>>>(
-      BH, Tq, Tk, nqb, causal, q_offset, scale, (const T*)q, (const T*)k,
-      (const T*)v, (T*)o);
+  flash_attention_kernel<D><<<(unsigned)blocks, FA_THREADS, smem, stream>>>(
+      BH, Tq, Tk, nqb, causal, q_offset, scale, (const float*)q,
+      (const float*)k, (const float*)v, (float*)o);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int attention_for_dim(int BH, int Tq, int Tk, int D, int causal,
-                      int q_offset, float scale, const void* q,
-                      const void* k, const void* v, void* o,
-                      cudaStream_t stream) {
+int attention_f32(int BH, int Tq, int Tk, int D, int causal, int q_offset,
+                  float scale, const void* q, const void* k, const void* v,
+                  void* o, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_attention<T, 32>(BH, Tq, Tk, causal, q_offset, scale, q,
-                                     k, v, o, stream);
+      return launch_attention<32>(BH, Tq, Tk, causal, q_offset, scale, q, k,
+                                  v, o, stream);
     case 64:
-      return launch_attention<T, 64>(BH, Tq, Tk, causal, q_offset, scale, q,
-                                     k, v, o, stream);
+      return launch_attention<64>(BH, Tq, Tk, causal, q_offset, scale, q, k,
+                                  v, o, stream);
     case 112:   // zamba2-7b: d_model 3584 over 32 heads
-      return launch_attention<T, 112>(BH, Tq, Tk, causal, q_offset, scale, q,
-                                      k, v, o, stream);
+      return launch_attention<112>(BH, Tq, Tk, causal, q_offset, scale, q, k,
+                                   v, o, stream);
     case 128:
-      return launch_attention<T, 128>(BH, Tq, Tk, causal, q_offset, scale, q,
-                                      k, v, o, stream);
+      return launch_attention<128>(BH, Tq, Tk, causal, q_offset, scale, q, k,
+                                   v, o, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention_wgmma (bfloat16): the same online softmax on Hopper's
+// tensor cores.  One CTA a (head-batch, block of FW_BQ = 128 query rows):
+// two consumer warpgroups of 64 rows each and one producer warp.
+//  - The producer's lane 0 issues TMA loads (tensor maps over (D, T, BH),
+//    so rows past T and columns past D arrive as zeros and nothing past an
+//    input is read) of Q once and of K and V blocks of FW_BK = 128 keys
+//    into a FW_STAGES-deep ring, each stage with a full and a free
+//    mbarrier for K and for V.  Tiles are stored as 64-column sub-tiles in
+//    the 128-byte swizzle that wgmma reads; head dims 32 and 112 are
+//    zero-padded to DP = 64 and 128 by the TMA box.
+//  - S = Q K^T: wgmma m64n128k16 with both operands in shared memory
+//    (K-major), float32 accumulators (64 a thread).
+//  - The softmax runs on those registers in the log2 domain (scale folded
+//    with log2 e, ex2.approx); p is rounded once to bfloat16 and packed in
+//    place: the accumulator layout of S is the register A-fragment layout
+//    of the next wgmma, so P never touches shared memory.  The
+//    normaliser sums the float32 p (as FlashAttention and SDPA do).
+//  - O += P V: wgmma m64n{DP}k16, A from registers, V read MN-major from
+//    its [key][d] tile (no transpose pass).
+//  - The two warpgroups take turns issuing S = Q K^T (named barriers 1
+//    and 2), so one's softmax overlaps the other's products.
+// Rounding P to bfloat16 moves each weight by at most 2^-9 relative, so
+// the output by at most 2^-9 max |v| (PERF.md, the tier-1 test of it).
+// ---------------------------------------------------------------------------
+constexpr int FW_BQ = 128;               // query rows a CTA
+constexpr int FW_BK = 128;               // keys a ring stage
+constexpr int FW_STAGES = 3;
+constexpr int FW_THREADS = 2 * 128 + 32; // two warpgroups, a producer warp
+constexpr int FW_SUB = 64 * 2;           // bytes a swizzled sub-tile row
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DP>                        // padded head dim: 64 or 128
+struct FwLayout {
+  static constexpr uint32_t Q_BYTES = FW_BQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = FW_BK * DP * 2;
+  static constexpr size_t K_OFF = Q_BYTES;
+  static constexpr size_t V_OFF = K_OFF + (size_t)FW_STAGES * KV_BYTES;
+  static constexpr size_t BAR_OFF = V_OFF + (size_t)FW_STAGES * KV_BYTES;
+  // q_full, then k_full, v_full, k_free, v_free a stage; + 1024 to align
+  static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 4 * FW_STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// a wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in
+// bytes (LBO: between 64-element swizzle atoms along M/N for MN-major
+// operands, unused for K-major ones; SBO: between 8-row groups)
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving accesses of wgmma's registers across the
+// asynchronous instruction and its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special-function unit (max relative error 2^-22, far below
+// the bf16 rounding of p that follows); 2^-huge = 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the three wgmma shapes K15 issues: S = Q K^T (both operands in shared
+// memory, K-major; accumulate = 0 overwrites d) and O += P V (P from
+// registers, V MN-major), float32 accumulators in the fragment layout
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (DP == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, int BH, int Tq,
+                      int Tk, int D, int nqb, int causal, int q_offset,
+                      float scale_log2, __nv_bfloat16* __restrict__ o) {
+  using L = FwLayout<DP>;
+  constexpr int NSUB = DP / 64;          // 64-column sub-tiles
+  extern __shared__ uint8_t fw_raw[];
+  uint8_t* sm = fw_raw + ((1024u - (smem_u32(fw_raw) & 1023u)) & 1023u);
+  uint8_t* sq = sm;
+  uint8_t* sk = sm + L::K_OFF;
+  uint8_t* sv = sm + L::V_OFF;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + FW_STAGES;
+  uint64_t* k_free = v_full + FW_STAGES;
+  uint64_t* v_free = k_free + FW_STAGES;
+
+  const int qb = nqb - 1 - (int)(blockIdx.x / BH);   // heavy blocks first
+  const int bh = (int)(blockIdx.x % BH);
+  const int q0 = qb * FW_BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long kend = Tk;
+  if (causal) {
+    const long long last = (long long)q0 + q_offset + FW_BQ;
+    if (last < kend) kend = last;
+  }
+  const int nkb = (int)((kend + FW_BK - 1) / FW_BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_free + s, 8);          // lane 0 of each consumer warp
+      mbar_init(v_free + s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {                       // the producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      for (int c = 0; c < NSUB; ++c)
+        tma_load3(sq + c * FW_BQ * FW_SUB, &tmq, q_full, 64 * c, q0, bh);
+      for (int n = 0; n < nkb; ++n) {
+        const int s = n % FW_STAGES, par = ((n / FW_STAGES) & 1) ^ 1;
+        mbar_wait(k_free + s, par);
+        mbar_expect_tx(k_full + s, L::KV_BYTES);
+        for (int c = 0; c < NSUB; ++c)
+          tma_load3(sk + s * L::KV_BYTES + c * FW_BK * FW_SUB, &tmk,
+                    k_full + s, 64 * c, n * FW_BK, bh);
+        mbar_wait(v_free + s, par);
+        mbar_expect_tx(v_full + s, L::KV_BYTES);
+        for (int c = 0; c < NSUB; ++c)
+          tma_load3(sv + s * L::KV_BYTES + c * FW_BK * FW_SUB, &tmv,
+                    v_full + s, 64 * c, n * FW_BK, bh);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg's 64 rows; this thread holds rows r and r + 8
+  // (accumulator layout: row 16 * warp + lane / 4, columns 8 j + 2 (lane
+  // % 4) + {0, 1})
+  const int wg = warp >> 2;
+  const int row0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const int first_row = q0 + wg * 64 + q_offset;   // the group's lowest
+  float oacc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  float m_run[2] = {FA_NEG, FA_NEG}, l_run[2] = {0.f, 0.f};
+  if (wg == 1) bar_arrive(1, 256);      // warpgroup 0 issues first
+  mbar_wait(q_full, 0);
+
+  for (int n = 0; n < nkb; ++n) {
+    const int s = n % FW_STAGES, par = (n / FW_STAGES) & 1;
+    const uint8_t* ks = sk + s * L::KV_BYTES;
+    const uint8_t* vs = sv + s * L::KV_BYTES;
+    float sc[FW_BK / 2];
+    mbar_wait(k_full + s, par);
+    bar_sync(1 + wg, 256);               // this group's turn
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int sub = kk >> 2, off = (kk & 3) * 32;
+      wgmma_ss_n128(sc,
+                    gmma_desc(sq + sub * FW_BQ * FW_SUB + wg * 64 * FW_SUB +
+                              off, 16, 1024),
+                    gmma_desc(ks + sub * FW_BK * FW_SUB + off, 16, 1024),
+                    kk > 0);
+    }
+    wg_commit();
+    if (wg == 0 || n + 1 < nkb) bar_arrive(2 - wg, 256);  // the other's turn
+    wg_wait_all();
+    fence_regs<FW_BK / 2>(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_free + s);
+
+    // scale, mask, running max (a row's 32 scores in a thread, its four
+    // threads neighbouring lanes)
+    const int key0 = n * FW_BK;
+    const bool edge = key0 + FW_BK > Tk ||
+                      (causal && (long long)key0 + FW_BK - 1 > first_row);
+    float mx[2] = {FA_NEG, FA_NEG};
+#pragma unroll
+    for (int j = 0; j < FW_BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = sc[4 * j + e] * scale_log2;
+        if (edge) {
+          const int col = key0 + 8 * j + cq + (e & 1);
+          const long long row = (long long)row0 + 8 * (e >> 1) + q_offset;
+          if (col >= Tk || (causal && col > row)) val = FA_NEG;
+        }
+        sc[4 * j + e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      alpha[i] = exp2_approx(m_run[i] - m_new);
+      m_run[i] = m_new;
+    }
+    // p rounded to bf16, packed as the A fragments of P V: k-step kk's
+    // registers are (row r, keys 16 kk + cq..), (r + 8, same), (r, keys
+    // 16 kk + 8 + cq..), (r + 8, same) = accumulators 8 kk .. 8 kk + 7
+    uint32_t pa[FW_BK / 16][4];
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < FW_BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float p0 = exp2_approx(sc[4 * j + 2 * i] - m_run[i]);
+        const float p1 = exp2_approx(sc[4 * j + 2 * i + 1] - m_run[i]);
+        ps[i] += p0 + p1;
+        pa[j >> 1][(j & 1) * 2 + i] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + ps[i];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= alpha[e >> 1];
+
+    mbar_wait(v_full + s, par);
+    fence_regs<DP / 2>(oacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk)
+      wgmma_rs<DP>(oacc, pa[kk],
+                   gmma_desc(vs + kk * 16 * FW_SUB, FW_BK * FW_SUB, 1024));
+    wg_commit();
+    wg_wait_all();
+    fence_regs<DP / 2>(oacc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_free + s);
+  }
+
+  // the row's normaliser: its four threads' partial sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_run[i] = l == 0.f ? 1.f : l;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= Tq) continue;
+    __nv_bfloat16* orow = o + ((size_t)bh * Tq + row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            oacc[4 * j + 2 * i] / l_run[i], oacc[4 * j + 2 * i + 1] / l_run[i]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so nothing links libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a (D, T, BH) bfloat16 tensor, boxes of 64 columns x rows, 128-byte swizzle
+int head_map(CUtensorMap* map, const void* base, int D, int T, int BH,
+             int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DP>
+int launch_attention_wgmma(int BH, int Tq, int Tk, int D, int causal,
+                           int q_offset, float scale, const void* q,
+                           const void* k, const void* v, void* o,
+                           cudaStream_t stream) {
+  constexpr size_t smem = FwLayout<DP>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_wgmma<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap mq, mk, mv;
+  int err = head_map(&mq, q, D, Tq, BH, FW_BQ);
+  if (!err) err = head_map(&mk, k, D, Tk, BH, FW_BK);
+  if (!err) err = head_map(&mv, v, D, Tk, BH, FW_BK);
+  if (err) return err;
+  const int nqb = (Tq + FW_BQ - 1) / FW_BQ;
+  const long long blocks = (long long)BH * nqb;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  flash_attention_wgmma<DP><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
+      mq, mk, mv, BH, Tq, Tk, D, nqb, causal, q_offset, scale * LOG2E,
+      (__nv_bfloat16*)o);
+  return (int)cudaGetLastError();
+}
+
+int attention_bf16(int BH, int Tq, int Tk, int D, int causal, int q_offset,
+                   float scale, const void* q, const void* k, const void* v,
+                   void* o, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+    case 64:
+      return launch_attention_wgmma<64>(BH, Tq, Tk, D, causal, q_offset,
+                                        scale, q, k, v, o, stream);
+    case 112:   // zamba2-7b: d_model 3584 over 32 heads
+    case 128:
+      return launch_attention_wgmma<128>(BH, Tq, Tk, D, causal, q_offset,
+                                         scale, q, k, v, o, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -605,11 +1116,11 @@ int tf_flash_attention(int BH, int Tq, int Tk, int D, int dtype, int causal,
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case DT_F32:
-      return attention_for_dim<float>(BH, Tq, Tk, D, causal, q_offset, scale,
-                                      q, k, v, o, s);
-    case DT_BF16:
-      return attention_for_dim<__nv_bfloat16>(BH, Tq, Tk, D, causal,
-                                              q_offset, scale, q, k, v, o, s);
+      return attention_f32(BH, Tq, Tk, D, causal, q_offset, scale, q, k, v,
+                           o, s);
+    case DT_BF16:   // q, k, v 16-byte aligned (TMA): the wrapper sees to it
+      return attention_bf16(BH, Tq, Tk, D, causal, q_offset, scale, q, k, v,
+                            o, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,12 +1,15 @@
-"""K15 ``flash_attention`` (forward): the CUDA kernel
-(``csrc/transformer.cu``) and its wrapper.
+"""K15 ``flash_attention`` (forward): the CUDA kernels
+(``csrc/transformer.cu``) and their wrapper.
 
-Counterpart of the reference's ``kernels/attention.py``.  The kernel takes
+Counterpart of the reference's ``kernels/attention.py``.  The kernels take
 heads already flattened and GQA already repeated (``ops.flash_attention``
 does both), head dims 32, 64, 112 (zamba2-7b's shared attention) and
-128, and float32 or bfloat16 inputs.  It masks keys at index ``>= Tk`` itself: the reference kernel's
-last key block reads past ``Tk`` and returns NaN when ``Tk`` is above its
-block of 128 and not a multiple of it.
+128.  bfloat16 runs on the tensor cores (``wgmma``, fed by TMA, so q, k
+and v start on 16-byte boundaries: the wrapper copies one that does not);
+float32 runs on the CUDA cores.  Both mask keys at index ``>= Tk``
+themselves: the reference kernel's last key block reads past ``Tk`` and
+returns NaN when ``Tk`` is above its block of 128 and not a multiple of
+it.
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {D}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     TRANSFORMER_LIB.launch("tf_flash_attention", "flash_attention", BH, Tq,
                            Tk, D, DTYPE_CODES[q.dtype], int(causal),

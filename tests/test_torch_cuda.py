@@ -23,6 +23,9 @@ version's), in bfloat16 at rtol = atol = 2e-2 (about one output ulp), at
 ragged T.  Each smoke model's kernel path (Qwen2, rwkv6, zamba2) within
 1e-1 normwise of its plain path.
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -32,7 +35,10 @@ from repro_torch.examples import dsp_pipeline
 from repro_torch.kernels import common as dsp
 from repro_torch.kernels import dsp_fir, dsp_spectral, dsp_vector, ops, ref
 from repro_torch.kernels import attention, mamba2, rmsnorm, rwkv6
-from repro_torch.models import registry
+from repro_torch.models import layers, registry
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the card check's plain versions, controls)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,18 +213,36 @@ def test_vector_max_kernel_matches_plain(card, b, n):
     _same(got, ref.vector_max(x))
 
 
-@pytest.mark.parametrize("b", [1, 7, 65, 300])
-@pytest.mark.parametrize("n", [40, 64, 128])
-def test_dct_kernel_matches_plain(card, b, n):
-    x = _frames(card, b + n, b, n)
-    got = _counted("dct", dsp_spectral.dct, x)
+def _dct_plain(x):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        want = ref.dct(x)
+        return ref.dct(x)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 7, 65, 300, 100003])
+@pytest.mark.parametrize("n", [1, 40, 64, 100, 128])
+def test_dct_kernel_matches_plain(card, b, n):
+    """The persistent kernel: fewer tiles than its grid (b up to 300), and
+    many tiles a CTA with a ragged last one (100003 rows); N of 1 and 100
+    (not a multiple of 4) take the 4-byte copies."""
+    x = _frames(card, b + n, b, n)
+    got = _counted("dct", dsp_spectral.dct, x)
+    torch.testing.assert_close(got, _dct_plain(x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [40, 64])
+def test_dct_kernel_on_rows_off_16_byte_alignment(card, n):
+    """x 4 bytes past a 16-byte boundary: the kernel copies 4 bytes at a
+    time and gives the same values as on aligned rows."""
+    flat = _frames(card, n, 5000 * n + 1)
+    x = flat[1:].view(5000, n)
+    assert x.data_ptr() % 16 == 4
+    got = _counted("dct", dsp_spectral.dct, x)
+    torch.testing.assert_close(got, _dct_plain(x), rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, dsp_spectral.dct(x.clone()))
 
 
 @RAGGED
@@ -426,6 +450,28 @@ def test_flash_attention_bf16_kernel_matches_plain_at_full_blocks(
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("bh,tq,tk,q_offset", [
+    (13, 1, 77, 76), (13, 7, 300, 293), (13, 7, 7, 0), (13, 200, 200, 0),
+    (1, 129, 129, 0)])
+@pytest.mark.parametrize("d", [112, 128])
+def test_flash_attention_bf16_kernel_at_short_and_odd_shapes(
+        card, bh, tq, tk, q_offset, d):
+    """The tensor-core kernel (a CTA of 128 query rows, 64 a warpgroup)
+    at decode-like Tq = 1 and Tq = 7, at an odd BH and at query lengths
+    one row past a CTA (129) or inside a warpgroup's rows (200), at the
+    models' head dims (112 zero-padded to 128)."""
+    q = _frames(card, tq + d + 3, bh, tq, d).to(torch.bfloat16)
+    k = _frames(card, tk + d + 4, bh, tk, d).to(torch.bfloat16)
+    v = _frames(card, tk + d + 5, bh, tk, d).to(torch.bfloat16)
+    got = _tf_counted("flash_attention", attention.flash_attention, q, k, v,
+                      causal=True, q_offset=q_offset)
+    want = ref.flash_attention(q[:, None], k[:, None], v[:, None],
+                               causal=True, q_offset=q_offset)[:, 0]
+    assert bool(torch.isfinite(got).all())
+    tol = TF_TOL[torch.bfloat16][1]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_transformer_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros(2, 8, 48, device=card)
     with pytest.raises(ValueError, match="head dims"):
@@ -433,6 +479,32 @@ def test_transformer_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="float64"):
         rmsnorm.rmsnorm(torch.zeros(2, 8, device=card, dtype=torch.float64),
                         torch.zeros(8, device=card, dtype=torch.float64))
+
+
+#: float32 logits of a smoke model, kernels against plain, normwise: the
+#: limit lies between the kernels' readings (at most 4.2e-5, zamba2) and
+#: the controls' (at least 0.0157, rwkv6), which must fail it
+#: (chip_smoke.py's controls: K15 with its scores rounded to bfloat16;
+#: K17/K18 with a bfloat16 state; PERF.md §6)
+FP32_SMOKE_TOL = 1e-3
+
+
+def _swap_plain(monkeypatch, attn=None, rec=None):
+    """The model's ops call the plain versions (or the controls ``attn``
+    and ``rec``) in place of the K15–K18 wrappers."""
+    attn = attn or chip_smoke.plain_attention
+    rec = rec or chip_smoke.rec_plain
+    monkeypatch.setattr(rmsnorm, "rmsnorm", ref.rmsnorm)
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, **kw: attn(ref, q, k, v, **kw))
+    monkeypatch.setattr(rwkv6, "wkv6",
+                        lambda *a, **kw: rec(ref, "wkv6", a))
+    monkeypatch.setattr(mamba2, "ssd", lambda *a, **kw: rec(ref, "ssd", a))
+
+
+def _normwise(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
 
 
 def test_smoke_model_kernel_path_matches_plain_path(card, monkeypatch):
@@ -452,18 +524,57 @@ def test_smoke_model_kernel_path_matches_plain_path(card, monkeypatch):
             "ssd": 0}
     assert lib.launches == want
     # the plain path: ops calls the plain versions in place of the wrappers
-    monkeypatch.setattr(rmsnorm, "rmsnorm", ref.rmsnorm)
-    monkeypatch.setattr(
-        attention, "flash_attention",
-        lambda q, k, v, **kw: ref.flash_attention(
-            q[:, None], k[:, None], v[:, None], **kw)[:, 0])
+    _swap_plain(monkeypatch)
     plain, pcache = m.prefill(p, tok, 128)
     pstep, _ = m.decode_step(p, pcache, tok[:, :1], 100)
     torch.cuda.synchronize()
     assert lib.launches == want
     for got, want in ((logits, plain), (step, pstep)):
-        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
-        assert float(err) <= 1e-1, float(err)
+        err = _normwise(got, want)
+        assert err <= 1e-1, err
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b", "zamba2-7b"])
+def test_smoke_model_float32_kernel_path_matches_plain_path(card, arch,
+                                                            monkeypatch):
+    """The smoke models in float32: the logits on the kernels (Qwen2:
+    prefill and a decode step; rwkv6, zamba2: forward at a ragged T)
+    within FP32_SMOKE_TOL normwise of the plain ops', and a control that
+    must fail the same limit: the plain attention with its scores rounded
+    to bfloat16 in place of K15 (Qwen2), the plain recurrence with a
+    bfloat16 state in place of K17/K18 (rwkv6, zamba2)."""
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    m = registry.build_smoke(arch)
+    p = m.init(0)
+    # a generator of its own: the card's default one stays as the bf16
+    # smoke tests after this one found it
+    tok = torch.randint(0, m.cfg.vocab, (2, 100),
+                        generator=torch.Generator().manual_seed(0)).to(card)
+
+    def logits():
+        if arch != "qwen2-1.5b":
+            return [m.forward(p, tok)]
+        out, cache = m.prefill(p, tok, 128)
+        return [out, m.decode_step(p, cache, tok[:, :1], 100)[0]]
+
+    lib = dsp.TRANSFORMER_LIB
+    lib.reset_launches()
+    kern = logits()
+    torch.cuda.synchronize()
+    assert lib.launches["rmsnorm"] > 0 and all(
+        x.dtype == torch.float32 for x in kern)
+    with monkeypatch.context() as mp:
+        _swap_plain(mp)
+        plain = logits()
+    with monkeypatch.context() as mp:
+        if arch == "qwen2-1.5b":
+            _swap_plain(mp, attn=chip_smoke.attention_bf16_scores)
+        else:
+            _swap_plain(mp, rec=chip_smoke.rec_bf16_state)
+        control = logits()
+    err = max(_normwise(a, b) for a, b in zip(kern, plain))
+    c_err = max(_normwise(a, b) for a, b in zip(control, plain))
+    assert err <= FP32_SMOKE_TOL < c_err, (err, c_err)
 
 
 # ---------------------------------------------------------------------------
@@ -556,21 +667,9 @@ def test_ssm_smoke_model_kernel_path_matches_plain_path(card, arch,
         want = {"flash_attention": groups, "rmsnorm": L + 2 * groups + 1,
                 "wkv6": 0, "ssd": L}
     assert lib.launches == want
-    monkeypatch.setattr(rmsnorm, "rmsnorm", ref.rmsnorm)
-    monkeypatch.setattr(
-        attention, "flash_attention",
-        lambda q, k, v, **kw: ref.flash_attention(
-            q[:, None], k[:, None], v[:, None], **kw)[:, 0])
-    monkeypatch.setattr(
-        rwkv6, "wkv6",
-        lambda r, k, v, w, u, **kw: ref.rwkv6_scan(
-            *(x.transpose(0, 1)[None] for x in (r, k, v, w)),
-            u)[0].transpose(0, 1))
-    monkeypatch.setattr(mamba2, "ssd",
-                        lambda x, a, b, c, **kw: ref.mamba2_ssd(x, a, b, c))
+    _swap_plain(monkeypatch)
     plain = m.forward(p, tok)
     torch.cuda.synchronize()
     assert lib.launches == want
-    err = (logits.float() - plain.float()).abs().max() / \
-        plain.float().abs().max()
-    assert float(err) <= 1e-1, float(err)
+    err = _normwise(logits, plain)
+    assert err <= 1e-1, err

@@ -16,6 +16,8 @@ ragged lengths the port is held against the JAX plain
 ``ref.flash_attention``.
 """
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +30,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import attention, common, mamba2, rmsnorm, rwkv6
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.models import registry as tregistry
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the card check's gates, held here)
 
 ATTN_TOL = 2e-3
 JNP = {np.float32: jnp.float32, "bfloat16": jnp.bfloat16}
@@ -180,6 +186,66 @@ def test_rounding_p_to_bf16_stays_inside_the_bf16_tolerance(
                                  causal=causal, q_offset=q_offset)[:, 0]
     torch.testing.assert_close(got.to(torch.bfloat16).float(), plain.float(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("tq,d,seed", [(256, 128, 0), (200, 112, 1),
+                                       (128, 64, 2)])
+def test_the_bf16_score_control_fails_the_layer_gate_where_p_in_bf16_passes(
+        tq, d, seed):
+    """chip_smoke 9b's per-layer gate holds K15 within its bf16 tolerance
+    (2e-2 normwise) of the plain attention on Qwen2-1.5B's layer inputs,
+    whose scaled scores span about ±300 at the reference's init.  On such
+    inputs the gate's control, the plain attention with the scaled scores
+    rounded to bfloat16, must fail the gate, while a tensor-core kernel's
+    rounding (p rounded to bfloat16 before P·V) stays inside it."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, tq, d)).astype(np.float32) * g).to(torch.bfloat16)
+        for g in (8.0, 8.0, 1.0))
+    span = float((q.float() @ k.float().transpose(1, 2)).abs().max()) * \
+        d ** -0.5
+    assert 200 < span < 600, span
+    tol = chip_smoke.TF_TOL["bfloat16"][1]
+    plain = chip_smoke.plain_attention(tref, q, k, v, causal=True)
+    control = chip_smoke.attention_bf16_scores(tref, q, k, v, causal=True)
+    p_bf16 = attention_with_p_in_bf16(q, k, v, True, 0).to(torch.bfloat16)
+    assert chip_smoke.normwise(control, plain) > tol
+    assert chip_smoke.normwise(p_bf16, plain) <= tol
+    # the control is the plain attention but for the scores' rounding
+    assert torch.equal(
+        chip_smoke.attention_bf16_scores(tref, q[:, :1], k[:, :1],
+                                         v[:, :1], causal=True),
+        plain[:, :1])
+
+
+def test_the_layer_capture_returns_each_layers_attention_inputs():
+    """chip_smoke 9b's per-layer gate catches each layer's (q, k, v) where
+    ``ops.flash_attention`` hands them to ``attention.flash_attention``
+    (heads flattened, GQA repeated, after RoPE): on the smoke Qwen2, one
+    call a layer at the wrapper's shapes, and the prefill on the caught
+    calls' plain attention equals the plain path's."""
+    model = tregistry.build_smoke("qwen2-1.5b", device="cpu")
+    cfg = model.cfg
+    params = model.init(0)
+    B, T = 2, 40
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (B, T)).astype(np.int32))
+    want, _ = model.prefill(params, tok, 48)
+    with chip_smoke.capture_attention(attention, tref) as calls:
+        got, _ = model.prefill(params, tok, 48)
+    assert attention.flash_attention is not calls  # restored on exit
+    assert len(calls) == cfg.n_layers
+    for q, k, v, kw in calls:
+        for t in (q, k, v):
+            assert t.shape == (B * cfg.n_heads, T, cfg.head_dim)
+            assert t.dtype == torch.bfloat16 and t.is_contiguous()
+        assert kw["causal"] and kw.get("q_offset", 0) == 0
+    # GQA repeated: each KV head's keys stand for n_heads / n_kv_heads
+    # query heads
+    k0 = calls[0][1].view(B, cfg.n_heads, T, cfg.head_dim)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    assert torch.equal(k0[:, 0], k0[:, rep - 1])
+    assert torch.equal(got, want)
 
 
 def test_reference_pallas_attention_is_nan_past_128_ragged_keys():

@@ -17,9 +17,11 @@ at full width through ``forward`` and the ``Server`` — then checks them:
 1. device and build: the card's name and power limit, the three kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
    spills of each instance of K13 ``fft_kernel<L>``, K14
-   ``dct_kernel<C>`` and bf16 K15 ``flash_attention_wgmma<DP>``, and the
-   ``HGMMA`` (tensor-core) instructions in K15's SASS: each bf16 instance
-   must have them, each float32 one none;
+   ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
+   ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>`` and K18's three
+   kernels (``ssd_chunk_state``, ``ssd_state_passing``,
+   ``ssd_chunk_scan``), and the ``HGMMA`` (tensor-core) instructions in
+   K15's SASS: each bf16 instance must have them, each float32 one none;
 2. kernels against plain: for the first 64 trips of the main-path
    population, and 64 trips from the middle of its run, every K1–K4 launch
    is checked against its plain torch version on a clone of the same carry
@@ -109,13 +111,15 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    against their plain versions at both models' forward shapes, the JAX
    tests' shapes and a ragged T of 1000, in bfloat16 (rtol = atol = 2e-2)
    and float32 (1e-5 normwise), K15 at zamba2's head dim 112, and K16 at
-   both forwards' and Servers' rows of 2560 and 3584 (2e-2, 1e-5); (b)
+   both forwards' and Servers' rows of 2560 and 3584 (2e-2, 1e-5), with
+   the phase's peak device memory and K18's scratch at zamba2's shape; (b)
    ``forward`` on 2 × 1024 tokens: in bfloat16 on the kernels (32 K17 and
    65 K16 launches; 81 K18, 13 K15 and 108 K16), on the plain ops, and on
    the kernels but K16 (the bf16 floor: one exact op swapped), the
    divergences printed; then in float32, kernels against plain within
    the model's ``FP32_LOGIT_TOL`` normwise, the gate (the bf16 floor of
-   these deep random-weight models is above any useful limit), and a
+   these deep random-weight models is above any useful limit; the reading
+   is printed beside the one before K18 was chunked), and a
    control, K17/K18 swapped for the plain recurrence with its state
    rounded to bfloat16, which must fail that gate; tokens/s and peak
    memory; (c) the
@@ -127,8 +131,10 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    1e-3, the reference's own check;
 5b. kernel times: device, call, plain and library times of the DSP
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
-   ``scaled_dot_product_attention`` at zamba2's too) and of K17 and K18 at
-   the models' forward shapes, beside the bound.  ``--only 5b`` times them
+   ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
+   at rwkv6's and zamba2's forward rows) and of K17 and K18 at the models'
+   forward shapes (K18's device time the sum of its three kernels, split),
+   beside the bound.  ``--only 5b`` times them
    all on their own (launches are counted only on the paths that ran).
 
 The last lines are the card (``nvidia-smi``), one JSON object
@@ -280,8 +286,12 @@ TF_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
                "wkv6": "src/repro/kernels/rwkv6.py:65",
                "ssd": "src/repro/kernels/mamba2.py:61"}
 #: the kernel a transformer wrapper launches in bfloat16 (the dtype 5b
-#: times), as the profiler names it, where it is not ``<name>_kernel``
-TF_KERNEL = {"flash_attention": "flash_attention_wgmma"}
+#: times), as the profiler names it (a substring), where it is not
+#: ``<name>_kernel``: bf16 K15 and K16's register path at the models'
+#: widths; K18 launches three, each once a call, whose times 5b sums
+TF_KERNEL = {"flash_attention": "flash_attention_wgmma",
+             "rmsnorm": "rmsnorm_vec"}
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan")
 BF16_TENSOR_OPS_PER_S = 989e12   # bf16 tensor cores, dense (on-chip guide)
 ARCH = "qwen2-1.5b"
 MODEL_SEED = 2024
@@ -325,7 +335,8 @@ SSM_LOGIC_T, SSM_LOGIC_TOL = 100, 1e-3
 WKV_CASES = [(2, 1024, 40, 64, 64), (1, 64, 2, 32, 32), (2, 128, 4, 64, 64),
              (1, 96, 1, 64, 128), (2, 1000, 40, 64, 64)]
 SSD_CASES = [(2, 1024, 112, 64, 64), (1, 64, 2, 32, 16), (2, 128, 4, 64, 64),
-             (1, 80, 3, 16, 32), (2, 1000, 112, 64, 64)]
+             (1, 80, 3, 16, 32), (2, 1000, 112, 64, 64), (1, 65, 3, 64, 64),
+             (1, 1, 2, 32, 16)]
 ATTN_112 = (64, 1024, 1024, 112, True, 0)
 #: K16 cases (R, D) at these paths' widths: each forward's 2 × 1024 rows
 #: and each Server's 8 slots, at d_model 2560 and 3584
@@ -338,6 +349,9 @@ RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
 #: swapped for the plain attention with its scaled scores rounded to
 #: bfloat16 (9b, prefill and every decode step)
 FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2}
+#: 10b's float32 reading on the kernels before K18 was chunked (K17/K18 a
+#: CTA a (sequence, head), PERF.md §6): printed beside this run's
+FP32_LOGIT_BEFORE = {"rwkv6-3b": 2.58e-5, "zamba2-7b": 0.0154}
 #: K17/K18 against plain: float32 normwise (largest difference over the
 #: largest plain magnitude; the sums run in another order), bfloat16
 #: rtol = atol (about one output ulp)
@@ -494,12 +508,12 @@ def events_ms(torch, calls, warm=3):
     return e0.elapsed_time(e1) / (len(calls) - warm)
 
 
-def profiled_ms(torch, calls, kernel: str, warm=3):
-    """Mean device time per launch of ``kernel`` over ``calls`` after the
-    first ``warm`` (torch.profiler's CUPTI trace, through ``trace_window``:
-    a trace drops the device activities at the start of its window, so the
-    calls run once as its discarded warm-up step and once as the counted
-    one); None when the profiler or its trace has no device time."""
+def traced_calls(torch, calls, warm=3):
+    """The device activities of ``calls`` after the first ``warm``
+    (torch.profiler's CUPTI trace, through ``trace_window``: a trace drops
+    the device activities at the start of its window, so the calls run
+    once as its discarded warm-up step and once as the counted one); None
+    when the profiler is unavailable."""
     for c in calls[:warm]:
         c()
 
@@ -511,8 +525,47 @@ def profiled_ms(torch, calls, kernel: str, warm=3):
     except (RuntimeError, AssertionError, AttributeError) as e:
         log(f"profiler unavailable ({e}): device time not measured")
         return None
-    times = [us for key, us in events if kernel in key]
+    return events
+
+
+def profiled_ms(torch, calls, kernel: str, warm=3):
+    """Mean device time per launch of ``kernel`` (a substring of the
+    profiler's name) over ``calls`` after the first ``warm``; None when the
+    profiler or its trace has no device time."""
+    events = traced_calls(torch, calls, warm)
+    times = [us for key, us in events or () if kernel in key]
     return sum(times) / len(times) / 1e3 if times else None
+
+
+def profiled_call_ms(torch, calls, warm=3):
+    """Device ms a call of ``calls`` (a library call, whose kernels' names
+    are not ours) after the first ``warm``: each kernel's mean time a
+    launch times its launches per launch of the most frequent one (a trace
+    can drop activities, so only the counts' ratios are trusted); None
+    without a trace."""
+    events = traced_calls(torch, calls, warm)
+    if not events:
+        return None
+    by_name: dict = {}
+    for key, us in events:
+        by_name.setdefault(key, []).append(us)
+    top = max(len(v) for v in by_name.values())
+    return sum(sum(v) / top for v in by_name.values()) / 1e3
+
+
+def profiled_split(torch, calls, kernels, warm=3):
+    """Mean device ms a launch of each of ``kernels`` (substrings of the
+    profiler's names; an entry that launches each once a call) over
+    ``calls`` after the first ``warm``; None when one has no device
+    time."""
+    events = traced_calls(torch, calls, warm) or ()
+    split = {}
+    for k in kernels:
+        times = [us for key, us in events if k in key]
+        if not times:
+            return None
+        split[k] = sum(times) / len(times) / 1e3
+    return split
 
 
 def device_events(prof):
@@ -766,12 +819,16 @@ def max_err(got, want) -> float:
 
 
 # ---------------------------------------------------------------------------
-# what the compiler made of the redesigned K13
+# what the compiler made of the redesigned kernels
 # ---------------------------------------------------------------------------
+#: mangled template arguments, as the labels print them
+MANGLED = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
 def ptxas_facts(report: str, pattern: str, label: str) -> dict:
     """Registers and spill bytes of each kernel whose mangled name matches
-    ``pattern`` (one group: its template argument) in a ``-Xptxas -v``
-    report, as ``{"label<arg>": {"registers", "spill_stores",
+    ``pattern`` (a group a template argument) in a ``-Xptxas -v``
+    report, as ``{"label<args>": {"registers", "spill_stores",
     "spill_loads"}}``."""
     facts: dict = {}
     name = None
@@ -779,7 +836,10 @@ def ptxas_facts(report: str, pattern: str, label: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(pattern, m.group(1))
-            name = f"{label}<{t.group(1)}>" if t else None
+            name = None
+            if t:
+                args = ", ".join(MANGLED.get(g, g) for g in t.groups())
+                name = f"{label}<{args}>"
             continue
         if name is None:
             continue
@@ -1118,25 +1178,37 @@ def main(argv=None) -> int:
         return 1
 
     # the redesigned kernels: ptxas's registers and spills of each instance
-    # of K13, K14 and bf16 K15, and the tensor-core instructions (HGMMA)
-    # in K15's SASS: the bf16 kernel must have them, the float32 one none
+    # of K13, K14, bf16 K15, K16 and K18's three kernels, and the
+    # tensor-core instructions (HGMMA) in K15's SASS: the bf16 kernel must
+    # have them, the float32 one none
     facts: dict = {}
 
     def build_facts():
         tf = dsp.TRANSFORMER_LIB
+        dt = r"(f|13__nv_bfloat16)"
         for name, lib, pattern, label in (
                 ("fft", dsp.LIB, r"fft_kernelILi(\d+)E", "fft_kernel"),
                 ("dct", dsp.LIB, r"dct_kernelILi(\d+)E", "dct_kernel"),
                 ("flash_attention", tf, r"flash_attention_wgmmaILi(\d+)E",
-                 "flash_attention_wgmma")):
-            facts[name] = {}
+                 "flash_attention_wgmma"),
+                ("rmsnorm", tf, rf"rmsnorm_vecI{dt}Li(\d+)E", "rmsnorm_vec"),
+                ("rmsnorm", tf, rf"rmsnorm_loopI{dt}Lb([01])E",
+                 "rmsnorm_loop"),
+                ("ssd", tf, rf"ssd_chunk_stateI{dt}Li(\d+)E",
+                 "ssd_chunk_state"),
+                ("ssd", tf, r"ssd_state_passingILi(\d+)E",
+                 "ssd_state_passing"),
+                ("ssd", tf, rf"ssd_chunk_scanI{dt}Li(\d+)E",
+                 "ssd_chunk_scan")):
+            facts.setdefault(name, {})
             if not lib.info:
                 log(f"{label}: cached build, no ptxas report")
                 continue
-            facts[name]["ptxas"] = ptxas_facts(lib.info["ptxas"], pattern,
-                                               label)
-            for fn, f in facts[name]["ptxas"].items():
-                log(f"ptxas {fn:28s} {f}")
+            found = ptxas_facts(lib.info["ptxas"], pattern, label)
+            assert found, f"no {label} in the ptxas report"
+            facts[name].setdefault("ptxas", {}).update(found)
+            for fn, f in found.items():
+                log(f"ptxas {fn:32s} {f}")
         hgmma = sass_counts(tf.build(), "HGMMA", {
             r"flash_attention_wgmmaILi(\d+)E": "flash_attention_wgmma",
             r"flash_attention_kernelILi(\d+)E": "flash_attention_kernel"})
@@ -1147,7 +1219,7 @@ def main(argv=None) -> int:
         assert len(bf16) == 2 and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
         assert len(fp32) == 4 and not any(fp32.values()), fp32
-    phase("1 ptxas of K13, K14 and K15, SASS of K15", build_facts)
+    phase("1 ptxas of K13-K16 and K18, SASS of K15", build_facts)
 
     ctx: dict = {}
 
@@ -2042,6 +2114,8 @@ def main(argv=None) -> int:
     def rec_vs_plain():
         cases = [("wkv6", c) for c in WKV_CASES]
         cases += [("ssd", c) for c in SSD_CASES]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for i, (name, shape) in enumerate(cases):
             for dt in ("bfloat16", "float32"):
                 args = rec_case(torch, name, shape, getattr(torch, dt),
@@ -2070,6 +2144,12 @@ def main(argv=None) -> int:
             tf_check("flash_attention", ATTN_112, dt, 800)
             for i, shape in enumerate(RMS_SSM_CASES):
                 tf_check("rmsnorm", shape, dt, 810 + i)
+        B, T, H, P, N = SSD_CASES[0]
+        log(f"10a peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (the plain "
+            f"versions' loops included); K18's scratch at {SSD_CASES[0]}: "
+            f"{mamba2.scratch_floats(B, T, H, P, N) * 4 / 1e6:.1f} MB  on "
+            f"{card}")
 
     def ssm_model(arch):
         cfg = registry.get_config(arch)
@@ -2170,8 +2250,12 @@ def main(argv=None) -> int:
         def gate(what, got):
             err = compare(f"fp32, {what} vs plain (limit {tol})", got, pl)
             assert err <= tol, f"{arch} fp32 logits differ ({err:.3g})"
+            return err
 
-        gate("kernels", k)
+        err = gate("kernels", k)
+        log(f"{arch} fp32 logits on the kernels: normwise {err:.3g} in this "
+            f"run, {FP32_LOGIT_BEFORE[arch]} before K18 was chunked "
+            "(PERF.md §6)")
         try:
             gate("control (K17/K18 plain, state rounded to bf16)", ctl)
         except AssertionError as e:
@@ -2401,9 +2485,16 @@ def main(argv=None) -> int:
                       if name in rec_wrappers else
                       events_ms(torch, [plain] * 8))
             kname = TF_KERNEL.get(name, f"{name}_kernel")
-            k_dev = profiled_ms(torch, calls, kname)
+            split = None
+            if name == "ssd":
+                split = profiled_split(torch, calls, SSD_KERNELS)
+                k_dev = None if split is None else sum(split.values())
+            else:
+                k_dev = profiled_ms(torch, calls, kname)
             lib = None if lib_call is None else events_ms(torch,
                                                           [lib_call] * 23)
+            lib_dev = None if lib_call is None else profiled_call_ms(
+                torch, [lib_call] * 23)
             by_path = {path: c.get(name, 0) for path, c in tf_launches.items()}
             row = dict(
                 name=name, route="cuda", source=TF_SOURCE,
@@ -2413,15 +2504,42 @@ def main(argv=None) -> int:
                 ms=k_dev if k_dev is not None else k_call,
                 kernel_ms=k_dev if k_dev is not None else k_call,
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
-                bound_by=by, library_ms=lib,
+                bound_by=by, library_ms=lib, library_device_ms=lib_dev,
                 shape=list(shapes[name][:4] if name == "flash_attention"
                            else shapes[name]), dtype="bfloat16",
                 **facts.get(name, {}))
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             libs = ("none (no single call)" if lib is None
-                    else f"{lib:.4f} ms ({lib_name})")
+                    else f"{lib:.4f} ms ({lib_name}; "
+                    f"{lib_dev if lib_dev is None else round(lib_dev, 4)} ms "
+                    "on the device)")
             extra = "" if fp32_ms is None else \
                 f"; its work at the fp32 CUDA-core rate {fp32_ms:.4f} ms"
+            if split is not None:
+                row["split_ms"] = split
+                extra += "; a call: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in split.items())
+            if name == "rmsnorm":
+                # the ssm and hybrid forwards' widths (rwkv6-3b, zamba2-7b)
+                for R, D in RMS_SSM_CASES[:2]:
+                    xw = tf_case(torch, name, (R, D), torch.bfloat16, 610 + i)
+                    cw = [functools.partial(rmsnorm.rmsnorm, *xw,
+                                            cfg.norm_eps)] * 23
+                    key = f"{R}x{D}"
+                    row[f"ms_{key}"] = profiled_ms(torch, cw, kname)
+                    row[f"call_ms_{key}"] = events_ms(torch, cw)
+                    lw = [functools.partial(F.rms_norm, xw[0], (D,), xw[1],
+                                            cfg.norm_eps)] * 23
+                    row[f"library_ms_{key}"] = events_ms(torch, lw)
+                    row[f"library_device_ms_{key}"] = profiled_call_ms(torch,
+                                                                       lw)
+                    row[f"bound_ms_{key}"] = tf_bound(name, xw)[0]
+                    extra += (f"; at {R} x {D}: kernel {row[f'ms_{key}']} ms "
+                              f"on the device, library "
+                              f"{row[f'library_ms_{key}']:.4f} ms "
+                              f"({row[f'library_device_ms_{key}']} ms on "
+                              f"the device), bound "
+                              f"{row[f'bound_ms_{key}']:.4f} ms")
             if name == "flash_attention" and "wkv6" in shapes:
                 # zamba2-7b's shape, head dim 112 (not a row of its own)
                 a112 = tf_case(torch, name, ATTN_112, torch.bfloat16, 600)

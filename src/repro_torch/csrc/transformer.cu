@@ -1,6 +1,6 @@
 // The transformer's hot spots for Hopper (sm_90a): K16 rmsnorm, K15
 // flash_attention (forward), and the two recurrences of the ssm and hybrid
-// families, K17 wkv6 (RWKV-6) and K18 ssd (Mamba-2).
+// families, K17 wkv6 (RWKV-6) and K18 ssd (Mamba-2, in chunks).
 //
 // Each kernel replaces one of the reference's Pallas kernels
 // (src/repro/kernels/rmsnorm.py, attention.py, rwkv6.py, mamba2.py) and
@@ -14,7 +14,8 @@
 // rounds its softmax weights to bf16 for P V.  The reference tiles rows
 // and time into blocks and pads; here each kernel computes its own
 // offsets (64-bit) and masks the ragged edges itself, so nothing is
-// padded and nothing past the end of an input is read.
+// padded and nothing past the end of an input is read.  K18 works in a
+// float32 scratch that its wrapper allocates.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; called through ctypes (kernels/common.py).
@@ -61,45 +62,169 @@ __device__ __forceinline__ float warp_sum(float v) {
 // product of two bf16 values is exact in float32, so one
 // float32 multiply and one rounding to dt give the reference's bits.
 // Bound: 2*R*D*sizeof(dt) bytes (x read, y written) plus w; ~4 flops an
-// element is far below any rate.  Design: one block a row (the model's
-// rows are 1536 wide: 6 elements a thread), the sum of squares in float32
-// (warp shuffles, then the warps' partials in a fixed order, so every
-// thread holds the same r), then a second pass over the row, which the
-// first pass left in L1.  The row's edge is masked by the loop bound.
+// element is far below any rate.  Design: a warp a row, RMS_WARPS rows a
+// CTA, and no barrier: the float32 sum of squares is taken by xor
+// shuffles alone, so every lane adds the same values in the same order
+// and holds the same r.
+//  - rmsnorm_vec<T, VPL> takes rows of whole 16-byte vectors (D *
+//    sizeof(dt) a multiple of 16; x, w and y 16-byte aligned, so every
+//    row is): lane l holds vectors l, l + 32, ... (VPL of them, 8 bf16 or
+//    4 float32 each) in registers from the sum of squares to the scale,
+//    so x is read once, by 16-byte loads, and w by 16-byte loads.  VPL is
+//    the smallest instance that holds the row (6, 10, 14 at d_model 1536,
+//    2560, 3584 in bf16); the vectors past the row's end are masked.
+//  - rmsnorm_loop<T, VEC> takes what the registers do not hold (VEC: rows
+//    past RMS_MAX_VPL vectors a lane, 16-byte accesses) and every other
+//    width or alignment (scalar accesses, masked by the loop bound): two
+//    passes over the row, the second reading x again (from L1).
 // ---------------------------------------------------------------------------
-constexpr int RMS_MAX_THREADS = 256;
+constexpr int RMS_WARPS = 8;             // rows a CTA
+constexpr int RMS_THREADS = 32 * RMS_WARPS;
+constexpr int RMS_MAX_VPL = 32;          // vectors a lane on the register path
 
-template <typename T>
-__global__ void __launch_bounds__(RMS_MAX_THREADS)
-rmsnorm_kernel(int D, float eps, const T* __restrict__ x,
-               const T* __restrict__ w, T* __restrict__ y) {
-  __shared__ float part[RMS_MAX_THREADS / 32];
-  const T* xr = x + (size_t)blockIdx.x * D;
-  T* yr = y + (size_t)blockIdx.x * D;
+// 16 bytes of T unpacked to floats, and floats packed back (rounded to T)
+template <typename T> struct Pack16;
+template <> struct Pack16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void get(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ uint4 put(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <> struct Pack16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void get(const uint4& v, float* f) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {          // element 2i in the low half
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint32_t two(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ uint4 put(const float* f) {
+    return make_uint4(two(f[0], f[1]), two(f[2], f[3]), two(f[4], f[5]),
+                      two(f[6], f[7]));
+  }
+};
+
+// dt(x * r) * w on the E floats of one access (rounded to T by the store)
+template <typename T, int E>
+__device__ __forceinline__ void rms_scale(float* f, const float* g, float r) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) f[e] = to_f(from_f<T>(f[e] * r)) * g[e];
+}
+
+template <typename T, int VPL>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_vec(int R, int V, int D, float eps, const uint4* __restrict__ x,
+            const uint4* __restrict__ w, uint4* __restrict__ y) {
+  using Pk = Pack16<T>;
+  const int row = blockIdx.x * RMS_WARPS + (threadIdx.x >> 5);
+  if (row >= R) return;                  // a whole warp: no barrier follows
+  const int lane = threadIdx.x & 31;
+  const uint4* xr = x + (size_t)row * V;
+  uint4 v[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < V ? xr[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
   float ss = 0.f;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    const float v = to_f(xr[d]);
-    ss += v * v;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    float f[Pk::N];
+    Pk::get(v[i], f);
+#pragma unroll
+    for (int e = 0; e < Pk::N; ++e) ss += f[e] * f[e];
   }
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float tot = 0.f;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) tot += part[i];
-  const float r = rsqrtf(tot / (float)D + eps);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    const float xn = to_f(from_f<T>(to_f(xr[d]) * r));
-    yr[d] = from_f<T>(xn * to_f(w[d]));
+  const float r = rsqrtf(warp_sum(ss) / (float)D + eps);
+  uint4* yr = y + (size_t)row * V;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < V) {
+      float f[Pk::N], g[Pk::N];
+      Pk::get(v[i], f);
+      Pk::get(__ldg(w + c), g);
+      rms_scale<T, Pk::N>(f, g, r);
+      yr[c] = Pk::put(f);
+    }
   }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_loop(int R, int D, float eps, const T* __restrict__ x,
+             const T* __restrict__ w, T* __restrict__ y) {
+  using Pk = Pack16<T>;
+  constexpr int E = VEC ? Pk::N : 1;     // elements an access
+  const int row = blockIdx.x * RMS_WARPS + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const int lane = threadIdx.x & 31;
+  const int n = D / E;
+  const T* xr = x + (size_t)row * D;
+  T* yr = y + (size_t)row * D;
+  auto get = [](const T* p, int c, float* f) {
+    if constexpr (VEC) Pk::get(reinterpret_cast<const uint4*>(p)[c], f);
+    else f[0] = to_f(p[c]);
+  };
+  float ss = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    float f[E];
+    get(xr, c, f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) ss += f[e] * f[e];
+  }
+  const float r = rsqrtf(warp_sum(ss) / (float)D + eps);
+  for (int c = lane; c < n; c += 32) {
+    float f[E], g[E];
+    get(xr, c, f);
+    get(w, c, g);
+    rms_scale<T, E>(f, g, r);
+    if constexpr (VEC) reinterpret_cast<uint4*>(yr)[c] = Pk::put(f);
+    else yr[c] = from_f<T>(f[0]);
+  }
+}
+
+__host__ __device__ inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T>
 int launch_rmsnorm(int R, int D, float eps, const void* x, const void* w,
                    void* y, cudaStream_t stream) {
-  int threads = ((D + 31) / 32) * 32;
-  if (threads > RMS_MAX_THREADS) threads = RMS_MAX_THREADS;
-  rmsnorm_kernel<T><<<R, threads, 0, stream>>>(
-      D, eps, (const T*)x, (const T*)w, (T*)y);
+  const unsigned blocks = (unsigned)((R + RMS_WARPS - 1) / RMS_WARPS);
+  const bool vec = (size_t)D * sizeof(T) % 16 == 0 && aligned(x, 16) &&
+                   aligned(w, 16) && aligned(y, 16);
+  if (!vec) {
+    rmsnorm_loop<T, false><<<blocks, RMS_THREADS, 0, stream>>>(
+        R, D, eps, (const T*)x, (const T*)w, (T*)y);
+    return (int)cudaGetLastError();
+  }
+  const int V = (int)((size_t)D * sizeof(T) / 16);   // vectors a row
+  const int need = (V + 31) / 32;                      // vectors a lane
+  const uint4 *xv = (const uint4*)x, *wv = (const uint4*)w;
+  uint4* yv = (uint4*)y;
+  // the smallest register instance that holds the row, else the loop
+#define RMS_VEC(n)                                                       \
+  if (need <= n)                                                         \
+    rmsnorm_vec<T, n><<<blocks, RMS_THREADS, 0, stream>>>(R, V, D, eps,  \
+                                                          xv, wv, yv);   \
+  else
+  RMS_VEC(1) RMS_VEC(2) RMS_VEC(3) RMS_VEC(4) RMS_VEC(6) RMS_VEC(8)
+  RMS_VEC(10) RMS_VEC(12) RMS_VEC(14) RMS_VEC(16) RMS_VEC(20) RMS_VEC(24)
+  RMS_VEC(28) RMS_VEC(RMS_MAX_VPL)
+    rmsnorm_loop<T, true><<<blocks, RMS_THREADS, 0, stream>>>(
+        R, D, eps, (const T*)x, (const T*)w, (T*)y);
+#undef RMS_VEC
   return (int)cudaGetLastError();
 }
 
@@ -832,21 +957,20 @@ int attention_bf16(int BH, int Tq, int Tk, int D, int causal, int q_offset,
 // ---------------------------------------------------------------------------
 // The recurrences K17 and K18.  The reference's Pallas grid is (rows,
 // T/C) with the chunk axis sequential and the state carried across chunks
-// in VMEM scratch; here one CTA walks a row's whole sequence, its state in
-// registers, and the chunk is only how much input it stages in shared
-// memory at a time (REC_C steps, then one barrier, then REC_C steps with
-// no barrier).  The state's columns are independent, so a thread owns one
-// column: its KP (or NP) state values stay in its registers and no sum
-// crosses threads.  The row's per-step vectors are broadcast from shared
-// memory (every thread reads the same word: no bank conflict).  The state
-// dimension is padded to KP in {16, 32, 64, 128} with zeros: a zero k, r,
-// w and u (or b, c) keep the padded state zero and out of every sum.
+// in VMEM scratch.  K17 (below): one CTA walks a row's whole sequence, its
+// state in registers, and the chunk is only how much input it stages in
+// shared memory at a time (REC_C steps, then one barrier, then REC_C
+// steps with no barrier).  The state's columns are independent, so a
+// thread owns one column: its KP state values stay in its registers and
+// no sum crosses threads.  The row's per-step vectors are broadcast from
+// shared memory (every thread reads the same word: no bank conflict).
+// The state dimension is padded to KP in {16, 32, 64, 128} with zeros: a
+// zero k, r, w and u keep the padded state zero and out of every sum.
 // Steps at t >= T are neither read (zero-filled) nor written.
-// Bound: both do ~5-7 operations per state element per step on the
-// CUDA cores (fp32), against 2-byte inputs read once: operations.  A CTA a
-// row at one step at a time is latency-bound (the row's steps are
-// sequential); splitting a row's columns over more CTAs and overlapping
-// the next chunk's loads with this chunk's steps are later work.
+// Bound: ~7 operations per state element per step on the CUDA cores
+// (fp32), against 2-byte inputs read once: operations.  A CTA a row at
+// one step at a time is latency-bound (the row's steps are sequential).
+// K18 is the chunked form instead (its own section, after K17).
 // ---------------------------------------------------------------------------
 constexpr int REC_C = 32;                // steps staged a chunk
 constexpr int REC_MAX_THREADS = 128;     // state columns a CTA
@@ -937,82 +1061,6 @@ wkv6_kernel(int Tn, int K, int V, const T* __restrict__ r,
   }
 }
 
-// ---------------------------------------------------------------------------
-// K18 ssd — replaces src/repro/kernels/mamba2.py ssd (_ssd_kernel,
-// pl.pallas_call at mamba2.py:61).  Per sequence b and head h, state
-// (N, P) from zero:
-//   h[n, p] <- exp(a_t) h[n, p] + b_t[n] x_t[p]
-//   y_t[p]   = sum_n c_t[n] h[n, p]
-// x, y: (B, T, H, P); a: (B, T, H) float32 whatever x's dtype; b, c: (B,
-// T, N), shared by the heads.  The reference's block holds all H heads'
-// state (1.8 MB at zamba2-7b, past an SM's shared memory); the heads are
-// independent, so the grid is (B*H, ceil(P / PT)): a CTA a (sequence,
-// head), thread = column p.  exp(a_t) is taken once a step while staging.
-// ---------------------------------------------------------------------------
-template <typename T, int NP>
-__global__ void __launch_bounds__(REC_MAX_THREADS)
-ssd_kernel(int Tn, int H, int P, int N, const T* __restrict__ x,
-           const float* __restrict__ a, const T* __restrict__ b,
-           const T* __restrict__ c, T* __restrict__ y) {
-  extern __shared__ __align__(16) float rsmem[];
-  const int PT = blockDim.x;
-  float* sb = rsmem;                     // [REC_C][NP]
-  float* sc = sb + REC_C * NP;           // [REC_C][NP]
-  float* sd = sc + REC_C * NP;           // [REC_C] exp(a_t)
-  float* sx = sd + REC_C;                // [REC_C][PT]
-  const int tid = threadIdx.x;
-  const int seq = blockIdx.x / H, head = blockIdx.x % H;
-  const int p0 = blockIdx.y * PT;
-  const int col = p0 + tid;
-  const bool live = col < P;
-  const size_t nbase = (size_t)seq * Tn * N;
-
-  float h[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) h[i] = 0.f;
-
-  for (int t0 = 0; t0 < Tn; t0 += REC_C) {
-    __syncthreads();
-    for (int e = tid; e < REC_C * NP; e += PT) {
-      const int j = e / NP, i = e % NP;
-      const bool in = t0 + j < Tn && i < N;
-      const size_t g = nbase + (size_t)(t0 + j) * N + i;
-      sb[e] = in ? to_f(b[g]) : 0.f;
-      sc[e] = in ? to_f(c[g]) : 0.f;
-    }
-    for (int j = tid; j < REC_C; j += PT)
-      sd[j] = t0 + j < Tn
-                  ? expf(a[((size_t)seq * Tn + t0 + j) * H + head]) : 0.f;
-    for (int j = 0; j < REC_C; ++j)
-      sx[j * PT + tid] =
-          (t0 + j < Tn && live)
-              ? to_f(x[(((size_t)seq * Tn + t0 + j) * H + head) * P + col])
-              : 0.f;
-    __syncthreads();
-    const int steps = min(REC_C, Tn - t0);
-    for (int j = 0; j < steps; ++j) {
-      const float dec = sd[j], xt = sx[j * PT + tid];
-      const float* bj = sb + j * NP;
-      const float* cj = sc + j * NP;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < NP; i += 4) {
-        const float4 b4 = ld4(bj, i), c4 = ld4(cj, i);
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-        const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          h[i + q] = dec * h[i + q] + bb[q] * xt;
-          acc[q] += cc[q] * h[i + q];
-        }
-      }
-      if (live)
-        y[(((size_t)seq * Tn + t0 + j) * H + head) * P + col] =
-            from_f<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
-    }
-  }
-}
-
 // the state dimension's register pad: 16, 32, 64 or 128 (0: too large)
 inline int state_pad(int n) {
   return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : n <= 128 ? 128 : 0;
@@ -1060,33 +1108,572 @@ int wkv6_for_dim(int BH, int Tn, int K, int V, const void* r, const void* k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K18 ssd — replaces src/repro/kernels/mamba2.py ssd (_ssd_kernel,
+// pl.pallas_call at mamba2.py:61).  Per sequence b and head h, state
+// (N, P) from zero:
+//   h[n, p] <- exp(a_t) h[n, p] + b_t[n] x_t[p]
+//   y_t[p]   = sum_n c_t[n] h[n, p]
+// x, y: (B, T, H, P); a: (B, T, H) float32 whatever x's dtype; b, c: (B,
+// T, N), shared by the heads.
+// The chunked SSD of Mamba-2 (Dao and Gu, arXiv:2405.21060, section 6, the
+// block decomposition): time in chunks of SSD_L steps; A_i is the
+// chunk-local inclusive cumsum of a (chunk-local, so that it stays small;
+// in float64, so that A_i - A_j is the segment sum, each exponent then
+// rounded to float32), "last" the chunk's last valid step.  Entering a
+// chunk in state H_c:
+//   y_i     = sum_{j <= i} exp(A_i - A_j) (c_i . b_j) x_j + exp(A_i) c_i H_c
+//   H_{c+1} = exp(A_last) H_c + S_c,  S_c = sum_j exp(A_last - A_j) b_j x_j
+// Three kernels behind the one C entry (one counted launch a call):
+//  1. ssd_chunk_state, grid (B * (nc - 1), head groups, P tiles): S_c of
+//     every chunk that has a successor (all of them full), into the
+//     float32 scratch the wrapper allocates (slot c: (b, c, h, N, P)), and
+//     the chunk's A_last.
+//  2. ssd_state_passing, grid (B * H, tiles of N * P): walks the chunks,
+//     overwriting slot c in place with H_{c+1} (H_0 = 0 is not stored).
+//  3. ssd_chunk_scan, grid (B * nc, head groups, P tiles): the chunk's c
+//     and b loaded once for a group of heads and G = C B^T computed once
+//     for it; then per head M = G * exp(A_i - A_j) for j <= i, masked
+//     before the exp (a positive segment sum overflows, and inf * 0 is
+//     NaN), and y = M x + exp(A) C H_c, rounded once to dt.
+// Every product and sum but the cumsum is float32 on the CUDA cores, for
+// both dtypes: the float32 tolerance (1e-5) rules out TF32, and one
+// arithmetic keeps bf16 at one rounding of y.  Each product is a 64-wide
+// register tile, 4 x 4 a thread over 16 x 16 threads, both operands read
+// from shared memory as float4.
+// b and c are staged by cp.async where their rows are whole 16-byte
+// vectors.  The ragged last chunk: steps past T are never read (zeros in
+// shared memory: they add nothing) nor written.  N is padded to NP in
+// {16, 32, 64, 128} with zeros; P is cut in tiles of SSD_PT columns.
+// Bound: ~4.7 GFLOP at zamba2-7b's (2, 1024, 112, 64, 64), operations;
+// the scratch (55 MB there: written, read and written, read) is the
+// design's own traffic.
+// ---------------------------------------------------------------------------
+constexpr int SSD_L = 64;                // steps a chunk
+constexpr int SSD_PT = 64;               // state columns p a CTA
+constexpr int SSD_THREADS = 256;         // 16 x 16 threads, 4 x 4 outputs each
+constexpr int SSD_LP = SSD_L + 4;        // pitch of the 64-wide shared tiles
+constexpr int SSD_HG_STATE = 4;          // heads a chunk_state CTA, at most
+constexpr int SSD_HG_SCAN = 8;           // heads a chunk_scan CTA, at most
+static_assert(SSD_L == 64 && SSD_PT == 64, "the tiles are 16 x 4 wide");
+static_assert(SSD_HG_SCAN <= SSD_THREADS / 32, "a warp scans a head");
+static_assert(SSD_HG_STATE * SSD_L <= SSD_THREADS, "a weight a thread");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
+               ::: "memory");
+}
+
+// `count` elements of T from global `src` to shared `dst`: by 16-byte
+// cp.async when `vec` (both 16-byte aligned, count * sizeof(T) a multiple
+// of 16; cp_async_wait_all and a barrier before reading), else one by one.
+template <typename T>
+__device__ __forceinline__ void stage_span(T* dst, const T* src, int count,
+                                           bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    for (int i = threadIdx.x; i < count / E; i += SSD_THREADS)
+      cp_async16(dst + i * E, src + (size_t)i * E);
+  } else {
+    for (int i = threadIdx.x; i < count; i += SSD_THREADS) dst[i] = src[i];
+  }
+}
+
+// how many of a thread's 4 columns lie before the edge, `left` away
+__device__ __forceinline__ int cols4(int left) {
+  return left >= 4 ? 4 : left > 0 ? left : 0;
+}
+
+// 4 consecutive elements of T at p as floats, n of them (0..4) in range
+// and the rest 0; one 8- or 16-byte load when `vec` (p aligned to it)
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n, bool vec) {
+  if (vec && n == 4) {
+    if constexpr (sizeof(T) == 4) {
+      return *reinterpret_cast<const float4*>(p);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    }
+  }
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = to_f(p[0]);
+  if (n > 1) v.y = to_f(p[1]);
+  if (n > 2) v.z = to_f(p[2]);
+  if (n > 3) v.w = to_f(p[3]);
+  return v;
+}
+
+// the first n (0..4) of v to p, rounded to T; one store when `vec`
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v, int n, bool vec) {
+  if (vec && n == 4) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(p) = v;
+    } else {
+      using Pk = Pack16<__nv_bfloat16>;
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(Pk::two(v.x, v.y), Pk::two(v.z, v.w));
+    }
+    return;
+  }
+  if (n > 0) p[0] = from_f<T>(v.x);
+  if (n > 1) p[1] = from_f<T>(v.y);
+  if (n > 2) p[2] = from_f<T>(v.z);
+  if (n > 3) p[3] = from_f<T>(v.w);
+}
+
+// rows ti + 16 k (k < NP / 16) of head h's state in `Hs` (H, N, P),
+// columns p .. p + 3 (np of them before P); rows at or past N as zeros
+template <int NP>
+__device__ __forceinline__ void fetch_state(float4 (&hr)[NP / 16],
+                                            const float* Hs, int h, int N,
+                                            int P, int p, int np, bool vec) {
+  const int ti = threadIdx.x >> 4;
+#pragma unroll
+  for (int k = 0; k < NP / 16; ++k) {
+    const int n = ti + 16 * k;
+    hr[k] = n < N && np > 0
+                ? load4(Hs + ((size_t)h * N + n) * P + p, np, vec)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ float4 row4(const float (&acc)[4]) {
+  return make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// x rows ti + 16 k (k < 4) of head h in one chunk, columns p .. p + 3 (np
+// of them before P), as floats; rows at or past `valid` read as zeros
+template <typename T>
+__device__ __forceinline__ void fetch_x(float4 (&xr)[4], const T* x,
+                                        size_t row0, int H, int h, int P,
+                                        int p, int np, bool vec, int valid) {
+  const int ti = threadIdx.x >> 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = ti + 16 * k;
+    xr[k] = j < valid && np > 0
+                ? load4(x + ((row0 + j) * H + h) * P + p, np, vec)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// acc[r][q] += u[r] v[q]
+__device__ __forceinline__ void outer(float (&acc)[4][4], float4 u,
+                                      float4 v) {
+  const float uu[4] = {u.x, u.y, u.z, u.w}, vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(uu[r], vv[q], acc[r][q]);
+}
+
+// sA[g][j] = the chunk-local inclusive cumsum of a over steps 0..j of head
+// h0 + g (g < G <= warps), steps at or past `valid` adding 0, so that
+// sA[g][SSD_L - 1] is A_last.  In float64: a sum of 64 float32 values is
+// then exact or nearly, so a difference A_i - A_j is the segment sum to
+// float64's precision, not to float32's ulp of |A| (the chunked form's
+// largest error otherwise).  Warp g scans head g: two steps a lane, then a
+// shuffle scan.  Ends with a barrier.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
+                                             size_t row0, int H, int h0,
+                                             int G, int valid, double* sA) {
+  for (int e = threadIdx.x; e < SSD_L * G; e += SSD_THREADS) {
+    const int j = e / G, g = e % G;
+    sA[g * SSD_L + j] = j < valid ? a[(row0 + j) * H + h0 + g] : 0.0;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < G) {
+    double* s = sA + warp * SSD_L;
+    const double v0 = s[2 * lane], v1 = s[2 * lane + 1];
+    double incl = v0 + v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.0;
+    s[2 * lane] = excl + v0;
+    s[2 * lane + 1] = excl + v0 + v1;
+  }
+  __syncthreads();
+}
+
+// shared memory, in floats: chunk_state's x tile (or b as staged, before
+// it), chunk_scan's G, M and x tiles (or c and b as staged, before them)
+template <typename T, int NP>
+__host__ __device__ constexpr int ssd_state_mid() {
+  return SSD_L * SSD_LP > SSD_L * NP * (int)sizeof(T) / 4
+             ? SSD_L * SSD_LP : SSD_L * NP * (int)sizeof(T) / 4;
+}
+template <typename T, int NP>
+__host__ __device__ constexpr size_t ssd_state_smem() {
+  return sizeof(float) * (SSD_L * NP + ssd_state_mid<T, NP>() +
+                          SSD_HG_STATE * SSD_L) +
+         sizeof(double) * SSD_HG_STATE * SSD_L;
+}
+template <typename T, int NP>
+__host__ __device__ constexpr int ssd_scan_mid() {
+  return 3 * SSD_L * SSD_LP > 2 * SSD_L * NP * (int)sizeof(T) / 4
+             ? 3 * SSD_L * SSD_LP : 2 * SSD_L * NP * (int)sizeof(T) / 4;
+}
+template <typename T, int NP>
+__host__ __device__ constexpr size_t ssd_scan_smem() {
+  return sizeof(float) * (2 * NP * SSD_LP + ssd_scan_mid<T, NP>()) +
+         sizeof(double) * SSD_HG_SCAN * SSD_L;
+}
+
+// 1. S_c[n, p] = sum_j b_j[n] (exp(A_last - A_j) x_j[p]) of a full chunk c
+// with a successor, for hg <= SSD_HG_STATE heads; thread (ti, tq) owns
+// state rows ti*RN .. ti*RN + RN - 1 and columns 4 tq .. 4 tq + 3 of the P
+// tile.
+template <typename T, int NP>
+__global__ void __launch_bounds__(SSD_THREADS, NP < 128 ? 3 : 2)
+ssd_chunk_state(int Tn, int H, int P, int N, int nc, int hg,
+                const T* __restrict__ x, const float* __restrict__ a,
+                const T* __restrict__ b, float* __restrict__ states,
+                float* __restrict__ lasts) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RN = NP / 16;                      // state rows a thread
+  float* sb = smem;                                // [L][NP] b
+  float* sx = sb + SSD_L * NP;                     // [L][LP] weighted x
+  double* sA = reinterpret_cast<double*>(sx + ssd_state_mid<T, NP>());
+                                                   // [HG][L] A
+  float* sw = reinterpret_cast<float*>(sA + SSD_HG_STATE * SSD_L);
+                                                   // [HG][L] weights
+  T* raw = reinterpret_cast<T*>(sx);               // b as staged
+  const int tid = threadIdx.x, ti = tid >> 4, tq = tid & 15;
+  const int full = nc - 1;
+  const int seq = blockIdx.x / full, chunk = blockIdx.x % full;
+  const int h0 = blockIdx.y * hg, G = min(hg, H - h0);
+  const int p = (int)blockIdx.z * SSD_PT + 4 * tq, np = cols4(P - p);
+  const size_t row0 = (size_t)seq * Tn + (size_t)chunk * SSD_L;
+  stage_span(raw, b + row0 * N, SSD_L * N,
+             (size_t)N * sizeof(T) % 16 == 0 && aligned(b, 16));
+  chunk_cumsum(a, row0, H, h0, G, SSD_L, sA);     // while b lands
+  if (tid < G * SSD_L)
+    sw[tid] = expf((float)(sA[(tid / SSD_L + 1) * SSD_L - 1] - sA[tid]));
+  if (blockIdx.z == 0 && tid < G)
+    lasts[((size_t)seq * full + chunk) * H + h0 + tid] =
+        (float)sA[(tid + 1) * SSD_L - 1];
+  cp_async_wait_all();
+  __syncthreads();                                 // weights set, b landed
+  for (int e = tid; e < SSD_L * NP; e += SSD_THREADS) {
+    const int j = e / NP, n = e % NP;
+    sb[e] = n < N ? to_f(raw[j * N + n]) : 0.f;
+  }
+  __syncthreads();                                 // raw (under sx) is free
+  const bool xv = P % 4 == 0 && aligned(x, 4 * sizeof(T));
+  const bool sv = P % 4 == 0;                      // 16-byte state rows
+  float4 xr[4];                                    // x rows ti + 16 k
+  fetch_x(xr, x, row0, H, h0, P, p, np, xv, SSD_L);
+  for (int g = 0; g < G; ++g) {
+    const int h = h0 + g;
+    const float* w = sw + g * SSD_L;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float s = w[ti + 16 * k];
+      float4 v = xr[k];
+      v.x *= s; v.y *= s; v.z *= s; v.w *= s;
+      st4(sx + (ti + 16 * k) * SSD_LP + 4 * tq, v);
+    }
+    __syncthreads();
+    if (g + 1 < G)                                 // lands during the product
+      fetch_x(xr, x, row0, H, h + 1, P, p, np, xv, SSD_L);
+    float acc[RN][4];
+#pragma unroll
+    for (int r = 0; r < RN; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < SSD_L; ++j) {
+      const float4 xq = ld4(sx + j * SSD_LP, 4 * tq);
+      const float xx[4] = {xq.x, xq.y, xq.z, xq.w};
+      const float* brow = sb + j * NP + ti * RN;
+      float bn[RN];
+      if constexpr (RN >= 4) {
+#pragma unroll
+        for (int r = 0; r < RN; r += 4) {
+          const float4 u = ld4(brow, r);
+          bn[r] = u.x; bn[r + 1] = u.y; bn[r + 2] = u.z; bn[r + 3] = u.w;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < RN; ++r) bn[r] = brow[r];
+      }
+#pragma unroll
+      for (int r = 0; r < RN; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(bn[r], xx[q], acc[r][q]);
+    }
+    float* S = states + (((size_t)seq * full + chunk) * H + h) *
+                            ((size_t)N * P);
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const int n = ti * RN + r;
+      if (n < N && np > 0)
+        store4(S + (size_t)n * P + p, row4(acc[r]), np, sv);
+    }
+    __syncthreads();                               // sx read: the next head's
+  }
+}
+
+// 2. In place over slots 0 .. nc - 2: slot c <- H_{c+1} = exp(A_last of c)
+// H_c + S_c, H_1 = S_0.  A thread walks VEC state elements of one (b, h);
+// the next slot's load is issued before this one's update.
+template <int VEC>
+__global__ void __launch_bounds__(SSD_THREADS)
+ssd_state_passing(int H, int nps, int nc, float* __restrict__ states,
+                  const float* __restrict__ lasts) {
+  const int e = (blockIdx.y * SSD_THREADS + threadIdx.x) * VEC;
+  if (e >= nps) return;
+  const int seq = blockIdx.x / H, h = blockIdx.x % H, full = nc - 1;
+  const size_t stride = (size_t)H * nps;           // slot c to c + 1
+  float* s = states + ((size_t)seq * full * H + h) * nps + e;
+  const float* l = lasts + (size_t)seq * full * H + h;
+  auto ld = [](const float* q, float* v) {
+    if constexpr (VEC == 4) {
+      const float4 u = *reinterpret_cast<const float4*>(q);
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+      v[0] = *q;
+    }
+  };
+  float run[VEC], nxt[VEC];
+  ld(s, run);
+  if (full > 1) ld(s + stride, nxt);
+  for (int c = 1; c < full; ++c) {
+    float cur[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) cur[v] = nxt[v];
+    if (c + 1 < full) ld(s + (c + 1) * stride, nxt);
+    const float d = expf(l[(size_t)c * H]);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) run[v] = fmaf(d, run[v], cur[v]);
+    if constexpr (VEC == 4)
+      st4(s + c * stride, make_float4(run[0], run[1], run[2], run[3]));
+    else
+      s[c * stride] = run[0];
+  }
+}
+
+// 3. y of one chunk for hg <= SSD_HG_SCAN heads: thread (ti, tq) owns rows
+// 4 ti .. 4 ti + 3 (steps i) and columns 4 tq .. 4 tq + 3 of every 64-wide
+// tile (G's j, the P tile's p).
+template <typename T, int NP>
+__global__ void __launch_bounds__(SSD_THREADS, 2)
+ssd_chunk_scan(int Tn, int H, int P, int N, int nc, int hg,
+               const T* __restrict__ x, const float* __restrict__ a,
+               const T* __restrict__ b, const T* __restrict__ c,
+               const float* __restrict__ states, T* __restrict__ y) {
+  extern __shared__ __align__(16) float smem[];
+  float* cT = smem;                                // [NP][LP] c transposed
+  float* bT = cT + NP * SSD_LP;                    // [NP][LP] b transposed,
+                                                   // then H_c [NP][LP]
+  float* Gt = bT + NP * SSD_LP;                    // [L][LP] Gt[j][i] = c_i.b_j
+  float* Mt = Gt + SSD_L * SSD_LP;                 // [L][LP] Mt[j][i] = M_ij
+  float* sx = Mt + SSD_L * SSD_LP;                 // [L][LP] x
+  double* sA = reinterpret_cast<double*>(Gt + ssd_scan_mid<T, NP>());
+                                                   // [HG][L] A
+  T* rc = reinterpret_cast<T*>(Gt);                // c and b as staged
+  T* rb = rc + SSD_L * N;
+  const int tid = threadIdx.x, ti = tid >> 4, tq = tid & 15;
+  const int seq = blockIdx.x / nc, chunk = blockIdx.x % nc;
+  const int valid = min(SSD_L, Tn - chunk * SSD_L);
+  const int h0 = blockIdx.y * hg, G = min(hg, H - h0);
+  const int p = (int)blockIdx.z * SSD_PT + 4 * tq, np = cols4(P - p);
+  const size_t row0 = (size_t)seq * Tn + (size_t)chunk * SSD_L;
+  const bool bcv = (size_t)N * sizeof(T) % 16 == 0 && aligned(b, 16) &&
+                   aligned(c, 16);
+  stage_span(rc, c + row0 * N, valid * N, bcv);
+  stage_span(rb, b + row0 * N, valid * N, bcv);
+  chunk_cumsum(a, row0, H, h0, G, valid, sA);      // while c and b land
+  cp_async_wait_all();
+  __syncthreads();
+  for (int e = tid; e < SSD_L * NP; e += SSD_THREADS) {
+    const int j = e / NP, n = e % NP;
+    const bool in = j < valid && n < N;
+    cT[n * SSD_LP + j] = in ? to_f(rc[j * N + n]) : 0.f;
+    bT[n * SSD_LP + j] = in ? to_f(rb[j * N + n]) : 0.f;
+  }
+  __syncthreads();                                 // rc, rb consumed
+  {
+    float g[4][4] = {};
+#pragma unroll 4
+    for (int n = 0; n < N; ++n)
+      outer(g, ld4(cT + n * SSD_LP, 4 * ti), ld4(bT + n * SSD_LP, 4 * tq));
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      st4(Gt + (4 * tq + q) * SSD_LP + 4 * ti,
+          make_float4(g[0][q], g[1][q], g[2][q], g[3][q]));
+  }
+  __syncthreads();                                 // Gt whole, bT free
+  const bool xv = P % 4 == 0 && aligned(x, 4 * sizeof(T));
+  const bool yv = P % 4 == 0 && aligned(y, 4 * sizeof(T));
+  const bool sv = P % 4 == 0;
+  float4 xr[4], hr[NP / 16];                       // x rows ti + 16 k, H_c's
+  // the states entering this chunk, (H, N, P)
+  const float* Hs = states + ((size_t)seq * (nc - 1) + chunk - 1) * H *
+                                 ((size_t)N * P);
+  fetch_x(xr, x, row0, H, h0, P, p, np, xv, valid);
+  if (chunk > 0) fetch_state<NP>(hr, Hs, h0, N, P, p, np, sv);
+  for (int g = 0; g < G; ++g) {
+    const int h = h0 + g;
+    const double* A = sA + g * SSD_L;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      st4(sx + (ti + 16 * k) * SSD_LP + 4 * tq, xr[k]);
+    if (chunk > 0) {
+#pragma unroll
+      for (int k = 0; k < NP / 16; ++k)
+        st4(bT + (ti + 16 * k) * SSD_LP + 4 * tq, hr[k]);
+    }
+    for (int e = tid; e < SSD_L * SSD_L; e += SSD_THREADS) {
+      const int j = e / SSD_L, i = e % SSD_L;
+      Mt[j * SSD_LP + i] = j <= i && i < valid
+                               ? Gt[j * SSD_LP + i] *
+                                     expf((float)(A[i] - A[j]))
+                               : 0.f;
+    }
+    __syncthreads();
+    if (g + 1 < G) {                               // lands during the products
+      fetch_x(xr, x, row0, H, h + 1, P, p, np, xv, valid);
+      if (chunk > 0) fetch_state<NP>(hr, Hs, h + 1, N, P, p, np, sv);
+    }
+    float acc[4][4] = {};
+    if (chunk > 0) {
+#pragma unroll 4
+      for (int n = 0; n < N; ++n)
+        outer(acc, ld4(cT + n * SSD_LP, 4 * ti),
+              ld4(bT + n * SSD_LP, 4 * tq));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float d = expf((float)A[4 * ti + r]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] *= d;
+      }
+    }
+    const int jn = min(4 * ti + 4, valid);        // M is zero past row i
+#pragma unroll 4
+    for (int j = 0; j < jn; ++j)
+      outer(acc, ld4(Mt + j * SSD_LP, 4 * ti), ld4(sx + j * SSD_LP, 4 * tq));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * ti + r;
+      if (i < valid && np > 0)
+        store4(y + ((row0 + i) * H + h) * P + p, row4(acc[r]), np, yv);
+    }
+    __syncthreads();                               // sx, bT, Mt reused
+  }
+}
+
+// CTAs of `kernel` resident on the card at once, with `smem` bytes each
+template <typename K>
+int resident_ctas(K* kernel, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SSD_THREADS,
+                                                smem);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+// Heads a CTA (1 .. most) for a grid of `groups` CTAs a head group, with
+// `slots` resident CTAs: the
+// count that takes the fewest waves of resident CTAs times the work of a
+// CTA (its heads, plus about one head's worth of set-up: staging, the
+// cumsum, chunk_scan's G = C B^T).  A grid's last wave runs part-empty, so
+// at zamba2-7b's 112 heads a scan CTA takes 7 (512 CTAs: two waves of 2 x
+// 132) rather than 8 (448), and a state CTA 3 rather than 4.
+inline int heads_per_cta(int slots, long long groups, int H, int most) {
+  int best = most;
+  long long best_cost = LLONG_MAX;
+  for (int hg = most; hg >= 1; --hg) {
+    const long long ctas = groups * ((H + hg - 1) / hg);
+    const long long cost = (ctas + slots - 1) / slots * (hg + 1);
+    if (cost < best_cost) best_cost = cost, best = hg;
+  }
+  return best;
+}
+
 template <typename T, int NP>
 int launch_ssd(int B, int Tn, int H, int P, int N, const void* x,
                const void* a, const void* b, const void* c, void* y,
-               cudaStream_t stream) {
-  const int PT = rec_threads(P);
-  const size_t smem = sizeof(float) * ((size_t)2 * REC_C * NP + REC_C +
-                                       (size_t)REC_C * PT);
-  const int err = set_smem(ssd_kernel<T, NP>, smem);
-  if (err) return err;
-  const long long rows = (long long)B * H;
-  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)rows, (unsigned)((P + PT - 1) / PT));
-  ssd_kernel<T, NP><<<grid, PT, smem, stream>>>(
-      Tn, H, P, N, (const T*)x, (const float*)a, (const T*)b, (const T*)c,
-      (T*)y);
+               void* scratch, cudaStream_t stream) {
+  const int nc = (Tn + SSD_L - 1) / SSD_L;
+  if ((long long)B * nc > INT_MAX || (long long)B * H > INT_MAX ||
+      (long long)N * P > INT_MAX / 4)
+    return (int)cudaErrorInvalidValue;
+  const unsigned ptiles = (unsigned)((P + SSD_PT - 1) / SSD_PT);
+  // scratch: the states (B, nc - 1, H, N, P), then A_last (B, nc - 1, H)
+  float* states = (float*)scratch;
+  float* lasts = states + (size_t)B * (nc - 1) * H * N * P;
+  int err;
+  if (nc > 1) {
+    constexpr size_t smem = ssd_state_smem<T, NP>();
+    if ((err = set_smem(ssd_chunk_state<T, NP>, smem))) return err;
+    static const int slots = resident_ctas(ssd_chunk_state<T, NP>, smem);
+    const int hg = heads_per_cta(slots, (long long)B * (nc - 1) * ptiles, H,
+                                 SSD_HG_STATE);
+    const dim3 grid((unsigned)(B * (nc - 1)), (unsigned)((H + hg - 1) / hg),
+                    ptiles);
+    ssd_chunk_state<T, NP><<<grid, SSD_THREADS, smem, stream>>>(
+        Tn, H, P, N, nc, hg, (const T*)x, (const float*)a, (const T*)b,
+        states, lasts);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (nc > 2) {
+    const int nps = N * P, vec = nps % 4 == 0 ? 4 : 1;
+    const dim3 grid((unsigned)(B * H),
+                    (unsigned)((nps / vec + SSD_THREADS - 1) / SSD_THREADS));
+    if (vec == 4)
+      ssd_state_passing<4><<<grid, SSD_THREADS, 0, stream>>>(H, nps, nc,
+                                                             states, lasts);
+    else
+      ssd_state_passing<1><<<grid, SSD_THREADS, 0, stream>>>(H, nps, nc,
+                                                             states, lasts);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  constexpr size_t smem = ssd_scan_smem<T, NP>();
+  if ((err = set_smem(ssd_chunk_scan<T, NP>, smem))) return err;
+  static const int slots = resident_ctas(ssd_chunk_scan<T, NP>, smem);
+  const int hg = heads_per_cta(slots, (long long)B * nc * ptiles, H,
+                               SSD_HG_SCAN);
+  const dim3 grid((unsigned)(B * nc), (unsigned)((H + hg - 1) / hg), ptiles);
+  ssd_chunk_scan<T, NP><<<grid, SSD_THREADS, smem, stream>>>(
+      Tn, H, P, N, nc, hg, (const T*)x, (const float*)a, (const T*)b,
+      (const T*)c, states, (T*)y);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int ssd_for_dim(int B, int Tn, int H, int P, int N, const void* x,
                 const void* a, const void* b, const void* c, void* y,
-                cudaStream_t s) {
+                void* scratch, cudaStream_t s) {
   switch (state_pad(N)) {
-    case 16: return launch_ssd<T, 16>(B, Tn, H, P, N, x, a, b, c, y, s);
-    case 32: return launch_ssd<T, 32>(B, Tn, H, P, N, x, a, b, c, y, s);
-    case 64: return launch_ssd<T, 64>(B, Tn, H, P, N, x, a, b, c, y, s);
-    case 128: return launch_ssd<T, 128>(B, Tn, H, P, N, x, a, b, c, y, s);
+    case 16:
+      return launch_ssd<T, 16>(B, Tn, H, P, N, x, a, b, c, y, scratch, s);
+    case 32:
+      return launch_ssd<T, 32>(B, Tn, H, P, N, x, a, b, c, y, scratch, s);
+    case 64:
+      return launch_ssd<T, 64>(B, Tn, H, P, N, x, a, b, c, y, scratch, s);
+    case 128:
+      return launch_ssd<T, 128>(B, Tn, H, P, N, x, a, b, c, y, scratch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1140,16 +1727,20 @@ int tf_wkv6(int BH, int Tn, int K, int V, int dtype, void* r, void* k,
   }
 }
 
+// scratch: float32, B * (ceil(Tn / 64) - 1) * H * (N * P + 1) words (the
+// wrapper allocates it; nothing is allocated here)
 int tf_ssd(int B, int Tn, int H, int P, int N, int dtype, void* x, void* a,
-           void* b, void* c, void* y, void* stream) {
+           void* b, void* c, void* y, void* scratch, void* stream) {
   if (B < 0 || Tn < 0 || H < 1 || P < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Tn == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case DT_F32: return ssd_for_dim<float>(B, Tn, H, P, N, x, a, b, c, y, s);
+    case DT_F32:
+      return ssd_for_dim<float>(B, Tn, H, P, N, x, a, b, c, y, scratch, s);
     case DT_BF16:
-      return ssd_for_dim<__nv_bfloat16>(B, Tn, H, P, N, x, a, b, c, y, s);
+      return ssd_for_dim<__nv_bfloat16>(B, Tn, H, P, N, x, a, b, c, y,
+                                        scratch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -45,10 +45,10 @@ TRANSFORMER_LIB = _build.Library("transformer.cu", {
     "tf_rmsnorm": [_I] * 3 + [_F] + [_P] * 3 + [_P],
     "tf_flash_attention": [_I] * 7 + [_F] + [_P] * 4 + [_P],
     "tf_wkv6": [_I] * 5 + [_P] * 6 + [_P],
-    "tf_ssd": [_I] * 6 + [_P] * 5 + [_P],
+    "tf_ssd": [_I] * 6 + [_P] * 6 + [_P],
 }, ("rmsnorm", "flash_attention", "wkv6", "ssd"))
-#: the recurrences' state dimension (wkv6's K, ssd's N) lives in a
-#: thread's registers, padded to 16, 32, 64 or 128
+#: the recurrences' state dimension (wkv6's K in a thread's registers,
+#: ssd's N in shared-memory tiles), padded to 16, 32, 64 or 128
 MAX_STATE = 128
 #: the dtypes the transformer kernels take, and their codes in the C entries
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,6 +1,8 @@
 """Plain torch versions of the kernels: the DSP kernels (the paper's Table
 II), the transformer's K15 ``flash_attention`` and K16 ``rmsnorm``, and the
-recurrences K17 ``rwkv6_scan`` and K18 ``mamba2_ssd``.
+recurrences K17 ``rwkv6_scan`` and K18 ``mamba2_ssd`` (and
+``mamba2_ssd_chunked``, the K18 kernel's three chunked steps in plain
+torch, which the tests hold against both).
 
 Counterpart of the reference's ``kernels/ref.py`` for ``real_fir``,
 ``complex_fir``, ``adaptive_fir``, ``iir``, ``vector_dot``, ``vector_add``,
@@ -299,3 +301,51 @@ def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              + bf[:, t, None, :, None] * xf[:, t, :, None, :])
         y[:, t] = torch.einsum("bn,bhnp->bhp", cf[:, t], h)
     return y.to(x.dtype)
+
+
+def mamba2_ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """:func:`mamba2_ssd` in the chunked form of Mamba-2 (Dao and Gu,
+    arXiv:2405.21060, §6), the three steps of the K18 kernel in plain
+    torch, for the tests.
+
+    Per chunk of ``chunk`` steps, A is the chunk-local inclusive cumsum of
+    a (in float64, as the kernel takes it, so that A_i − A_j is the segment
+    sum; each exponent is then rounded to float32) and "last" the chunk's
+    last step: (1) each chunk's state
+    ``S = Σ_j exp(A_last − A_j) b_j ⊗ x_j``; (2) the state entering each
+    chunk, ``H_0 = 0``, ``H_c = exp(A_last of c−1) H_{c−1} + S_{c−1}``;
+    (3) ``y_i = Σ_{j ≤ i} exp(A_i − A_j) (c_i · b_j) x_j + exp(A_i) c_i ·
+    H_c``, with j > i masked before the exp.  Steps past T are zeros (a =
+    0 among them) and add nothing.  y in x's dtype, rounded once.
+    """
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+    xc = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).view(B, nc, chunk, H, P)
+    ac = F.pad(a.float(), (0, 0, 0, pad)).view(B, nc, chunk, H)
+    bc, cc = (F.pad(t.float(), (0, 0, 0, pad)).view(B, nc, chunk, N)
+              for t in (b, c))
+    A = torch.cumsum(ac.double(), dim=2)                      # (B, nc, L, H)
+    last = A[:, :, -1]                                        # (B, nc, H)
+    # 1. each chunk's state
+    w = torch.exp((last[:, :, None] - A).float())[..., None]  # (B, nc, L, H, 1)
+    S = torch.einsum("bcjn,bcjhp->bchnp", bc, w * xc)
+    # 2. the state entering each chunk
+    states = [torch.zeros(B, H, N, P, dtype=torch.float32, device=x.device)]
+    for k in range(1, nc):
+        states.append(torch.exp(last[:, k - 1].float())[:, :, None, None]
+                      * states[-1] + S[:, k - 1])
+    Hc = torch.stack(states, 1)                               # (B, nc, H, N, P)
+    # 3. each chunk's output
+    G = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    seg = A[:, :, :, None, :] - A[:, :, None, :, :]           # A_i - A_j
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    seg = seg.masked_fill(~causal[:, :, None], -math.inf)
+    M = G[..., None] * torch.exp(seg.float())                 # (B, nc, i, j, H)
+    y = (torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+         + torch.exp(A.float())[..., None]
+         * torch.einsum("bcin,bchnp->bcihp", cc, Hc))
+    return y.reshape(B, nc * chunk, H, P)[:, :T].to(x.dtype)

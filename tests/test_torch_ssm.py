@@ -192,6 +192,35 @@ def test_plain_mamba2_ssd_matches_the_reference(shape, dtype):
         close_kernel(got, plain, dtype, f"{name} vs ref")
 
 
+#: the chunked mirror's cases (T, chunk, decay): one step, ragged and whole
+#: chunks, and a steep decay (a ≈ −5 a step, where exp(A_i − A_j) for
+#: j > i overflows unless masked before the exp)
+CHUNKED_CASES = [(t, ch, "drawn") for t in (1, 63, 64, 65, 200)
+                 for ch in (16, 64)] + [(200, 64, "steep")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,chunk,decay", CHUNKED_CASES)
+def test_plain_chunked_ssd_matches_the_reference(t, chunk, decay, dtype):
+    """``ref.mamba2_ssd_chunked`` (the K18 kernel's three steps in plain
+    torch) against the port's step-by-step ``ref.mamba2_ssd`` and JAX's
+    Pallas ``ssd`` at the same chunk (interpret mode): finite, float32
+    within 1e-5 normwise, bfloat16 within 2e-2."""
+    shape = (2, t, 3, 16, 32)
+    x, a, b, c = ssd_inputs(shape, getattr(jnp, dtype), seed=3)
+    if decay == "steep":
+        rng = np.random.default_rng(4)
+        a = jnp.asarray(-5.0 + 0.1 * rng.standard_normal(shape[:3]),
+                        jnp.float32)
+    tin = (torch_of(x, dtype), torch_of(a, "float32"), torch_of(b, dtype),
+           torch_of(c, dtype))
+    got = tref.mamba2_ssd_chunked(*tin, chunk=chunk)
+    assert got.dtype == tin[0].dtype and bool(torch.isfinite(got).all())
+    close_kernel(got, tref.mamba2_ssd(*tin), dtype, "chunked vs ref")
+    close_kernel(got, jmamba2.ssd(x, a, b, c, chunk=chunk), dtype,
+                 "chunked vs Pallas")
+
+
 def test_recurrence_wrappers_refuse_what_they_do_not_take():
     r = torch.zeros(2, 8, 16)
     with pytest.raises(TypeError, match="float64"):

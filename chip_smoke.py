@@ -7,16 +7,18 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all started together) and drives the port's paths on the card —
-the population scheduler machine through ``run_many``; the audio, image
+the population scheduler machine through ``run_many`` (one launch of the
+persistent ``hts_run``); the audio, image
 and shared pipelines, whose schedules run the DSP kernels; the paper's
 evaluation (Table II, Figs 7, 8 and 10 through ``sweep``, the nine
 synthetic schedules executed); Qwen2-1.5B at full width through
 ``prefill`` and the continuous-batching ``Server``; rwkv6-3b and zamba2-7b
 at full width through ``forward`` and the ``Server`` — then checks them:
 
-1. device and build: the card's name and power limit, the three kernel
+1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
-   spills of each instance of K13 ``fft_kernel<L>``, K14
+   spills of ``hts_run_kernel`` and of each instance of K13
+   ``fft_kernel<L>``, K14
    ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
    ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>`` and K18's three
    kernels (``ssd_chunk_state``, ``ssd_state_passing``,
@@ -24,21 +26,38 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    K15's SASS: each bf16 instance must have them, each float32 one none;
 2. kernels against plain: for the first 64 trips of the main-path
    population, and 64 trips from the middle of its run, every K1–K4 launch
-   is checked against its plain torch version on a clone of the same carry
-   (``torch.equal`` on every state array: the machine is int32/bool, the
-   tolerance is zero); the run carries on from the kernel's result;
+   of the per-phase loop (``machine.step``) is checked against its plain
+   torch version on a clone of the same carry (``torch.equal`` on every
+   state array: the machine is int32/bool, the tolerance is zero); the run
+   carries on from the kernel's result; K1–K4's launches are counted here
+   (the kernels line's ``check_launches``, apart from the paths' counts:
+   the main path launches them no time);
+2c. persistent against per-phase: on the 1024 main-path lanes, every carry
+   array after ``hts_run`` (``Machine.run_slice``, one launch a slice)
+   equals the per-phase loop's (``machine._loop``, K1–K4 kernels) at
+   budgets 1 and 16 from the start, at mid-run (half the slowest lane's
+   steps) and at completion (from the start and resumed from mid-run); at
+   budgets 1 and 16 also the plain per-phase loop's (``cuda_step.PLAIN``,
+   plain torch); the per-phase loop's K1–K4 launches are counted;
 3. main path: ``run_many`` on 1024 lanes at ``HtsParams()`` defaults,
    ``hts_spec``, ``n_fu=2``, event-skip on, over ``generate_scenario(seed)``
    for seeds 0..1023 (mixed priority / per-tenant frontends with arrivals /
    heterogeneous units / plain, by ``seed % 4``).  Every lane must halt
-   without overflow, each kernel's launch count must equal the host loop's
-   trips, and every 8th lane must match the golden oracle's cycles and
-   schedule;
+   without overflow, ``hts_run`` must launch once and K1–K4 not at all, and
+   every 8th lane must match the golden oracle's cycles and schedule; the
+   wall, scenarios/s, µs a step and, from a traced second run, the
+   device's busy share are printed;
 4. single lane: ``run`` on every paper bench under ``naive`` and
-   ``hts_spec``, each against golden;
-5. kernel times: each step kernel and its plain version timed with CUDA
-   events on a mid-run carry of the main-path population, beside its
-   bound;
+   ``hts_spec`` (one ``hts_run`` launch each), each against golden;
+5. kernel times: each step kernel K1–K4 and its plain version timed with
+   CUDA events on a mid-run carry of the main-path population, beside its
+   bound; ``hts_run`` on a 16-step slice of the same carry (1024 lanes,
+   and the slowest lane alone) against the plain per-phase loop, beside
+   its bound (the arrays it holds in shared memory read and written once,
+   the arguments read once, the trace elements the slice changes written
+   once), with ptxas's registers
+   and spills, its shared bytes and CTAs an SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 6a. DSP kernels against plain: K5 ``real_fir``, K9 ``vector_dot``, K12
    ``correlation`` and K13 ``fft`` at the audio pipeline's shape (65536
    frames of 256 samples, 8 taps, lag 4), K10 ``vector_add``, K11
@@ -52,15 +71,17 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    ``complex_fir`` dispatch entry ``torch.equal`` to zeros;
 6b. audio pipeline: ``audio_compression(8)``, both arms, scheduled on the
    card (equal to golden in cycles and schedule) and executed through
-   ``run_pipeline`` on 65536 × 256 float32 frames; each DSP kernel must
-   launch once per live task of its function, and the output must be
+   ``run_pipeline`` on 65536 × 256 float32 frames; the schedule must take
+   one ``hts_run`` launch, each DSP kernel must launch once per live task
+   of its function, and the output must be
    finite and within 1e-3 of the same tasks run through the plain table;
 7. image and shared pipelines: ``image_compression(40)``, and
    ``audio_straightline(2)`` merged with it (two applications sharing one
    accelerator pool), under ``SHARED_PARAMS``, scheduled on the card
    (equal to golden) and executed through ``run_pipeline`` on 262144 × 64
    float32 tiles (a 4096 × 4096 image in 8 × 8 tiles); ``audio_straightline
-   (2)`` alone is scheduled too, for the sharing gain.  Launches must
+   (2)`` alone is scheduled too, for the sharing gain.  Each schedule
+   must take one ``hts_run`` launch, DSP launches must
    equal live tasks, the output must be finite and within 1e-3 of the
    plain table's; the phase's peak device memory is printed;
 8. the paper's evaluation: (a) Table II — each of the ten dispatch
@@ -68,9 +89,10 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    table, one launch each; (b) Figs 7 and 8 — the synthetic benchmarks
    under all four schedulers through ``sweep`` (Fig 7 at 1, 2 and 4 units
    a class, Fig 8 at 2), every point equal to golden, after the first 16
-   trips of the Fig 7 ``hts_spec`` sweep's K1–K4 launches are held
-   against their plain versions; (c) the nine synthetic schedules
-   scheduled on the card (equal to golden) and executed on 524288 × 40
+   trips of the Fig 7 ``hts_spec`` sweep's per-phase K1–K4 launches are
+   held against their plain versions; (c) the nine synthetic schedules
+   scheduled on the card (equal to golden, one ``hts_run`` launch each)
+   and executed on 524288 × 40
    frames with every task's kernel entry held against its plain entry on
    the same input, launches equal to live tasks, frames/s; (d) Fig 10 —
    ``audio_compression`` at 8, 16 and 32 bands × 1–16 units, ``naive``
@@ -138,13 +160,14 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    all on their own (launches are counted only on the paths that ran).
 
 The last lines are the card (``nvidia-smi``), one JSON object
-``{"kernels": [...]}`` (all eighteen kernels), and ``{"ok": true,
-"device": {...}}``.  Any failed
-phase exits non-zero without the last line; so does a machine without a
-card, or a directory without the rest of the repository.  ``--only
-PREFIX ...`` runs the build and the phases whose names start with a
-prefix (``--only 9 "5b transformer"``: the dense model path; ``--only
-10``: the ssm and hybrid families) and prints no kernels line.
+``{"kernels": [...]}`` (the eighteen kernels and ``hts_run``), and
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
+without the last line; so does a machine without a card, or a directory
+without the rest of the repository.  ``--only PREFIX ...`` runs the
+build, the main path's set-up and the phases whose names start with a
+prefix (``--only 2c``: ``hts_run`` against the per-phase loop; ``--only
+3``: the main path; ``--only 9 "5b transformer"``: the dense model path;
+``--only 10``: the ssm and hybrid families) and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -181,6 +204,12 @@ REPLACES = {
     "traces": "src/repro/core/hts/machine.py:1092",
 }
 SOURCE = "src/repro_torch/csrc/hts_step.cu"
+#: the persistent step loop: K1–K4 (which all reach this pallas_call) and
+#: the phases between them
+RUN_SOURCE = "src/repro_torch/csrc/hts_run.cu"
+RUN_REPLACES = "src/repro/core/hts/pallas_step.py:87"
+#: hts_run's timed slice (phase 5): steps from the mid-run carry
+RUN_SLICE = 16
 
 # the audio pipeline's DSP kernels (csrc/dsp.cu), by launch counter
 DSP_SOURCE = "src/repro_torch/csrc/dsp.cu"
@@ -839,7 +868,7 @@ def ptxas_facts(report: str, pattern: str, label: str) -> dict:
             name = None
             if t:
                 args = ", ".join(MANGLED.get(g, g) for g in t.groups())
-                name = f"{label}<{args}>"
+                name = f"{label}<{args}>" if args else label
             continue
         if name is None:
             continue
@@ -1121,8 +1150,8 @@ def main(argv=None) -> int:
         return 2
     try:
         from repro_torch.core.hts import (HtsParams, api, batch, costs,
-                                          cuda_step, machine, programs,
-                                          workloads)
+                                          cuda_run, cuda_step, machine,
+                                          programs, workloads)
         from repro_torch.examples import dsp_pipeline
         from repro_torch.kernels import common as dsp
         from repro_torch.kernels import (attention, dsp_fir, dsp_spectral,
@@ -1143,7 +1172,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
 
     def phase(name, fn):
-        if only and not name.startswith(("1 ",) + only):
+        if only and not name.startswith(("1 ", "setup") + only):
             return None
         log(f"=== {name}")
         t0 = time.perf_counter()
@@ -1159,7 +1188,7 @@ def main(argv=None) -> int:
 
     # 1. build: one nvcc per source, all started together ----------------
     def build():
-        libs = (cuda_step.LIB, dsp.LIB, dsp.TRANSFORMER_LIB)
+        libs = (cuda_step.LIB, cuda_run.LIB, dsp.LIB, dsp.TRANSFORMER_LIB)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libs)) as pool:
             paths = list(pool.map(lambda lib: lib.build(), libs))
@@ -1177,8 +1206,9 @@ def main(argv=None) -> int:
     if failures:
         return 1
 
-    # the redesigned kernels: ptxas's registers and spills of each instance
-    # of K13, K14, bf16 K15, K16 and K18's three kernels, and the
+    # the redesigned kernels: ptxas's registers and spills of hts_run and
+    # of each instance of K13, K14, bf16 K15, K16 and K18's three kernels,
+    # and the
     # tensor-core instructions (HGMMA) in K15's SASS: the bf16 kernel must
     # have them, the float32 one none
     facts: dict = {}
@@ -1187,6 +1217,8 @@ def main(argv=None) -> int:
         tf = dsp.TRANSFORMER_LIB
         dt = r"(f|13__nv_bfloat16)"
         for name, lib, pattern, label in (
+                ("hts_run", cuda_run.LIB, r"hts_run_kernel",
+                 "hts_run_kernel"),
                 ("fft", dsp.LIB, r"fft_kernelILi(\d+)E", "fft_kernel"),
                 ("dct", dsp.LIB, r"dct_kernelILi(\d+)E", "dct_kernel"),
                 ("flash_attention", tf, r"flash_attention_wgmmaILi(\d+)E",
@@ -1219,7 +1251,7 @@ def main(argv=None) -> int:
         assert len(bf16) == 2 and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
         assert len(fp32) == 4 and not any(fp32.values()), fp32
-    phase("1 ptxas of K13-K16 and K18, SASS of K15", build_facts)
+    phase("1 ptxas of hts_run, K13-K16 and K18, SASS of K15", build_facts)
 
     ctx: dict = {}
 
@@ -1238,8 +1270,13 @@ def main(argv=None) -> int:
         return 1
     pop, spec = ctx.get("pop"), ctx.get("spec")
     checker = CheckedOps(torch, cuda_step)
+    #: the per-phase loop's K1–K4 launches, summed over 2a and 2b
+    step_launches = dict.fromkeys(cuda_step.launches, 0)
+    #: hts_run's launches on each path that schedules, counted from 0
+    run_paths: dict = {}
 
     def checked(carry, trips):
+        cuda_step.reset_launches()
         m = machine.make_machine(spec, pop.max_prog, DEVICE)
         a = machine.norm_args(m, *pop.machine_args())
         st = {k: v.clone() for k, v in carry.items()}
@@ -1247,6 +1284,8 @@ def main(argv=None) -> int:
         for _ in range(trips):
             machine.step(m, st, a, limit, ops=checker)
         torch.cuda.synchronize()
+        for k, v in cuda_step.launches.items():
+            step_launches[k] += v
         return st
 
     # 2a. the first trips, checked (also warms the card up) ----------------
@@ -1257,25 +1296,77 @@ def main(argv=None) -> int:
             "equal to their plain versions")
     phase("2a kernels vs plain, first trips", check_first)
 
+    # 2c. hts_run against the per-phase loop, every carry array -----------
+    def carry_diff(got, want):
+        return [k for k in want if not torch.equal(got[k], want[k])]
+
+    def persistent_vs_per_phase():
+        m = machine.make_machine(spec, pop.max_prog, DEVICE)
+        args = pop.machine_args()
+        a = machine.norm_args(m, *args)
+        c0 = m.init(*args)
+
+        def fresh(c):
+            return {k: v.clone() for k, v in c.items()}
+        cuda_run.reset_launches()
+        cuda_step.reset_launches()
+        full = m.run_slice(c0, *args, budget=machine.BIG)
+        mid = int(full["steps"].max()) // 2
+        for budget in (1, 16, mid):
+            got = m.run_slice(c0, *args, budget=budget)
+            want = machine._loop(m, fresh(c0), a, budget)
+            torch.cuda.synchronize()
+            bad = carry_diff(got, want)
+            assert not bad, (f"budget {budget}: {bad} differ from the "
+                             "per-phase loop")
+            if budget <= 16:
+                plain = machine._loop(m, fresh(c0), a, budget,
+                                      ops=cuda_step.PLAIN)
+                bad = carry_diff(got, plain)
+                assert not bad, (f"budget {budget}: {bad} differ from the "
+                                 "plain per-phase loop")
+            log(f"budget {budget}: every carry array equal to the per-phase "
+                f"loop's{' and the plain loop' if budget <= 16 else ''}")
+        got_mid, want_mid = got, want
+        resumed = m.run_slice(got_mid, *args, budget=machine.BIG)
+        t0 = time.perf_counter()
+        want_full = machine._loop(m, want_mid, a, machine.BIG)
+        torch.cuda.synchronize()
+        t_per = time.perf_counter() - t0
+        for label, got in (("from the start", full),
+                           ("resumed at mid-run", resumed)):
+            bad = carry_diff(got, want_full)
+            assert not bad, f"completion {label}: {bad} differ"
+        ctx["run_err"] = 0
+        ctx["per_phase_launches"] = dict(cuda_step.launches)
+        log(f"completion (slowest lane {int(full['steps'].max())} steps), "
+            "from the start and resumed at mid-run: every carry array equal "
+            f"to the per-phase loop's ({t_per:.1f} s for its second half); "
+            f"{cuda_run.launches['run']} hts_run launches, the per-phase "
+            f"loop's K1-K4 launches {ctx['per_phase_launches']}")
+    phase("2c persistent vs per-phase", persistent_vs_per_phase)
+
     # 3. main path ----------------------------------------------------------
     def main_path():
         cuda_step.reset_launches()
+        cuda_run.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = api.run_many(pop, scheduler="hts_spec", device=DEVICE,
                          check=False)
         wall = time.perf_counter() - t0
-        counts = dict(cuda_step.launches)
-        ctx.update(result=r, counts=counts, wall=wall)
+        runs, steps = cuda_run.launches["run"], dict(cuda_step.launches)
+        ctx.update(result=r, main_step_launches=steps, wall=wall)
+        run_paths["main"] = runs
         overflow = int(r.raw["overflow"].sum())
         log(f"lanes {len(r)}  halted {int(r.halted.sum())}  overflow "
-            f"{overflow}  trips {r.trips}  max steps {int(r.steps.max())}")
-        log(f"launch counts {counts}")
-        log(f"main path wall {wall:.3f} s  {wall / r.trips * 1e3:.3f} ms/trip"
-            f"  {LANES / wall:.1f} scenarios/s  on {card}")
+            f"{overflow}  trips {r.trips} (the slowest lane's steps)")
+        log(f"launches: hts_run {runs}, K1-K4 {steps}")
+        log(f"main path wall {wall:.4f} s  {wall / r.trips * 1e6:.3f} us a "
+            f"step  {LANES / wall:.1f} scenarios/s  on {card}")
         assert r.all_halted and overflow == 0, "a lane did not halt"
-        for k, v in counts.items():
-            assert v == r.trips, f"{k} launched {v} times in {r.trips} trips"
+        assert runs == 1 and not any(steps.values()), \
+            f"main path launched hts_run {runs} times, K1-K4 {steps}"
         bad = []
         for i in range(0, LANES, GOLDEN_EVERY):
             g = api.run(ctx["progs"][i], scheduler="hts_spec", n_fu=2,
@@ -1288,6 +1379,26 @@ def main(argv=None) -> int:
             f"{LANES // GOLDEN_EVERY} sampled lanes equal (cycles and "
             "schedule)")
         assert not bad, f"lanes {bad[:10]} differ from golden"
+
+        def again():
+            api.run_many(pop, scheduler="hts_spec", device=DEVICE,
+                         check=False)
+        try:
+            events, wall_us = trace_window(torch, again, again)
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"busy share not measured (profiler unavailable: {e})")
+            return
+        busy = sum(us for _key, us in events)
+        kern = [us for key, us in events if "hts_run_kernel" in key]
+        if kern:
+            ctx["main_kernel_ms"] = kern[0] / 1e3
+        log(f"traced run_many: wall {wall_us / 1e3:.3f} ms, device busy "
+            f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %), hts_run "
+            f"{sum(kern) / 1e3:.3f} ms on the device "
+            f"({sum(kern) / r.trips:.3f} us a step), {len(events)} device "
+            f"activities  on {card}")
+        for key, us, cnt in costliest(events):
+            log(f"    {us / 1e3:9.3f} ms  x{cnt:<4d} {key}")
     phase("3 main path", main_path)
 
     # 2b. trips from the middle of the run, checked ------------------------
@@ -1302,31 +1413,43 @@ def main(argv=None) -> int:
         ctx["mid_state"] = st
         log(f"trips {mid}..{mid + CHECK_TRIPS - 1}: "
             f"{checker.checks - before} kernel launches equal to their "
-            "plain versions")
+            f"plain versions; K1-K4 launches in 2a and 2b {step_launches}")
     if "result" in ctx:
         phase("2b kernels vs plain, middle trips", check_middle)
 
     # 4. single lane ---------------------------------------------------------
     def single_lane():
-        n = 0
+        n, card_s = 0, 0.0
+        cuda_run.reset_launches()
         for sched in ("naive", "hts_spec"):
             for b in programs.all_benches():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 mine = api.run(b, scheduler=sched, device=DEVICE)
+                card_s += time.perf_counter() - t0
                 g = api.run(b, scheduler=sched, backend="golden")
                 assert mine.cycles == g.cycles and \
                     mine.schedule_tuple() == g.schedule_tuple(), \
                     f"{b.name} under {sched} differs from golden"
                 n += 1
-        log(f"{n} single-lane runs equal to golden")
+        assert cuda_run.launches["run"] == n, cuda_run.launches
+        run_paths["single lane"] = n
+        log(f"{n} single-lane runs equal to golden; {n} hts_run launches, "
+            f"{card_s:.3f} s on the card in all  on {card}")
     phase("4 single lane", single_lane)
 
     # 5. kernel times --------------------------------------------------------
     rows = []
 
     def kernel_times():
-        counts = ctx.get("counts", {})
         for name, (wrapper, plain, _keys) in cuda_step.KERNELS.items():
             saved = checker.saved[name]
+            # the paths that run K1–K4: the main path no more (hts_run
+            # does), the per-phase loop of 2c; the checks of 2a and 2b apart
+            by_path = {
+                "main": ctx.get("main_step_launches", {}).get(name, 0),
+                "per-phase loop (2c)": ctx.get("per_phase_launches",
+                                               {}).get(name, 0)}
             st1, args1 = _copies(torch, saved, 1)[0]
             wrapper(st1, *args1)
             bound, by = bound_of(torch, name, saved[0], saved[1], st1, args1)
@@ -1338,16 +1461,21 @@ def main(argv=None) -> int:
                                                               saved)))
             rows.append(dict(
                 name=name, route="cuda", source=SOURCE,
-                replaces=REPLACES[name], launches=counts.get(name, 0),
+                replaces=REPLACES[name],
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                check_launches=step_launches[name],
                 max_abs_err=checker.max_err[name],
                 ms=k_dev if k_dev is not None else k_call,
                 kernel_ms=k_dev if k_dev is not None else k_call,
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
                 bound_by=by, library_ms=None))
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
+            r = rows[-1]
             log(f"{name:8s} kernel {dev} on the device, {k_call:.4f} ms per "
                 f"call  plain {p_call:.4f} ms per call  bound {bound:.6f} ms "
-                f"({by})  on {card}")
+                f"({by})  launches {by_path}, checks (2a, 2b) "
+                f"{r['check_launches']}  on {card}")
+        run_times()
 
         m = machine.make_machine(spec, pop.max_prog, DEVICE)
         a = machine.norm_args(m, *pop.machine_args())
@@ -1357,12 +1485,81 @@ def main(argv=None) -> int:
         except (RuntimeError, AssertionError, AttributeError) as e:
             log(f"trip profile not measured (profiler unavailable: {e})")
             return
-        log(f"trip profile (mid-run, 32 trips): {wall / 1e3:.3f} ms wall per "
-            f"trip, device busy {busy / 1e3:.3f} ms per trip "
+        log(f"per-phase trip profile (mid-run, 32 trips): {wall / 1e3:.3f} "
+            f"ms wall per trip, device busy {busy / 1e3:.3f} ms per trip "
             f"({100 * busy / wall:.1f} %), {launches:.0f} device activities "
             f"(kernels, copies, sets) per trip  on {card}")
         for key, us, cnt in top:
             log(f"    {us:9.1f} us/trip  x{cnt:<4d} {key}")
+
+    def run_times():
+        """hts_run on a RUN_SLICE-step slice of the mid-run carry, against
+        the plain per-phase loop over the same slice."""
+        m = machine.make_machine(spec, pop.max_prog, DEVICE)
+        args = pop.machine_args()
+        a = machine.norm_args(m, *args)
+        mid = ctx["mid_state"]
+
+        def calls(fn, carry, aa, n, *extra):
+            return [functools.partial(fn, m, {k: v.clone() for k, v in
+                                              carry.items()}, aa, RUN_SLICE,
+                                      *extra) for _ in range(n)]
+        k_call = events_ms(torch, calls(cuda_run.run_slice, mid, a, 23))
+        k_dev = profiled_ms(torch, calls(cuda_run.run_slice, mid, a, 23),
+                            "hts_run_kernel")
+        p_call = events_ms(torch, calls(machine._loop, mid, a, 6,
+                                        cuda_step.PLAIN), warm=1)
+        # the slowest lane alone: one CTA on the card
+        i = int(np.argmax(ctx["result"].steps))
+        one = {k: v[i:i + 1] for k, v in mid.items()}
+        a1 = machine.norm_args(m, *(None if x is None else x[i:i + 1]
+                                    for x in args))
+        k_one = profiled_ms(torch, calls(cuda_run.run_slice, one, a1, 23),
+                            "hts_run_kernel")
+        # the bytes the slice must move: the hot arrays (those the layout
+        # puts in shared memory) read and written once, the arguments read
+        # once, and the trace elements this slice changes written once
+        lay = cuda_run.layout(m, pop.streams.shape[1])[0]
+        after = cuda_run.run_slice(m, {k: v.clone() for k, v in mid.items()},
+                                   a, RUN_SLICE)
+        hot = sum(mid[k].numel() * mid[k].element_size()
+                  for k, (off, _kind, _n) in lay.items() if off >= 0)
+        traced = sum(int((after[k] != mid[k]).sum()) * mid[k].element_size()
+                     for k, (off, _kind, _n) in lay.items() if off < 0)
+        read = sum(v.numel() * v.element_size()
+                   for v in cuda_run._arg_tensors(a).values())
+        bound = (2 * hot + traced + read) / HBM_BYTES_PER_S * 1e3
+        occ = cuda_run.occupancy(m, pop.streams.shape[1])
+        px = next(iter(facts.get("hts_run", {}).get("ptxas", {}).values()),
+                  {})
+        ms = k_dev if k_dev is not None else k_call
+        rows.append(dict(
+            name="hts_run", route="cuda", source=RUN_SOURCE,
+            replaces=RUN_REPLACES, launches=run_paths.get("main", 0),
+            max_abs_err=ctx.get("run_err"), ms=ms, kernel_ms=ms,
+            call_ms=k_call, plain_ms=p_call, bound_ms=bound,
+            bound_by="bytes", bound_bytes=2 * hot + traced + read,
+            library_ms=None, steps=RUN_SLICE,
+            ms_per_step=ms / RUN_SLICE, one_lane_ms=k_one,
+            main_path_ms=ctx.get("main_kernel_ms"),
+            main_path_steps=int(ctx["result"].trips),
+            registers=occ["registers"], local_bytes=occ["local_bytes"],
+            spill_stores=px.get("spill_stores"),
+            spill_loads=px.get("spill_loads"),
+            shared_bytes=occ["shared_bytes"],
+            ctas_per_sm=occ["ctas_per_sm"]))
+        dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
+        one_s = "not measured" if k_one is None else f"{k_one:.4f} ms"
+        log(f"hts_run  {RUN_SLICE} steps of {LANES} lanes: {dev} on the "
+            f"device ({ms / RUN_SLICE * 1e3:.3f} us a step), {k_call:.4f} "
+            f"ms per call; the slowest lane alone {one_s}; plain per-phase "
+            f"loop {p_call:.4f} ms per call; bound {bound:.6f} ms (bytes: "
+            f"hot arrays {hot} B read and written, trace writes {traced} B, "
+            f"arguments {read} B read); "
+            f"{occ['registers']} registers, spills {px or 'not reported'}, "
+            f"{occ['local_bytes']} local bytes a thread, "
+            f"{occ['shared_bytes']} shared bytes and {occ['threads']} "
+            f"threads a CTA, {occ['ctas_per_sm']} CTAs an SM  on {card}")
 
     if "mid_state" in ctx:
         phase("5 kernel times", kernel_times)
@@ -1465,12 +1662,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dsp.reset_launches()
+        cuda_run.reset_launches()
         t0 = time.perf_counter()
         r, executed, out = dsp_pipeline.run_pipeline(bench, x, params=params,
                                                      device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(dsp.launches)
+        runs = cuda_run.launches["run"]
+        assert runs == 1, f"{bench.name}: scheduled in {runs} hts_run launches"
+        run_paths[bench.name] = run_paths.get(bench.name, 0) + runs
         peak = torch.cuda.max_memory_allocated()
         assert r.cycles == g.cycles and \
             r.schedule_tuple() == g.schedule_tuple(), \
@@ -1496,7 +1697,8 @@ def main(argv=None) -> int:
         assert torch.equal(again, out), "the kernels are not repeatable"
         B = x.shape[0]
         log(f"{bench.name}: {r.cycles} cycles = golden, "
-            f"{len(executed)} tasks executed, launches {counts}, "
+            f"{len(executed)} tasks executed, launches {counts} (and one "
+            f"hts_run to schedule), "
             f"max abs err vs plain {err:.3g} (tolerance {PIPELINE_TOL})")
         log(f"{bench.name}: run_pipeline {wall:.3f} s (schedule + "
             f"execute); executed schedule, median of {EXEC_REPS}: "
@@ -1533,8 +1735,12 @@ def main(argv=None) -> int:
         shared = programs.merge_benches([audio, image])
         ga = api.run(audio, scheduler="hts_spec", n_fu=2, params=params,
                      backend="golden")
+        cuda_run.reset_launches()
         ra = api.run(audio, scheduler="hts_spec", n_fu=2, params=params,
                      device=DEVICE)
+        runs = cuda_run.launches["run"]
+        assert runs == 1, f"{audio.name}: {runs} hts_run launches"
+        run_paths[audio.name] = run_paths.get(audio.name, 0) + runs
         assert ra.cycles == ga.cycles == CYCLES["audio"] and \
             ra.schedule_tuple() == ga.schedule_tuple(), \
             f"{audio.name}: the card's schedule differs from golden"
@@ -1625,12 +1831,16 @@ def main(argv=None) -> int:
         for label, benches, points in (("Fig 7", fig7, FIG7_FU),
                                        ("Fig 8", fig8, FIG8_FU)):
             cuda_step.reset_launches()
+            cuda_run.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sw = api.sweep(benches, n_fu=points,
                            schedulers=costs.ALL_SCHEDULERS, device=DEVICE)
             wall = time.perf_counter() - t0
-            trips = dict(cuda_step.launches)
+            runs, trips = cuda_run.launches["run"], dict(cuda_step.launches)
+            assert runs == len(sw.schedulers) and not any(trips.values()), \
+                f"{label}: hts_run {runs} launches, K1-K4 {trips}"
+            run_paths[label] = runs
             bad = []
             for sched in sw.schedulers:
                 for si, b in enumerate(benches):
@@ -1640,8 +1850,9 @@ def main(argv=None) -> int:
                         if g.cycles != int(sw.cycles[sched][si, i]):
                             bad.append((b.name, sched, k))
             log(f"{label}: {len(benches)} programs x {len(points)} points x "
-                f"{len(sw.schedulers)} schedulers, one sweep: {wall:.3f} s "
-                f"on the card (K1-K4 launches {trips})")
+                f"{len(sw.schedulers)} schedulers, one sweep: {wall:.4f} s "
+                f"on the card ({runs} hts_run launches, one a scheduler)  "
+                f"on {card}")
             for si, b in enumerate(benches):
                 for i, k in enumerate(points):
                     cells = "  ".join(
@@ -1665,6 +1876,7 @@ def main(argv=None) -> int:
             checks: list = []
             torch.cuda.synchronize()
             dsp.reset_launches()
+            cuda_run.reset_launches()
             t0 = time.perf_counter()
             with Fp32Matmul(torch):
                 r, executed, out = dsp_pipeline.run_pipeline(
@@ -1672,6 +1884,9 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = dict(dsp.launches)
+            runs = cuda_run.launches["run"]
+            assert runs == 1, f"{name}: scheduled in {runs} hts_run launches"
+            run_paths[f"synthetic/{name}"] = runs
             path_launches[f"synthetic/{name}"] = counts
             assert r.cycles == g.cycles == SYNTH_CYCLES[name] and \
                 r.schedule_tuple() == g.schedule_tuple(), \
@@ -1723,13 +1938,17 @@ def main(argv=None) -> int:
                            tracker_entries=256, rs_entries=64)
         benches = [programs.audio_compression(b, False) for b in FIG10_BANDS]
         cuda_step.reset_launches()
+        cuda_run.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sw = api.sweep(benches, n_fu=FIG10_FU, schedulers=("naive",
                                                            "hts_spec"),
                        params=params, max_prog=64, device=DEVICE)
         wall = time.perf_counter() - t0
-        trips = dict(cuda_step.launches)
+        runs, trips = cuda_run.launches["run"], dict(cuda_step.launches)
+        assert runs == 2 and not any(trips.values()), \
+            f"Fig 10: hts_run {runs} launches, K1-K4 {trips}"
+        run_paths["Fig 10"] = runs
         sp = sw.speedup("hts_spec", "naive")
         for si, bands in enumerate(FIG10_BANDS):
             row = "  ".join(f"fu{k} {int(sw.cycles['hts_spec'][si, i])}/"
@@ -1745,9 +1964,9 @@ def main(argv=None) -> int:
                 if g.cycles != int(sw.cycles[sched][0, i]):
                     bad.append((sched, k))
         assert not bad, f"Fig 10 bands-8 points differ from golden: {bad}"
-        log(f"Fig 10: sweep {wall:.3f} s on the card (wall per scheduler "
-            f"{ {k: round(v / 1e6, 3) for k, v in sw.wall_us.items()} } s, "
-            f"K1-K4 launches {trips}); bands-8 points equal to golden; "
+        log(f"Fig 10: sweep {wall:.4f} s on the card (wall per scheduler "
+            f"{ {k: round(v / 1e3, 3) for k, v in sw.wall_us.items()} } ms, "
+            f"{runs} hts_run launches); bands-8 points equal to golden; "
             f"largest speedup of hts_spec over naive "
             f"{float(sp.max()):.3f}x (paper abstract: up to 12x); phase "
             f"wall {time.perf_counter() - t_phase:.1f} s  on {card}")
@@ -2568,7 +2787,8 @@ def main(argv=None) -> int:
     if tf_launches or only:
         phase("5b transformer kernel times", tf_times)
 
-    n_kernels = len(cuda_step.KERNELS) + len(dsp.launches) + len(tlib.launches)
+    n_kernels = (len(cuda_step.KERNELS) + len(cuda_run.launches)
+                 + len(dsp.launches) + len(tlib.launches))
     if only:
         log(f"--only {' '.join(only)}: failed phases {failures}; no kernels "
             "line")
@@ -2576,6 +2796,11 @@ def main(argv=None) -> int:
     if failures or len(rows) != n_kernels:
         log(f"FAILED phases: {failures or ['kernel times (not run)']}")
         return 1
+    for row in rows:
+        if row["name"] == "hts_run":
+            row.update(launches=sum(run_paths.values()),
+                       launches_by_path=dict(run_paths))
+    log(f"hts_run launches by path {run_paths}")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

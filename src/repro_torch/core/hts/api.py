@@ -377,7 +377,9 @@ class PopulationResult:
     _results: Optional[tuple] = dataclasses.field(repr=False, default=None)
     #: per-scenario frontend stream sets (None entries = merged frontend)
     stream_sets: tuple = ()
-    #: trips of the host loop (every lane steps on each); None on golden
+    #: the largest number of steps any lane advanced (the slowest lane's
+    #: steps; the per-phase loop once rounded this up to a multiple of
+    #: ``machine.CHECK_EVERY``); None on golden
     trips: Optional[int] = None
 
     def __len__(self) -> int:

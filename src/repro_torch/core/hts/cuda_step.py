@@ -27,6 +27,8 @@ nothing is compiled at import.
 """
 from __future__ import annotations
 
+import types
+
 import torch
 
 from ... import _build
@@ -392,6 +394,11 @@ def traces_ref(st: dict, rs_uid_k, rs_kill, fu_uid_k, fu_kill, uid, acc,
                  ("tr_dep", dep), ("tr_pid", pid)):
         _scatter_drop(st[k], uid, v, dispatch)
 
+
+#: the plain K1–K4 as ``machine.step``'s ``ops``: the whole step in plain
+#: torch, on whichever device holds the state
+PLAIN = types.SimpleNamespace(enqueue=enqueue_ref, grant=grant_ref,
+                              issue=issue_ref, traces=traces_ref)
 
 #: every kernel phase by counter name: (wrapper, plain version, keys it writes)
 KERNELS = {

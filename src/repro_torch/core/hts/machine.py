@@ -2,9 +2,9 @@
 
 Same semantics as :mod:`golden` (see its docstring for the within-cycle
 phase order): fixed-capacity state tensors, one state row per *lane*, and a
-host loop that steps every lane at once.  A lane is one scenario; a single
-run is a population of one.  Everything is int32 or bool, so the machine
-is bit-identical to the JAX reference machine on every output array.
+loop that steps every lane.  A lane is one scenario; a single run is a
+population of one.  Everything is int32 or bool, so the machine is
+bit-identical to the JAX reference machine on every output array.
 
 The step is a sequence of phase functions, module-level over a
 :class:`Machine` (the frozen spec plus its device constants), in the
@@ -15,10 +15,20 @@ phase order of the reference's ``"pallas"`` population step:
     which also writes the branch squash's ``tr_aborted`` traces — the
     reference's ``abort_traces``) → step_bottom (with next_dt)
 
-K1–K4 go through :mod:`cuda_step`: hand-written CUDA kernels for a state
-on the card, their plain torch versions for a state on the CPU.  The other
-phases are plain torch on whichever device holds the state; they never
-synchronise with the host.  The host loop checks "any lane alive" only
+:meth:`Machine.run` and :meth:`Machine.run_slice` advance a carry by a
+route that follows the carry's device (:func:`_advance`):
+
+* on the card, one launch of the persistent kernel ``hts_run``
+  (:func:`cuda_run.run_slice`, ``csrc/hts_run.cu``): a CTA per lane runs
+  all of the step's phases in a loop until its lane halts, overflows,
+  reaches ``max_cycles`` or its step limit;
+* on the CPU, its plain version, the per-phase host loop :func:`_loop`:
+  :func:`step` over every lane at once, K1–K4 through :mod:`cuda_step`'s
+  plain torch versions and the other phases in plain torch.
+
+The per-phase loop also runs on the card (:func:`step`, :func:`_loop`),
+with :mod:`cuda_step`'s four CUDA kernels, as the yardstick ``hts_run`` is
+held against; no entry point takes it.  It checks "any lane alive" only
 every :data:`CHECK_EVERY` trips, which is exact: a halted lane, and a lane
 at its step limit, is a fixed point of the step.
 
@@ -39,7 +49,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import cuda_step, isa
+from ... import _build
+from . import cuda_run, cuda_step, isa
 from .costs import FUNC_CYCLES, NUM_FUNCS, SchedulerCosts, norm_fu_cost
 from .golden import HtsParams
 from .policy import AGE_SPAN, NUM_PIDS, PRIO_CAP, SchedPolicy
@@ -48,8 +59,9 @@ I32 = torch.int32
 BOOL = torch.bool
 NEG = -1
 BIG = 2**30
-#: the host loop reads "any lane alive" back from the device once per this
-#: many trips (extra trips are exact: dead and paused lanes are fixed points)
+#: the per-phase loop (:func:`_loop`) reads "any lane alive" back from the
+#: device once per this many trips (extra trips are exact: dead and paused
+#: lanes are fixed points); ``hts_run`` checks each lane every step
 CHECK_EVERY = 16
 
 
@@ -88,7 +100,8 @@ class Machine:
     carry to the output dict, and ``run(*args)`` runs to completion.
     ``args`` are the 11 population arrays of
     ``batch.PackedPopulation.machine_args()`` (numpy or tensors).
-    ``stats["trips"]`` counts the host loop's trips.
+    ``stats["trips"]`` adds up, over the calls, the largest number of steps
+    any lane advanced in each.
     """
     spec: MachineSpec
     max_prog: int
@@ -146,10 +159,10 @@ class Machine:
         limits are ``steps + budget`` at entry, so each lane pauses exactly
         at its ceiling and the returned carry feeds straight back in.  The
         kernels update state in place, so the carry is copied first: the
-        argument is left as it was."""
+        argument is left as it was.  One ``hts_run`` launch on the card."""
         a = norm_args(self, *args)
         st = {k: v.clone() for k, v in carry.items()}
-        return _loop(self, st, a, budget)
+        return _advance(self, st, a, budget)
 
     def collect(self, carry: dict) -> dict[str, torch.Tensor]:
         return collect(carry)
@@ -157,7 +170,14 @@ class Machine:
     def run(self, *args) -> dict[str, torch.Tensor]:
         a = norm_args(self, *args)
         st = init_state(self, a.mem_init, a.streams)
-        return collect(_loop(self, st, a, BIG))
+        return collect(_advance(self, st, a, BIG))
+
+    def carry_spec(self, NS: int) -> dict:
+        """Each carry key's (dtype, shape a lane) with ``NS`` frontend
+        streams: what :func:`init_state` builds (one lane, on the CPU)."""
+        st = init_state(self, torch.zeros((1, self.M), dtype=I32),
+                        torch.zeros((1, NS, 4), dtype=I32))
+        return {k: (v.dtype, tuple(v.shape[1:])) for k, v in st.items()}
 
 
 def make_machine(spec: MachineSpec, max_prog: int = 256,
@@ -241,9 +261,10 @@ def norm_args(m: Machine, ftab, p_len, n_fu, mem_init, effects, prio=None,
 
 def init_state(m: Machine, mem_init: torch.Tensor,
                streams: torch.Tensor) -> dict[str, torch.Tensor]:
-    """A fresh carry: the reference's ``init_state`` with a lane axis.
-    Only ``pc`` and ``mem`` depend on the arguments."""
-    p, dev = m.p, m.device
+    """A fresh carry on ``mem_init``'s device: the reference's
+    ``init_state`` with a lane axis.  Only ``pc`` and ``mem`` depend on the
+    arguments."""
+    p, dev = m.p, mem_init.device
     n, NS = streams.shape[0], streams.shape[1]
     S, T, L, C, U, NFU = (p.rs_entries, p.tracker_entries, p.tlb_entries,
                           m.C, m.U, m.NFU)
@@ -805,21 +826,34 @@ def step(m: Machine, st: dict, a: Args, limit, ops=cuda_step) -> None:
     step_bottom(m, st, a.exists, a.F, a.rs_cap, a.streams, alive)
 
 
-def _loop(m: Machine, st: dict, a: Args, budget: int) -> dict:
-    """The host loop: trips in chunks of :data:`CHECK_EVERY` (never more
-    than ``budget``, since no lane can advance further), one device read
-    of "any lane alive and under its limit" per chunk."""
+def _advance(m: Machine, st: dict, a: Args, budget: int) -> dict:
+    """Advance carry ``st`` in place by at most ``budget`` steps a lane:
+    one ``hts_run`` launch for a carry on the card, the per-phase loop with
+    the plain K1–K4 for one on the CPU."""
+    if _build.on_card(st["cycle"].device):
+        return cuda_run.run_slice(m, st, a, budget)
+    return _loop(m, st, a, budget)
+
+
+def _loop(m: Machine, st: dict, a: Args, budget: int, ops=cuda_step) -> dict:
+    """The per-phase host loop, in place on ``st``: trips in chunks of
+    :data:`CHECK_EVERY` (never more than ``budget``, since no lane can
+    advance further), one device read of "any lane alive and under its
+    limit" per chunk.  Adds the largest number of steps any lane advanced
+    to ``stats["trips"]``, as ``hts_run`` does."""
     budget = int(min(budget, BIG))
-    limit = st["steps"] + budget
+    steps0 = st["steps"].clone()
+    limit = steps0 + budget
     trips = 0
     while trips < budget:
         chunk = min(CHECK_EVERY, budget - trips)
         for _ in range(chunk):
-            step(m, st, a, limit)
+            step(m, st, a, limit, ops)
         trips += chunk
         if not bool((alive_of(m, st) & (st["steps"] < limit)).any()):
             break
-    m.stats["trips"] += trips
+    if steps0.numel():
+        m.stats["trips"] += int((st["steps"] - steps0).max())
     return st
 
 

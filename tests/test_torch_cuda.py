@@ -23,14 +23,15 @@ version's), in bfloat16 at rtol = atol = 2e-2 (about one output ulp), at
 ragged T.  Each smoke model's kernel path (Qwen2, rwkv6, zamba2) within
 1e-1 normwise of its plain path.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.core.hts import (batch, costs, cuda_step, machine, programs,
-                                  workloads)
+from repro_torch.core.hts import (HtsParams, api, batch, costs, cuda_run,
+                                  cuda_step, machine, programs, workloads)
 from repro_torch.examples import dsp_pipeline
 from repro_torch.kernels import common as dsp
 from repro_torch.kernels import dsp_fir, dsp_spectral, dsp_vector, ops, ref
@@ -67,17 +68,20 @@ def _population():
 
 
 def test_cuda_machine_matches_cpu_machine(card):
-    """The whole population on the card (kernels) equals it on the CPU
-    (plain versions), and every kernel launched once per trip."""
+    """The whole population on the card (one ``hts_run`` launch, no K1–K4
+    launch) equals it on the CPU (the plain per-phase loop)."""
     pop, spec = _population()
     args = pop.machine_args()
     cpu = machine.make_machine(spec, pop.max_prog, "cpu")
     ref = cpu.run(*args)
     m = machine.make_machine(spec, pop.max_prog, card)
     cuda_step.reset_launches()
+    cuda_run.reset_launches()
     out = m.run(*args)
     torch.cuda.synchronize()
-    assert all(v == m.stats["trips"] for v in cuda_step.launches.values())
+    assert cuda_run.launches == {"run": 1}
+    assert not any(cuda_step.launches.values()), cuda_step.launches
+    assert m.stats["trips"] == int(out["steps"].max())
     for k in ref:
         assert torch.equal(ref[k], out[k].cpu()), k
 
@@ -124,6 +128,130 @@ def test_each_kernel_matches_plain_on_a_carry(card, trips):
         for x, y in zip(a1, a2):
             if torch.is_tensor(x):
                 assert torch.equal(x, y), name
+
+
+# ---------------------------------------------------------------------------
+# hts_run, the persistent step loop, against the per-phase loop on the card
+# ---------------------------------------------------------------------------
+def _persistent_vs_per_phase(m, args, carry, budget):
+    """One ``Machine.run_slice`` (a single ``hts_run`` launch, no K1–K4
+    launch) against ``machine._loop`` (the per-phase loop, K1–K4 kernels)
+    from the same carry: every carry array equal.  Returns hts_run's."""
+    a = machine.norm_args(m, *args)
+    cuda_run.reset_launches()
+    cuda_step.reset_launches()
+    got = m.run_slice(carry, *args, budget=budget)
+    torch.cuda.synchronize()
+    assert cuda_run.launches == {"run": 1}
+    assert not any(cuda_step.launches.values()), cuda_step.launches
+    want = machine._loop(m, {k: v.clone() for k, v in carry.items()}, a,
+                         budget)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), (budget, k)
+    return got
+
+
+def _main_mix(monkeypatch, lanes, params=HtsParams()):
+    """The first ``lanes`` scenarios of chip_smoke's main-path population
+    (every kind: mixed priority, frontends with arrivals, heterogeneous
+    units, plain), on a machine of ``params``."""
+    monkeypatch.setattr(chip_smoke, "LANES", lanes)
+    _pop, progs, fu_cost = chip_smoke.main_population(workloads, batch)
+    pop = batch.pack_population(progs, n_fu=2, fu_cost=fu_cost,
+                                params=params)
+    spec = machine.MachineSpec(params=pop.params,
+                               costs=costs.costs_by_name("hts_spec"),
+                               max_fu_per_class=4)
+    return pop, spec
+
+
+@pytest.mark.parametrize("budget", [1, 2, 16, 1000, machine.BIG])
+def test_persistent_matches_per_phase_on_the_main_mix(card, monkeypatch,
+                                                      budget):
+    pop, spec = _main_mix(monkeypatch, 64)
+    m = machine.make_machine(spec, pop.max_prog, card)
+    args = pop.machine_args()
+    got = _persistent_vs_per_phase(m, args, m.init(*args), budget)
+    if budget == machine.BIG:
+        assert bool(got["halted"].all())
+
+
+@pytest.mark.parametrize("event_skip", [True, False], ids=["skip", "noskip"])
+@pytest.mark.parametrize("scheduler", costs.ALL_SCHEDULERS + ("narrow",))
+def test_persistent_matches_per_phase_on_benches(card, scheduler,
+                                                 event_skip):
+    """Every paper bench, as one population, to completion (event-skip
+    off: to a cycle ceiling, one step a cycle).  ``narrow``: four units a
+    class, hts_spec issuing one entry a cycle and granting two broadcasts,
+    so that the issue-width cap and K2's second grant bind."""
+    wide = scheduler == "narrow"
+    pop = batch.pack_population(programs.all_benches(),
+                                n_fu=4 if wide else 1)
+    cost = (dataclasses.replace(costs.costs_by_name("hts_spec"),
+                                issue_width=1, cdb_width=2) if wide
+            else costs.costs_by_name(scheduler))
+    spec = machine.MachineSpec(
+        params=pop.params, costs=cost,
+        max_fu_per_class=4, event_skip=event_skip,
+        max_cycles=5_000_000 if event_skip else 1500)
+    m = machine.make_machine(spec, pop.max_prog, card)
+    args = pop.machine_args()
+    _persistent_vs_per_phase(m, args, m.init(*args), machine.BIG)
+
+
+@pytest.mark.parametrize("scheduler", ["naive", "hts_spec"])
+def test_persistent_matches_per_phase_on_fig10_pool(card, scheduler):
+    """Fig 10's pool: 16 units a class (160 units), n_fu 1..16, 64 RS
+    entries (two a lane of the arbiter's warp)."""
+    params = HtsParams(max_tasks=256, mem_words=2048, tracker_entries=256,
+                       rs_entries=64)
+    pop = batch.pack_population([programs.audio_compression(8, False)],
+                                params=params, max_prog=64)
+    lanes = api._cross_points(pop, [batch.norm_n_fu(k)
+                                    for k in range(1, 17)])
+    spec = machine.MachineSpec(params=params,
+                               costs=costs.costs_by_name(scheduler),
+                               max_fu_per_class=16)
+    m = machine.make_machine(spec, lanes.max_prog, card)
+    args = lanes.machine_args()
+    _persistent_vs_per_phase(m, args, m.init(*args), machine.BIG)
+
+
+def test_persistent_matches_per_phase_when_lanes_overflow(card,
+                                                          monkeypatch):
+    """A one-slot CDB: lanes overflow, and the flags (and every other
+    array) are the per-phase loop's."""
+    pop, spec = _main_mix(monkeypatch, 64, HtsParams(cdb_entries=1))
+    m = machine.make_machine(spec, pop.max_prog, card)
+    args = pop.machine_args()
+    got = _persistent_vs_per_phase(m, args, m.init(*args), machine.BIG)
+    assert 0 < int(got["overflow"].sum()) < 64
+
+
+def test_persistent_resumes_a_carry_taken_mid_run(card, monkeypatch):
+    """A carry the per-phase loop left mid-run, finished by hts_run."""
+    pop, spec = _main_mix(monkeypatch, 64)
+    m = machine.make_machine(spec, pop.max_prog, card)
+    args = pop.machine_args()
+    carry = machine._loop(m, m.init(*args), machine.norm_args(m, *args), 50)
+    got = _persistent_vs_per_phase(m, args, carry, machine.BIG)
+    assert bool(got["halted"].all())
+
+
+def test_persistent_refuses_a_spec_past_shared_memory(card):
+    """60000 words of memory do not fit in a CTA's 227 KB: ValueError
+    before any launch."""
+    p = HtsParams(mem_words=60_000)
+    pop = batch.pack_population(programs.all_benches()[:2], params=p)
+    spec = machine.MachineSpec(params=p, costs=costs.costs_by_name("naive"),
+                               max_fu_per_class=4)
+    m = machine.make_machine(spec, pop.max_prog, card)
+    args = pop.machine_args()
+    cuda_run.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        m.run(*args)
+    assert cuda_run.launches == {"run": 0}
 
 
 def _frames(card, seed, *shape):

@@ -154,10 +154,17 @@ def test_slices_compose_with_run_to_completion(budget):
     first = m.run_slice(carry, *args, budget=budget)
     # the argument carry is left as it was (the kernels write in place)
     assert_outputs_equal(fresh, tmachine.carry_to_numpy(carry), "argument")
+    # trips: the largest number of steps any lane advanced, slice by slice
+    assert m.stats["trips"] == int(full["steps"].max()) + int(
+        first["steps"].max())
     carry = first
     while bool((~carry["halted"] & ~carry["overflow"]).any()):
         assert int(carry["steps"].max()) <= int(full["steps"].max())
-        carry = m.run_slice(carry, *args, budget=budget)
+        trips = m.stats["trips"]
+        nxt = m.run_slice(carry, *args, budget=budget)
+        advanced = int((nxt["steps"] - carry["steps"]).max())
+        assert m.stats["trips"] - trips == advanced <= budget
+        carry = nxt
     assert_outputs_equal(full, tmachine.carry_to_numpy(m.collect(carry)),
                          f"budget {budget}")
 

@@ -17,11 +17,12 @@ at full width through ``forward`` and the ``Server`` — then checks them:
 
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
-   spills of ``hts_run_kernel`` and of each instance of K13
-   ``fft_kernel<L>``, K14
+   spills of ``hts_run_kernel`` and of each instance of K5
+   ``real_fir_packed<KT>``, K13 ``fft_kernel<L>``, K14
    ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
-   ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>`` and K18's three
-   kernels (``ssd_chunk_state``, ``ssd_state_passing``,
+   ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>``, K17's three kernels
+   (``wkv6_chunk_state``, ``wkv6_state_passing``, ``wkv6_chunk_scan``)
+   and K18's (``ssd_chunk_state``, ``ssd_state_passing``,
    ``ssd_chunk_scan``), and the ``HGMMA`` (tensor-core) instructions in
    K15's SASS: each bf16 instance must have them, each float32 one none;
 2. kernels against plain: for the first 64 trips of the main-path
@@ -49,6 +50,12 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    device's busy share are printed;
 4. single lane: ``run`` on every paper bench under ``naive`` and
    ``hts_spec`` (one ``hts_run`` launch each), each against golden;
+4b. specs past ``hts_run``'s limits (``rs_entries=128``; ``mem_words=
+   60000``, a lane state past 227 KB of shared memory): ``run`` on the
+   first three paper benches at each, equal to golden, through the
+   per-phase loop on the card (``machine._advance`` chooses it by
+   ``cuda_run.fits`` before any launch): ``hts_run`` must launch no time
+   and each of K1–K4 at least once;
 5. kernel times: each step kernel K1–K4 and its plain version timed with
    CUDA events on a mid-run carry of the main-path population, beside its
    bound; ``hts_run`` on a 16-step slice of the same carry (1024 lanes,
@@ -58,7 +65,9 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    once), with ptxas's registers
    and spills, its shared bytes and CTAs an SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
-6a. DSP kernels against plain: K5 ``real_fir``, K9 ``vector_dot``, K12
+6a. DSP kernels against plain: K5 ``real_fir`` (also at Table II's
+   524288 frames of 40, rows of 2056 and 42 samples, 12 taps, and rows 4
+   bytes off alignment), K9 ``vector_dot``, K12
    ``correlation`` and K13 ``fft`` at the audio pipeline's shape (65536
    frames of 256 samples, 8 taps, lag 4), K10 ``vector_add``, K11
    ``vector_max`` and K14 ``dct`` at the image pipeline's (262144 tiles of
@@ -131,12 +140,15 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    heads of 64, attention head dim 112) with random weights from a seed,
    one model on the card at a time: (a) K17 ``wkv6`` and K18 ``ssd``
    against their plain versions at both models' forward shapes, the JAX
-   tests' shapes and a ragged T of 1000, in bfloat16 (rtol = atol = 2e-2)
+   tests' shapes and a ragged T of 1000 (K17 also at one step and at two
+   chunks and one step, each with w as the JAX tests draw it and as the
+   model makes it, exact 0 and 1 among them), in bfloat16 (rtol = atol = 2e-2)
    and float32 (1e-5 normwise), K15 at zamba2's head dim 112, and K16 at
    both forwards' and Servers' rows of 2560 and 3584 (2e-2, 1e-5), with
    the phase's peak device memory and K18's scratch at zamba2's shape; (b)
    ``forward`` on 2 × 1024 tokens: in bfloat16 on the kernels (32 K17 and
-   65 K16 launches; 81 K18, 13 K15 and 108 K16), on the plain ops, and on
+   65 K16 launches; 81 K18, 13 K15 and 108 K16; then timed five times
+   more, the median printed), on the plain ops, and on
    the kernels but K16 (the bf16 floor: one exact op swapped), the
    divergences printed; then in float32, kernels against plain within
    the model's ``FP32_LOGIT_TOL`` normwise, the gate (the bf16 floor of
@@ -155,8 +167,9 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
    ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
    at rwkv6's and zamba2's forward rows) and of K17 and K18 at the models'
-   forward shapes (K18's device time the sum of its three kernels, split),
-   beside the bound.  ``--only 5b`` times them
+   forward shapes (each one's device time the sum of its three kernels,
+   split; their scratch bytes), K5 and ``conv1d`` also at Table II's 524288
+   x 40, beside the bound.  ``--only 5b`` times them
    all on their own (launches are counted only on the paths that ran).
 
 The last lines are the card (``nvidia-smi``), one JSON object
@@ -210,6 +223,11 @@ RUN_SOURCE = "src/repro_torch/csrc/hts_run.cu"
 RUN_REPLACES = "src/repro/core/hts/pallas_step.py:87"
 #: hts_run's timed slice (phase 5): steps from the mid-run carry
 RUN_SLICE = 16
+#: specs past hts_run's limits (phase 4b): an RS of 128 entries, and a
+#: lane state past 227 KB of shared memory; the paper benches run at each
+UNFIT_SPECS = {"rs_entries=128": dict(rs_entries=128),
+               "mem_words=60000": dict(mem_words=60_000)}
+UNFIT_BENCHES = 3
 
 # the audio pipeline's DSP kernels (csrc/dsp.cu), by launch counter
 DSP_SOURCE = "src/repro_torch/csrc/dsp.cu"
@@ -266,8 +284,9 @@ PIPELINE_TOL = 1e-3
 EXEC_REPS = 5          # timed executions of each schedule (median kept)
 #: (B, N, taps or lag) per kernel: the pipeline's shape, then ragged edges
 DSP_CASES = {
-    "real_fir": [(FRAMES, SAMPLES, TAPS), (1, 40, 8), (300, 40, 5),
-                 (300, 256, 8)],
+    "real_fir": [(FRAMES, SAMPLES, TAPS), (TABLE_FRAMES, TABLE_SAMPLES, 8),
+                 (1, 40, 8), (300, 40, 5), (300, 256, 8), (7, 2056, 8),
+                 (300, 42, 8), (33, 40, 12)],
     "complex_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
                     (64, 40, 8), (1, 96, 12), (64, 96, 12), (300, 40, 8)],
     "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
@@ -294,6 +313,12 @@ DSP_SHAPE = {"vector_add": (TILES, PIXELS), "vector_max": (TILES, PIXELS),
              "complex_fir": (TABLE_FRAMES, TABLE_SAMPLES),
              "adaptive_fir": (TABLE_FRAMES, TABLE_SAMPLES),
              "iir": (TABLE_FRAMES, TABLE_SAMPLES)}
+#: K5 is also timed at Table II's shape (phase 5b), with its library call
+FIR_TABLE_SHAPE = (TABLE_FRAMES, TABLE_SAMPLES)
+#: the kernel a DSP wrapper launches, as the profiler names it (a
+#: substring), where it is not ``<name>_kernel``: K5's packed and flat
+#: kernels (one of them a call)
+DSP_KERNEL = {"real_fir": "real_fir_"}
 #: taps, lag or (b, a) per kernel in phase 5b
 DSP_PARAM = {"real_fir": TAPS, "complex_fir": 8, "adaptive_fir": 8,
              "iir": ENTRY_IIR, "correlation": MAX_LAG}
@@ -317,10 +342,13 @@ TF_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
 #: the kernel a transformer wrapper launches in bfloat16 (the dtype 5b
 #: times), as the profiler names it (a substring), where it is not
 #: ``<name>_kernel``: bf16 K15 and K16's register path at the models'
-#: widths; K18 launches three, each once a call, whose times 5b sums
+#: widths; K17 and K18 launch three each (``SPLIT_KERNELS``)
 TF_KERNEL = {"flash_attention": "flash_attention_wgmma",
              "rmsnorm": "rmsnorm_vec"}
-SSD_KERNELS = ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan")
+#: the kernels K17 and K18 each launch once a call, whose times 5b sums
+SPLIT_KERNELS = {
+    "wkv6": ("wkv6_chunk_state", "wkv6_state_passing", "wkv6_chunk_scan"),
+    "ssd": ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan")}
 BF16_TENSOR_OPS_PER_S = 989e12   # bf16 tensor cores, dense (on-chip guide)
 ARCH = "qwen2-1.5b"
 MODEL_SEED = 2024
@@ -358,11 +386,18 @@ SSM_TRACE_STEPS = 4
 #: decode over T = 100 (past a multiple of the kernels' 32-step staging
 #: and of the reference's 64-step chunk) at rtol = atol = 1e-3
 SSM_LOGIC_T, SSM_LOGIC_TOL = 100, 1e-3
+#: synchronised bf16 forwards on the kernels timed after the first (10b),
+#: the median kept: one forward's wall varies by a fifth from run to run
+SSM_FORWARD_REPS = 5
 #: K17 cases (B, T, H, K, V): rwkv6-3b's forward, the JAX tests', a ragged
-#: T; K18 cases (B, T, H, P, N): zamba2-7b's forward, the JAX tests', a
-#: ragged T; K15 at zamba2-7b's head dim 112, its forward's shape
+#: T, one step, one past two chunks; each with w drawn as the JAX tests
+#: draw it and as the model makes it (``WKV_DECAYS``); K18 cases (B, T, H,
+#: P, N): zamba2-7b's forward, the JAX tests', a ragged T; K15 at
+#: zamba2-7b's head dim 112, its forward's shape
 WKV_CASES = [(2, 1024, 40, 64, 64), (1, 64, 2, 32, 32), (2, 128, 4, 64, 64),
-             (1, 96, 1, 64, 128), (2, 1000, 40, 64, 64)]
+             (1, 96, 1, 64, 128), (2, 1000, 40, 64, 64), (1, 1, 2, 64, 64),
+             (1, 129, 4, 64, 64)]
+WKV_DECAYS = ("drawn", "model")
 SSD_CASES = [(2, 1024, 112, 64, 64), (1, 64, 2, 32, 16), (2, 128, 4, 64, 64),
              (1, 80, 3, 16, 32), (2, 1000, 112, 64, 64), (1, 65, 3, 64, 64),
              (1, 1, 2, 32, 16)]
@@ -378,8 +413,8 @@ RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
 #: swapped for the plain attention with its scaled scores rounded to
 #: bfloat16 (9b, prefill and every decode step)
 FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2}
-#: 10b's float32 reading on the kernels before K18 was chunked (K17/K18 a
-#: CTA a (sequence, head), PERF.md §6): printed beside this run's
+#: 10b's float32 reading on the kernels before K17 and K18 were chunked
+#: (a CTA a (sequence, head), PERF.md §6): printed beside this run's
 FP32_LOGIT_BEFORE = {"rwkv6-3b": 2.58e-5, "zamba2-7b": 0.0154}
 #: K17/K18 against plain: float32 normwise (largest difference over the
 #: largest plain magnitude; the sums run in another order), bfloat16
@@ -991,11 +1026,14 @@ def plain_path(on, ref, attention, rmsnorm, rwkv6, mamba2, only=None,
             setattr(mod, n, saved[n])
 
 
-def rec_case(torch, name, shape, dtype, seed):
+def rec_case(torch, name, shape, dtype, seed, decay="drawn"):
     """Inputs of one K17 or K18 call on the card, made from ``seed`` as the
     JAX tests draw them: K17 (r, k, v, w, u) on (B·H, T, ·) rows, r, k, v
     0.5·N, w in (0.5, 1), u 0.3·N; K18 (x, a, b, c), x, b, c 0.5·N and a
-    = -|0.5·N| in float32."""
+    = -|0.5·N| in float32.  K17's ``decay="model"`` draws w as rwkv6's
+    time mixing makes it, ``exp(-exp(x))`` with x ~ N(0, 2), rounded to
+    ``dtype`` (some 0, and in bf16 some 1), with channel 0 exactly 0 and
+    channel 1 exactly 1 in every row and the last row exactly 1."""
     rng = np.random.default_rng(seed)
 
     def f(*sh, scale=0.5, dt=dtype):
@@ -1004,9 +1042,14 @@ def rec_case(torch, name, shape, dtype, seed):
 
     if name == "wkv6":
         B, T, H, K, V = shape
-        w = torch.sigmoid(f(B * H, T, K, scale=1.0, dt=torch.float32))
+        x = f(B * H, T, K, scale=1.0, dt=torch.float32)
+        if decay == "model":
+            w = torch.exp(-torch.exp(2.0 * x))
+            w[..., 0], w[..., 1], w[-1] = 0.0, 1.0, 1.0
+        else:
+            w = torch.sigmoid(x) * 0.5 + 0.5
         return (f(B * H, T, K), f(B * H, T, K), f(B * H, T, V),
-                (w * 0.5 + 0.5).to(dtype), f(B * H, K, scale=0.3))
+                w.to(dtype), f(B * H, K, scale=0.3))
     B, T, H, P, N = shape
     return (f(B, T, H, P), -f(B, T, H, dt=torch.float32).abs(), f(B, T, N),
             f(B, T, N))
@@ -1231,7 +1274,15 @@ def main(argv=None) -> int:
                 ("ssd", tf, r"ssd_state_passingILi(\d+)E",
                  "ssd_state_passing"),
                 ("ssd", tf, rf"ssd_chunk_scanI{dt}Li(\d+)E",
-                 "ssd_chunk_scan")):
+                 "ssd_chunk_scan"),
+                ("wkv6", tf, rf"wkv6_chunk_stateI{dt}Li(\d+)E",
+                 "wkv6_chunk_state"),
+                ("wkv6", tf, r"wkv6_state_passingILi(\d+)E",
+                 "wkv6_state_passing"),
+                ("wkv6", tf, rf"wkv6_chunk_scanI{dt}Li(\d+)E",
+                 "wkv6_chunk_scan"),
+                ("real_fir", dsp.LIB, r"real_fir_packedILi(\d+)E",
+                 "real_fir_packed")):
             facts.setdefault(name, {})
             if not lib.info:
                 log(f"{label}: cached build, no ptxas report")
@@ -1251,7 +1302,7 @@ def main(argv=None) -> int:
         assert len(bf16) == 2 and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
         assert len(fp32) == 4 and not any(fp32.values()), fp32
-    phase("1 ptxas of hts_run, K13-K16 and K18, SASS of K15", build_facts)
+    phase("1 ptxas of hts_run, K5, K13-K18, SASS of K15", build_facts)
 
     ctx: dict = {}
 
@@ -1438,6 +1489,29 @@ def main(argv=None) -> int:
             f"{card_s:.3f} s on the card in all  on {card}")
     phase("4 single lane", single_lane)
 
+    # 4b. specs hts_run cannot hold: the per-phase loop on the card --------
+    def unfit_specs():
+        cuda_run.reset_launches()
+        cuda_step.reset_launches()
+        n = 0
+        for label, kw in UNFIT_SPECS.items():
+            p = HtsParams(**kw)
+            for b in programs.all_benches()[:UNFIT_BENCHES]:
+                mine = api.run(b, params=p, device=DEVICE)
+                g = api.run(b, params=p, backend="golden")
+                assert mine.cycles == g.cycles and \
+                    mine.schedule_tuple() == g.schedule_tuple(), \
+                    f"{b.name} at {label} differs from golden"
+                n += 1
+        steps = dict(cuda_step.launches)
+        ctx["unfit_step_launches"] = steps
+        assert cuda_run.launches["run"] == 0 and all(steps.values()), \
+            f"hts_run {cuda_run.launches['run']}, K1-K4 {steps}"
+        log(f"{n} single-lane runs at {list(UNFIT_SPECS)} equal to golden "
+            f"through the per-phase loop: hts_run 0 launches, K1-K4 "
+            f"{steps}  on {card}")
+    phase("4b specs past hts_run's limits", unfit_specs)
+
     # 5. kernel times --------------------------------------------------------
     rows = []
 
@@ -1449,7 +1523,9 @@ def main(argv=None) -> int:
             by_path = {
                 "main": ctx.get("main_step_launches", {}).get(name, 0),
                 "per-phase loop (2c)": ctx.get("per_phase_launches",
-                                               {}).get(name, 0)}
+                                               {}).get(name, 0),
+                "specs past hts_run (4b)": ctx.get("unfit_step_launches",
+                                                   {}).get(name, 0)}
             st1, args1 = _copies(torch, saved, 1)[0]
             wrapper(st1, *args1)
             bound, by = bound_of(torch, name, saved[0], saved[1], st1, args1)
@@ -1600,6 +1676,11 @@ def main(argv=None) -> int:
             args = (x,) if name == "vector_max" else (x, x)
             check_dsp(name, wrapper, plain, args,
                       f"B=300    N={n:<4d} unaligned rows")
+        x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+            300 * 40 + 1, dtype=np.float32)).to(DEVICE)[1:].view(300, 40)
+        h = torch.full((8,), 0.125, device=DEVICE)
+        check_dsp("real_fir", dsp_fir.real_fir, ref.real_fir, (x, h),
+                  "B=300    N=40   unaligned rows")
         # a NaN in one row: vector_max must give NaN there, as amax does
         wrapper, plain, (x,) = dsp_case(torch, kern, "vector_max", 300, 64,
                                         None, 12)
@@ -2331,14 +2412,14 @@ def main(argv=None) -> int:
     rec_wrappers = {"wkv6": rwkv6.wkv6, "ssd": mamba2.ssd}
 
     def rec_vs_plain():
-        cases = [("wkv6", c) for c in WKV_CASES]
-        cases += [("ssd", c) for c in SSD_CASES]
+        cases = [("wkv6", c, d) for c in WKV_CASES for d in WKV_DECAYS]
+        cases += [("ssd", c, "drawn") for c in SSD_CASES]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for i, (name, shape) in enumerate(cases):
+        for i, (name, shape, decay) in enumerate(cases):
             for dt in ("bfloat16", "float32"):
                 args = rec_case(torch, name, shape, getattr(torch, dt),
-                                700 + i)
+                                700 + i, decay)
                 got = rec_wrappers[name](*args)
                 want = rec_plain(ref, name, args)
                 torch.cuda.synchronize()
@@ -2357,18 +2438,21 @@ def main(argv=None) -> int:
                                           rtol=tol, atol=tol), \
                         f"{name} {shape} bf16: max abs err {err:.3g} > {tol}"
                     how = f"rtol = atol = {tol}"
-                log(f"{name:5s} {str(shape):24s} {dt:8s} max abs err "
-                    f"{err:.3g}, normwise {rel:.3g} ({how})")
+                log(f"{name:5s} {str(shape):24s} {decay:5s} {dt:8s} max abs "
+                    f"err {err:.3g}, normwise {rel:.3g} ({how})")
         for dt in ("bfloat16", "float32"):
             tf_check("flash_attention", ATTN_112, dt, 800)
             for i, shape in enumerate(RMS_SSM_CASES):
                 tf_check("rmsnorm", shape, dt, 810 + i)
         B, T, H, P, N = SSD_CASES[0]
+        Bw, Tw, Hw, Kw, Vw = WKV_CASES[0]
         log(f"10a peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (the plain "
             f"versions' loops included); K18's scratch at {SSD_CASES[0]}: "
-            f"{mamba2.scratch_floats(B, T, H, P, N) * 4 / 1e6:.1f} MB  on "
-            f"{card}")
+            f"{mamba2.scratch_floats(B, T, H, P, N) * 4 / 1e6:.1f} MB, "
+            f"K17's at {WKV_CASES[0]}: "
+            f"{rwkv6.scratch_floats(Bw * Hw, Tw, Kw, Vw) * 4 / 1e6:.1f} MB  "
+            f"on {card}")
 
     def ssm_model(arch):
         cfg = registry.get_config(arch)
@@ -2444,6 +2528,17 @@ def main(argv=None) -> int:
         want = ssm_counts(model.cfg)[0]
         k, kc = run("kernels", params, "bf16")
         assert kc == want, kc
+        walls = []
+        for _ in range(SSM_FORWARD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(params, tok)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        log(f"{arch} forward bf16 (kernels), median of {SSM_FORWARD_REPS}: "
+            f"{med * 1e3:.1f} ms, {SSM_B * SSM_T / med:.0f} tokens/s (walls "
+            f"{[round(w * 1e3, 1) for w in walls]} ms)  on {card}")
         tf_launches[f"{arch}/forward"] = kc
         pl, pc = run("plain", params, "bf16")
         assert pc == zero, pc
@@ -2473,7 +2568,7 @@ def main(argv=None) -> int:
 
         err = gate("kernels", k)
         log(f"{arch} fp32 logits on the kernels: normwise {err:.3g} in this "
-            f"run, {FP32_LOGIT_BEFORE[arch]} before K18 was chunked "
+            f"run, {FP32_LOGIT_BEFORE[arch]} before K17 and K18 were chunked "
             "(PERF.md §6)")
         try:
             gate("control (K17/K18 plain, state rounded to bf16)", ctl)
@@ -2589,6 +2684,28 @@ def main(argv=None) -> int:
     phase("10d forward vs decode in float32", ssm_logic)
 
     # 5b. DSP kernel times at each path's shape -----------------------------
+    def fir_at_table(row, wrapper, plain, i):
+        """K5 at Table II's 524288 x 40 too (the synthetic schedules'
+        shape): device, call, plain and conv1d (TF32 off) times and the
+        bound, into ``row`` under ``*_524288x40``; a note for the log."""
+        b, n = FIR_TABLE_SHAPE
+        _w, _p, args = dsp_case(torch, kern, "real_fir", b, n, 8, 150 + i)
+        calls = [functools.partial(wrapper, *args)] * 23
+        key = f"{b}x{n}"
+        row[f"ms_{key}"] = profiled_ms(torch, calls, DSP_KERNEL["real_fir"])
+        row[f"call_ms_{key}"] = events_ms(torch, calls)
+        row[f"plain_ms_{key}"] = events_ms(
+            torch, [functools.partial(plain, *args)] * 8)
+        with Fp32Matmul(torch):
+            call = library_call(torch, "real_fir", args, ref)
+            row[f"library_ms_{key}"] = events_ms(torch, [call] * 23)
+        row[f"bound_ms_{key}"] = dsp_bound("real_fir", args)[0]
+        return (f"; at {b} x {n}: kernel {row[f'ms_{key}']} ms on the "
+                f"device, {row[f'call_ms_{key}']:.4f} ms per call, plain "
+                f"{row[f'plain_ms_{key}']:.4f} ms, conv1d "
+                f"{row[f'library_ms_{key}']:.4f} ms, bound "
+                f"{row[f'bound_ms_{key}']:.4f} ms")
+
     def dsp_times():
         log(f"torch.get_float32_matmul_precision() = "
             f"{torch.get_float32_matmul_precision()!r}; TF32 off for the "
@@ -2604,7 +2721,8 @@ def main(argv=None) -> int:
             with Fp32Matmul(torch):
                 p_call = events_ms(torch,
                                    [functools.partial(plain, *args)] * 8)
-            k_dev = profiled_ms(torch, calls, f"{name}_kernel")
+            k_dev = profiled_ms(torch, calls,
+                                DSP_KERNEL.get(name, f"{name}_kernel"))
             lib, lib_note = None, " (no single PyTorch call)"
             with Fp32Matmul(torch):
                 try:
@@ -2618,7 +2736,7 @@ def main(argv=None) -> int:
                     lib_note = f" (library call failed: {e})"
             by_path = {path: c.get(name, 0)
                        for path, c in path_launches.items()}
-            rows.append(dict(
+            row = dict(
                 name=name, route="cuda", source=DSP_SOURCE,
                 replaces=DSP_REPLACES[name],
                 launches=sum(by_path.values()), launches_by_path=by_path,
@@ -2627,7 +2745,10 @@ def main(argv=None) -> int:
                 kernel_ms=k_dev if k_dev is not None else k_call,
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
                 bound_by=by, library_ms=lib, shape=[b, n],
-                **facts.get(name, {})))
+                **facts.get(name, {}))
+            if name == "real_fir":
+                lib_note += fir_at_table(row, wrapper, plain, i)
+            rows.append(row)
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             libs = "none" if lib is None else f"{lib:.4f} ms"
             log(f"{name:11s} B={b} N={n}  kernel {dev} on the device, "
@@ -2705,8 +2826,8 @@ def main(argv=None) -> int:
                       events_ms(torch, [plain] * 8))
             kname = TF_KERNEL.get(name, f"{name}_kernel")
             split = None
-            if name == "ssd":
-                split = profiled_split(torch, calls, SSD_KERNELS)
+            if name in SPLIT_KERNELS:
+                split = profiled_split(torch, calls, SPLIT_KERNELS[name])
                 k_dev = None if split is None else sum(split.values())
             else:
                 k_dev = profiled_ms(torch, calls, kname)
@@ -2738,6 +2859,13 @@ def main(argv=None) -> int:
                 row["split_ms"] = split
                 extra += "; a call: " + ", ".join(
                     f"{k} {v:.4f} ms" for k, v in split.items())
+            if name in rec_wrappers:
+                B_, T_, H_, X_, Y_ = shapes[name]
+                words = (rwkv6.scratch_floats(B_ * H_, T_, X_, Y_)
+                         if name == "wkv6" else
+                         mamba2.scratch_floats(B_, T_, H_, X_, Y_))
+                row["scratch_bytes"] = 4 * words
+                extra += f"; scratch {4 * words} bytes"
             if name == "rmsnorm":
                 # the ssm and hybrid forwards' widths (rwkv6-3b, zamba2-7b)
                 for R, D in RMS_SSM_CASES[:2]:

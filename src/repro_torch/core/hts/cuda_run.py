@@ -14,8 +14,9 @@ loop (:func:`machine._loop`) on every carry array.  Here:
   raises for a carry anywhere else: ``machine`` routes a CPU carry to the
   plain version, the per-phase loop with ``cuda_step``'s plain K1–K4;
 * :func:`layout` — where each hot array lives in the CTA's shared memory;
-  :func:`check_fits` raises ``ValueError`` before any launch for a spec
-  past :data:`SMEM_LIMIT` or the kernel's other limits.
+  :func:`fits` says whether the kernel takes a spec (within
+  :data:`SMEM_LIMIT` and the kernel's other limits), and :func:`check_fits`
+  raises ``ValueError`` before any launch for one it does not.
 
 The library is built at first use with ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``build/repro_torch/`` and loaded with
@@ -131,9 +132,9 @@ def layout(m, NS: int) -> tuple[dict, int, int]:
     return out, scratch, -(-off // 16) * 16
 
 
-def check_fits(m, NS: int) -> int:
-    """Raise ``ValueError`` where the kernel cannot take this machine;
-    return its shared bytes a CTA."""
+def _misfit(m, NS: int) -> str | None:
+    """Why the kernel cannot take this machine (with ``NS`` frontend
+    streams), or None where it can."""
     p = m.p
     limits = (("rs_entries", p.rs_entries, MAX_S),
               ("frontend streams", NS, MAX_NS),
@@ -143,16 +144,32 @@ def check_fits(m, NS: int) -> int:
                                            MAX_FUNCS))
     for what, v, cap in limits:
         if v > cap:
-            raise ValueError(f"hts_run takes at most {cap} {what}, got {v}")
+            return f"hts_run takes at most {cap} {what}, got {v}"
     if m.W > m.M:
-        raise ValueError(f"max_out_words {m.W} exceeds memory {m.M}")
+        return f"max_out_words {m.W} exceeds memory {m.M}"
     smem = layout(m, NS)[2]
     if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"hts_run needs {smem} bytes of shared memory a CTA for this "
-            f"spec (M={m.M}, C={m.C}, NFU={m.NFU}, S={p.rs_entries}, "
-            f"T={p.tracker_entries}); the card has {SMEM_LIMIT}")
-    return smem
+        return (f"hts_run needs {smem} bytes of shared memory a CTA for "
+                f"this spec (M={m.M}, C={m.C}, NFU={m.NFU}, "
+                f"S={p.rs_entries}, T={p.tracker_entries}); the card has "
+                f"{SMEM_LIMIT}")
+    return None
+
+
+def fits(m, NS: int) -> bool:
+    """Whether ``hts_run`` takes machine ``m`` with ``NS`` frontend
+    streams: ``machine._advance`` chooses its route by this before any
+    launch."""
+    return _misfit(m, NS) is None
+
+
+def check_fits(m, NS: int) -> int:
+    """Raise ``ValueError`` where the kernel cannot take this machine;
+    return its shared bytes a CTA."""
+    why = _misfit(m, NS)
+    if why is not None:
+        raise ValueError(why)
+    return layout(m, NS)[2]
 
 
 def dims(m, n: int, NS: int, budget: int) -> torch.Tensor:

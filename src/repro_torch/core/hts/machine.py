@@ -22,15 +22,20 @@ route that follows the carry's device (:func:`_advance`):
   (:func:`cuda_run.run_slice`, ``csrc/hts_run.cu``): a CTA per lane runs
   all of the step's phases in a loop until its lane halts, overflows,
   reaches ``max_cycles`` or its step limit;
+* on the card, for a spec that ``hts_run`` cannot hold (past its shared
+  memory or its RS, stream, output-word or TM-slot limits:
+  ``cuda_run.fits`` decides before any launch), the per-phase host loop
+  :func:`_loop` with :mod:`cuda_step`'s four CUDA kernels;
 * on the CPU, its plain version, the per-phase host loop :func:`_loop`:
   :func:`step` over every lane at once, K1–K4 through :mod:`cuda_step`'s
   plain torch versions and the other phases in plain torch.
 
-The per-phase loop also runs on the card (:func:`step`, :func:`_loop`),
-with :mod:`cuda_step`'s four CUDA kernels, as the yardstick ``hts_run`` is
-held against; no entry point takes it.  It checks "any lane alive" only
-every :data:`CHECK_EVERY` trips, which is exact: a halted lane, and a lane
-at its step limit, is a fixed point of the step.
+Each route counts its launches (``cuda_run.launches``,
+``cuda_step.launches``), so a caller sees which one ran.  The per-phase
+loop on the card is also the yardstick ``hts_run`` is held against
+(:func:`step`, :func:`_loop` called directly).  It checks "any lane
+alive" only every :data:`CHECK_EVERY` trips, which is exact: a halted
+lane, and a lane at its step limit, is a fixed point of the step.
 
 JAX semantics that plain torch does not share are reproduced explicitly:
 a data-dependent gather clamps its index the way JAX does (:func:`take`),
@@ -828,9 +833,12 @@ def step(m: Machine, st: dict, a: Args, limit, ops=cuda_step) -> None:
 
 def _advance(m: Machine, st: dict, a: Args, budget: int) -> dict:
     """Advance carry ``st`` in place by at most ``budget`` steps a lane:
-    one ``hts_run`` launch for a carry on the card, the per-phase loop with
-    the plain K1–K4 for one on the CPU."""
-    if _build.on_card(st["cycle"].device):
+    for a carry on the card, one ``hts_run`` launch where the kernel takes
+    the spec (``cuda_run.fits``), else the per-phase loop with
+    ``cuda_step``'s K1–K4 kernels (each route counts its launches); for
+    one on the CPU, the per-phase loop with the plain K1–K4."""
+    if _build.on_card(st["cycle"].device) and cuda_run.fits(
+            m, a.streams.shape[1]):
         return cuda_run.run_slice(m, st, a, budget)
     return _loop(m, st, a, budget)
 

@@ -32,7 +32,6 @@
 
 namespace {
 
-constexpr int FIR_THREADS = 256;
 constexpr int DOT_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int CORR_WARPS = 8;            // one warp per row, at most 8 a block
 constexpr int ADD_THREADS = 256;
@@ -52,31 +51,158 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
+               ::: "memory");
+}
+
+// `kernel` (a function pointer: no template commas in the macro's
+// arguments) on `grid` x `threads` with `smem` dynamic shared bytes.  A
+// macro so that the K5 span below also builds with g++ against
+// tests/cuda_emu.h, which runs a launch's blocks on the CPU.
+#define KERNEL_LAUNCH(kernel, grid, threads, smem, stream, ...) \
+  kernel<<<grid, threads, smem, stream>>>(__VA_ARGS__)
+
+// ==== K5 span: tests/test_torch_fir.py builds from here
 // ---------------------------------------------------------------------------
 // K5 real_fir — replaces src/repro/kernels/dsp_fir.py real_fir
 // (_real_fir_kernel, pl.pallas_call at dsp_fir.py:49).
 //   y[b, n] = sum_k h[k] * x[b, n - k], zero fill for n - k < 0.
 // Bound: B*N*4 bytes read plus B*N*4 written; 2K flops a sample is far
-// below the fp32 rate.  Design: one thread per output sample, a row split
-// into tiles of FIR_THREADS (grid = B * tiles, so B may pass gridDim.y's
-// 65535).  Neighbouring threads read neighbouring samples, so each of the
-// K shifted reads is coalesced and all but the first hit L1: device memory
-// sees each input byte about once.  The taps are read through the
-// read-only path, the same K words for every thread.  The sum runs in the
-// reference's order: h[0]*x[n], then + h[k]*x[n-k] for k = 1..K-1.
+// below the fp32 rate.
+// real_fir_packed, where N is a multiple of 4, x and y are 16-byte
+// aligned and K <= FIR_MAX_TAPS: rows packed into blocks.  A block takes
+// FIR_SPAN / N whole rows (25 rows of 40 in 1000 of its 1024 samples), or,
+// for a row wider than FIR_SPAN, one FIR_SPAN-sample tile of it.  It
+// stages its samples into shared memory by 16-byte cp.async, each row (or
+// tile) behind a halo of fir_halo(K) >= K - 1 samples: zeros at a row's
+// start (the reference's zero fill), the row's previous samples before a
+// later tile.  Each thread then computes 4 consecutive outputs from a
+// window of float4 reads, with the taps in registers (templated on the K
+// the repo uses, 8 and 5; any other K from shared memory), and stores them
+// as one float4.  real_fir_flat takes every other shape: one thread per
+// output over the flat B*N samples, its K shifted reads coalesced and all
+// but the first hitting L1.  Both sum in the reference's order, h[0]*x[n],
+// then + h[k]*x[n-k] for k = 1..K-1 (the halo's zeros add h[k]*0, as the
+// reference's padding does).
 // ---------------------------------------------------------------------------
+constexpr int FIR_THREADS = 256;
+constexpr int FIR_SPAN = 4 * FIR_THREADS;   // samples a block
+constexpr int FIR_MAX_TAPS = 32;            // the packed kernel's taps
+
+// the halo before a row or tile: K - 1 samples rounded up to float4s
+__host__ __device__ inline int fir_halo(int K) { return (K + 2) / 4 * 4; }
+
+// KT > 0: exactly KT taps, in registers; KT == 0: K taps from shared memory
+template <int KT>
 __global__ void __launch_bounds__(FIR_THREADS)
-real_fir_kernel(int N, int K, int tiles, const float* __restrict__ x,
-                const float* __restrict__ h, float* __restrict__ y) {
-  const size_t row = blockIdx.x / tiles;
-  const int n = (blockIdx.x % tiles) * FIR_THREADS + threadIdx.x;
-  if (n >= N) return;
-  const float* xr = x + row * (size_t)N;
-  float acc = __ldg(h) * __ldg(xr + n);
-  const int kmax = K < n + 1 ? K : n + 1;       // taps that reach x[0..n]
-  for (int k = 1; k < kmax; ++k) acc += __ldg(h + k) * __ldg(xr + n - k);
-  y[row * (size_t)N + n] = acc;
+real_fir_packed(long long B, int N, int K, int rows, int tiles,
+                const float* __restrict__ x, const float* __restrict__ h,
+                float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char fir_raw[];
+  float* sh = reinterpret_cast<float*>(fir_raw);   // [FIR_MAX_TAPS] taps
+  float* sx = sh + FIR_MAX_TAPS;                   // [rows][halo + L]
+  const int taps = KT > 0 ? KT : K, halo = fir_halo(taps);
+  const int L = tiles > 1 ? FIR_SPAN : N, pitch = halo + L;
+  const long long row0 = (long long)(blockIdx.x / tiles) * rows;
+  const int n0 = (int)(blockIdx.x % tiles) * FIR_SPAN;
+  const int nrows = (int)min((long long)rows, B - row0);
+  const int len = min(L, N - n0);                  // samples a row here
+  const int vecs = (halo + len) / 4;               // float4s, halo included
+  for (int e = threadIdx.x; e < nrows * vecs; e += FIR_THREADS) {
+    const int rr = e / vecs, i = 4 * (e % vecs);
+    const int n = n0 - halo + i;                   // the sample in its row
+    float* dst = sx + rr * pitch + i;
+    if (n < 0)
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      cp_async16(dst, x + (row0 + rr) * N + n);
+  }
+  if (KT == 0 && (int)threadIdx.x < K) sh[threadIdx.x] = h[threadIdx.x];
+  float hr[KT > 0 ? KT : 1];
+#pragma unroll
+  for (int k = 0; k < KT; ++k) hr[k] = __ldg(h + k);
+  cp_async_wait_all();
+  __syncthreads();
+  const int groups = len / 4;                      // float4 outputs a row
+  for (int g = threadIdx.x; g < nrows * groups; g += FIR_THREADS) {
+    const int rr = g / groups, n = 4 * (g % groups);
+    const float* s = sx + rr * pitch + halo + n;   // s[j] = x[n0 + n + j]
+    float o[4];
+    if constexpr (KT > 0) {
+      constexpr int HK = (KT + 2) / 4 * 4;         // fir_halo(KT)
+      float win[HK + 4];                           // win[m] = s[m - HK]
+#pragma unroll
+      for (int m = 0; m < HK + 4; m += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(s - HK + m);
+        win[m] = v.x; win[m + 1] = v.y; win[m + 2] = v.z; win[m + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float acc = hr[0] * win[HK + q];
+#pragma unroll
+        for (int k = 1; k < KT; ++k) acc += hr[k] * win[HK + q - k];
+        o[q] = acc;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float acc = sh[0] * s[q];
+        for (int k = 1; k < K; ++k) acc += sh[k] * s[q - k];
+        o[q] = acc;
+      }
+    }
+    *reinterpret_cast<float4*>(y + (row0 + rr) * N + n0 + n) =
+        make_float4(o[0], o[1], o[2], o[3]);
+  }
 }
+
+__global__ void __launch_bounds__(FIR_THREADS)
+real_fir_flat(size_t total, int N, int K, const float* __restrict__ x,
+              const float* __restrict__ h, float* __restrict__ y) {
+  const size_t i = (size_t)blockIdx.x * FIR_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int n = (int)(i % (size_t)N);
+  float acc = __ldg(h) * __ldg(x + i);
+  const int kmax = K < n + 1 ? K : n + 1;          // taps that reach x[0..n]
+  for (int k = 1; k < kmax; ++k) acc += __ldg(h + k) * __ldg(x + i - k);
+  y[i] = acc;
+}
+
+int launch_real_fir(int B, int N, int K, const float* x, const float* h,
+                    float* y, cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (N % 4 == 0 && K <= FIR_MAX_TAPS && (uintptr_t)x % 16 == 0 &&
+      (uintptr_t)y % 16 == 0) {
+    const int tiles = N > FIR_SPAN ? (N + FIR_SPAN - 1) / FIR_SPAN : 1;
+    const int rows = N > FIR_SPAN ? 1 : FIR_SPAN / N;
+    const long long blocks = ((long long)B + rows - 1) / rows * tiles;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        sizeof(float) * (FIR_MAX_TAPS +
+                         (size_t)rows * (fir_halo(K) +
+                                         (tiles > 1 ? FIR_SPAN : N)));
+    auto* kern = K == 8   ? &real_fir_packed<8>
+                 : K == 5 ? &real_fir_packed<5>
+                          : &real_fir_packed<0>;
+    KERNEL_LAUNCH(kern, dim3((unsigned)blocks), FIR_THREADS, smem, stream,
+                  (long long)B, N, K, rows, tiles, x, h, y);
+  } else {
+    const size_t total = (size_t)B * (size_t)N;
+    const size_t blocks = (total + FIR_THREADS - 1) / FIR_THREADS;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    auto* kern = &real_fir_flat;
+    KERNEL_LAUNCH(kern, dim3((unsigned)blocks), FIR_THREADS, 0, stream,
+                  total, N, K, x, h, y);
+  }
+  return (int)cudaGetLastError();
+}
+// ==== end of the K5 span
 
 // ---------------------------------------------------------------------------
 // K6 complex_fir — replaces src/repro/kernels/dsp_fir.py complex_fir
@@ -762,14 +888,9 @@ extern "C" {
 
 int dsp_real_fir(int B, int N, int K, void* x, void* h, void* y,
                  void* stream) {
-  if (B > 0 && N > 0) {
-    const int tiles = (N + FIR_THREADS - 1) / FIR_THREADS;
-    const long long blocks = (long long)B * tiles;
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    real_fir_kernel<<<(unsigned)blocks, FIR_THREADS, 0, (cudaStream_t)stream>>>(
-        N, K, tiles, (const float*)x, (const float*)h, (float*)y);
-  }
-  return (int)cudaGetLastError();
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  return launch_real_fir(B, N, K, (const float*)x, (const float*)h,
+                         (float*)y, (cudaStream_t)stream);
 }
 
 // x, y: (B, N, 2) interleaved re/im; h: (K, 2).

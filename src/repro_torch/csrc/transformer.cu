@@ -957,119 +957,40 @@ int attention_bf16(int BH, int Tq, int Tk, int D, int causal, int q_offset,
 // ---------------------------------------------------------------------------
 // The recurrences K17 and K18.  The reference's Pallas grid is (rows,
 // T/C) with the chunk axis sequential and the state carried across chunks
-// in VMEM scratch.  K17 (below): one CTA walks a row's whole sequence, its
-// state in registers, and the chunk is only how much input it stages in
-// shared memory at a time (REC_C steps, then one barrier, then REC_C
-// steps with no barrier).  The state's columns are independent, so a
-// thread owns one column: its KP state values stay in its registers and
-// no sum crosses threads.  The row's per-step vectors are broadcast from
-// shared memory (every thread reads the same word: no bank conflict).
-// The state dimension is padded to KP in {16, 32, 64, 128} with zeros: a
-// zero k, r, w and u keep the padded state zero and out of every sum.
-// Steps at t >= T are neither read (zero-filled) nor written.
-// Bound: ~7 operations per state element per step on the CUDA cores
-// (fp32), against 2-byte inputs read once: operations.  A CTA a row at
-// one step at a time is latency-bound (the row's steps are sequential).
-// K18 is the chunked form instead (its own section, after K17).
+// in VMEM scratch.  Here both run chunked, so that the chunks of a row run
+// on many SMs at once: each chunk's own state, then the states passed
+// from chunk to chunk, then each chunk's outputs from the state entering
+// it; three kernels behind one C entry (one counted launch a call), in a
+// float32 scratch the wrapper allocates.  The state dimension is padded to
+// KP in {16, 32, 64, 128} with zeros: a zero k, r, w and u keep the padded
+// state zero and out of every sum.  Steps at t >= T are neither read nor
+// written.
 // ---------------------------------------------------------------------------
-constexpr int REC_C = 32;                // steps staged a chunk
-constexpr int REC_MAX_THREADS = 128;     // state columns a CTA
-
-__device__ __forceinline__ float4 ld4(const float* p, int i) {
-  return *reinterpret_cast<const float4*>(p + i);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
+               ::: "memory");
 }
 
-// ---------------------------------------------------------------------------
-// K17 wkv6 — replaces src/repro/kernels/rwkv6.py wkv6 (_wkv6_kernel,
-// pl.pallas_call at rwkv6.py:65).  Per row (b, h) of BH, state S (K, V)
-// from zero:
-//   o_t[v] = sum_k r_t[k] (S[k, v] + u[k] k_t[k] v_t[v])
-//   S[k, v] <- w_t[k] S[k, v] + k_t[k] v_t[v]
-// the exact rank-1 update (no decay-ratio reformulation).  r, k, w: (BH,
-// T, K); v, o: (BH, T, V); u: (BH, K).  Grid (BH, ceil(V / VT)), VT =
-// min(V rounded up to 32, REC_MAX_THREADS) threads, thread = column v.
-// Shared: r, k, w of REC_C steps at pitch KP, u, and v's REC_C x VT block.
-// ---------------------------------------------------------------------------
-template <typename T, int KP>
-__global__ void __launch_bounds__(REC_MAX_THREADS)
-wkv6_kernel(int Tn, int K, int V, const T* __restrict__ r,
-            const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ w, const T* __restrict__ u,
-            T* __restrict__ o) {
-  extern __shared__ __align__(16) float rsmem[];  // float4 reads
-  const int VT = blockDim.x;
-  float* sr = rsmem;                     // [REC_C][KP]
-  float* sk = sr + REC_C * KP;           // [REC_C][KP]
-  float* sw = sk + REC_C * KP;           // [REC_C][KP]
-  float* su = sw + REC_C * KP;           // [KP]
-  float* sv = su + KP;                   // [REC_C][VT]
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x;
-  const int c0 = blockIdx.y * VT;
-  const int col = c0 + tid;
-  const bool live = col < V;
-  const size_t kbase = (size_t)row * Tn * K, vbase = (size_t)row * Tn * V;
+// `kernel` (a function pointer: no template commas in the macro's
+// arguments) on `grid` x `threads` with `smem` dynamic shared bytes.  A
+// macro so that the K17 span below also builds with g++ against
+// tests/cuda_emu.h, which runs a launch's blocks on the CPU.
+#define KERNEL_LAUNCH(kernel, grid, threads, smem, stream, ...) \
+  kernel<<<grid, threads, smem, stream>>>(__VA_ARGS__)
 
-  for (int i = tid; i < KP; i += VT)
-    su[i] = i < K ? to_f(u[(size_t)row * K + i]) : 0.f;
-
-  float S[KP];
-#pragma unroll
-  for (int i = 0; i < KP; ++i) S[i] = 0.f;
-
-  for (int t0 = 0; t0 < Tn; t0 += REC_C) {
-    __syncthreads();                     // the last chunk's reads are done
-    for (int e = tid; e < REC_C * KP; e += VT) {
-      const int j = e / KP, i = e % KP;
-      const bool in = t0 + j < Tn && i < K;
-      const size_t g = kbase + (size_t)(t0 + j) * K + i;
-      sr[e] = in ? to_f(r[g]) : 0.f;
-      sk[e] = in ? to_f(k[g]) : 0.f;
-      sw[e] = in ? to_f(w[g]) : 0.f;
-    }
-    for (int j = 0; j < REC_C; ++j)
-      sv[j * VT + tid] = (t0 + j < Tn && live)
-                             ? to_f(v[vbase + (size_t)(t0 + j) * V + col])
-                             : 0.f;
-    __syncthreads();
-    const int steps = min(REC_C, Tn - t0);
-    for (int j = 0; j < steps; ++j) {
-      const float vt = sv[j * VT + tid];
-      const float* rj = sr + j * KP;
-      const float* kj = sk + j * KP;
-      const float* wj = sw + j * KP;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < KP; i += 4) {
-        const float4 r4 = ld4(rj, i), k4 = ld4(kj, i),
-                     w4 = ld4(wj, i), u4 = ld4(su, i);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
-        const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float kv = kk[q] * vt;
-          acc[q] += rr[q] * (S[i + q] + uu[q] * kv);
-          S[i + q] = ww[q] * S[i + q] + kv;
-        }
-      }
-      if (live)
-        o[vbase + (size_t)(t0 + j) * V + col] =
-            from_f<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
-    }
-  }
+// ==== K17 span: tests/test_torch_transformer_kernels.py builds from here
+__device__ __forceinline__ float4 ld4(const float* p, int i) {
+  return *reinterpret_cast<const float4*>(p + i);
 }
 
 // the state dimension's register pad: 16, 32, 64 or 128 (0: too large)
 inline int state_pad(int n) {
   return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : n <= 128 ? 128 : 0;
-}
-
-// threads a CTA: the columns rounded up to a warp, at most REC_MAX_THREADS
-inline int rec_threads(int cols) {
-  const int t = ((cols + 31) / 32) * 32;
-  return t < REC_MAX_THREADS ? t : REC_MAX_THREADS;
 }
 
 template <typename F>
@@ -1079,34 +1000,335 @@ int set_smem(F* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// ---------------------------------------------------------------------------
+// K17 wkv6 — replaces src/repro/kernels/rwkv6.py wkv6 (_wkv6_kernel,
+// pl.pallas_call at rwkv6.py:65).  Per row (b, h) of BH, state S (K, V)
+// from zero:
+//   o_t[v] = sum_k r_t[k] (S[k, v] + u[k] k_t[k] v_t[v])
+//   S[k, v] <- w_t[k] S[k, v] + k_t[k] v_t[v]
+// r, k, w: (BH, T, K); v, o: (BH, T, V); u: (BH, K).  Time in chunks of
+// WKV_C steps, nc = ceil(T / WKV_C):
+//  1. wkv6_chunk_state, grid (BH, nc - 1, V blocks): each chunk with a
+//     successor (all of them full) runs the exact rank-1 update from zero,
+//     giving its own end state L_c, and keeps its decay product D_c[k] =
+//     prod_t w_t[k] as a running product: L to scratch slot c of (BH,
+//     nc - 1, K, V), D after them in (BH, nc - 1, K).
+//  2. wkv6_state_passing, grid (BH, tiles of K * V): in place, slot c <-
+//     D_c * slot (c - 1) + slot c for c = 1 .. nc - 2, so that slot c is
+//     the state entering chunk c + 1.
+//  3. wkv6_chunk_scan, grid (BH, nc, V blocks): from the state entering
+//     its chunk (zero for the first), the exact recurrence over the chunk,
+//     writing o, rounded once to the input's dtype.
+// No ratio of decay products and no log-space sum (the reference's
+// "exact, no decay-ratio reformulation"): products are only multiplied
+// forward, each shrinking toward its true value, so an underflow to 0 is
+// the right answer and w = 0 or w = 1 needs no special case.
+// Threads: WKV_VB state columns a CTA, four threads a column.  Quarter q
+// holds rows 4q + 16m + e (m < KP / 16, e < 4) in registers, so that a
+// quarter-warp's float4 reads of a step's r, k and w fall in distinct
+// banks; the r-weighted sum is closed by two xor shuffles.  r, k, w and
+// the block's v are staged WKV_SUB steps at a time by 16-byte cp.async
+// where their rows are whole 16-byte vectors (else by plain loads),
+// double-buffered: the next stage lands while this one is computed; a
+// bf16 stage is widened once to float32 in a third buffer.
+// The state stays float32 on the CUDA cores for both dtypes: a state
+// rounded to bf16 fails chip_smoke 10b's float32 logits gate (its
+// control), and TF32's 10-bit products would too, so no tensor cores.
+// Bound: ~7 fp32 operations per state element per step against 2-byte
+// inputs read once: operations (0.035 ms at rwkv6-3b's forward); the
+// scratch (written, read and written, read) is the design's own traffic.
+// ---------------------------------------------------------------------------
+constexpr int WKV_C = 64;                // steps a chunk
+constexpr int WKV_SUB = 16;              // steps a stage
+constexpr int WKV_VB = 32;               // state columns a CTA
+constexpr int WKV_THREADS = 4 * WKV_VB;  // four a column
+constexpr int WKV_PASS_THREADS = 256;
+
+// a stage in elements: r, k and w [WKV_SUB][KP] each, v [WKV_SUB][WKV_VB]
+template <int KP>
+__host__ __device__ constexpr int wkv_stage_elems() {
+  return WKV_SUB * (3 * KP + WKV_VB);
+}
+// shared bytes: two stages as staged (T), and for bf16 one widened stage
+template <typename T, int KP>
+__host__ __device__ constexpr size_t wkv_smem() {
+  return (size_t)wkv_stage_elems<KP>() *
+         (2 * sizeof(T) + (sizeof(T) == 4 ? 0 : sizeof(float)));
+}
+
+// Steps t0 .. t0 + steps - 1 of row `row` into stage `dst`: r, k and w's
+// rows of K at pitch KP, v's columns c0 .. c0 + WKV_VB - 1 before V.  By
+// 16-byte cp.async where `kvec` (r, k, w) or `vvec` (v) holds (whole
+// 16-byte rows, 16-byte aligned bases), else by plain loads.  What lies
+// past K or V is never written (zero since the kernel's start).
+template <typename T, int KP>
+__device__ __forceinline__ void wkv_stage(
+    T* dst, const T* __restrict__ r, const T* __restrict__ k,
+    const T* __restrict__ w, const T* __restrict__ v, int row, int Tn, int K,
+    int V, int c0, int t0, int steps, bool kvec, bool vvec) {
+  constexpr int E = 16 / sizeof(T);
+  const size_t kb = ((size_t)row * Tn + t0) * K;
+  const int per = kvec ? K / E : K, n = steps * per;
+  for (int e = threadIdx.x; e < 3 * n; e += WKV_THREADS) {
+    const int a = e / n, j = (e % n) / per, i = (e % per) * (kvec ? E : 1);
+    const T* src = (a == 0 ? r : a == 1 ? k : w) + kb + (size_t)j * K + i;
+    T* to = dst + (a * WKV_SUB + j) * KP + i;
+    if (kvec) cp_async16(to, src);
+    else *to = *src;
+  }
+  T* dv = dst + 3 * WKV_SUB * KP;
+  const T* vs = v + ((size_t)row * Tn + t0) * V + c0;
+  const int cols = min(WKV_VB, V - c0);
+  const int vper = vvec ? cols / E : cols, vn = steps * vper;
+  for (int e = threadIdx.x; e < vn; e += WKV_THREADS) {
+    const int j = e / vper, i = (e % vper) * (vvec ? E : 1);
+    if (vvec) cp_async16(dv + j * WKV_VB + i, vs + (size_t)j * V + i);
+    else dv[j * WKV_VB + i] = vs[(size_t)j * V + i];
+  }
+}
+
+// The exact recurrence over steps t_begin .. t_end - 1 of row `row` for
+// the thread's column (c0 + tid / 4) and quarter (tid % 4), from the state
+// rows S (4q + 16m + e at S[4m + e]) in its registers.  SCAN: with the
+// bonus u (uu, in the same order), writing o.  Else the update alone, and
+// thread tid < K keeps the decay product of row tid in `decay`.
+template <typename T, int KP, bool SCAN>
+__device__ __forceinline__ void wkv_sweep(
+    unsigned char* smem, float (&S)[KP / 4], const float (&uu)[KP / 4],
+    float& decay, const T* __restrict__ r, const T* __restrict__ k,
+    const T* __restrict__ w, const T* __restrict__ v, T* __restrict__ o,
+    int row, int Tn, int K, int V, int c0, int t_begin, int t_end, bool kvec,
+    bool vvec) {
+  constexpr int SE = wkv_stage_elems<KP>();
+  T* raw0 = reinterpret_cast<T*>(smem);
+  T* raw1 = raw0 + SE;
+  float* wide = reinterpret_cast<float*>(raw1 + SE);  // bf16 only
+  const int tid = threadIdx.x, q = tid & 3, cl = tid >> 2;
+  const bool live = c0 + cl < V;
+  for (int i = tid; i < (int)(wkv_smem<T, KP>() / 16); i += WKV_THREADS)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();                       // pads zero before any copy lands
+  const int stages = (t_end - t_begin + WKV_SUB - 1) / WKV_SUB;
+  wkv_stage<T, KP>(raw0, r, k, w, v, row, Tn, K, V, c0, t_begin,
+                   min(WKV_SUB, t_end - t_begin), kvec, vvec);
+  for (int g = 0; g < stages; ++g) {
+    const int t0 = t_begin + g * WKV_SUB, steps = min(WKV_SUB, t_end - t0);
+    T* raw = g & 1 ? raw1 : raw0;
+    cp_async_wait_all();
+    __syncthreads();                     // stage g landed, g - 1 consumed
+    const float* cur;
+    if constexpr (sizeof(T) == 4) {
+      cur = reinterpret_cast<const float*>(raw);
+    } else {
+      for (int i = tid; i < SE; i += WKV_THREADS) wide[i] = to_f(raw[i]);
+      cur = wide;
+    }
+    if (g + 1 < stages)                  // lands during this stage's steps
+      wkv_stage<T, KP>(g & 1 ? raw0 : raw1, r, k, w, v, row, Tn, K, V, c0,
+                       t0 + WKV_SUB, min(WKV_SUB, t_end - t0 - WKV_SUB),
+                       kvec, vvec);
+    if constexpr (sizeof(T) != 4) __syncthreads();  // widened
+    const float* cr = cur;
+    const float* ck = cr + WKV_SUB * KP;
+    const float* cw = ck + WKV_SUB * KP;
+    const float* cv = cw + WKV_SUB * KP;
+    if (!SCAN && tid < K)
+      for (int j = 0; j < steps; ++j) decay *= cw[j * KP + tid];
+    for (int j = 0; j < steps; ++j) {
+      const float vt = cv[j * WKV_VB + cl];
+      const float* rj = cr + j * KP + 4 * q;
+      const float* kj = ck + j * KP + 4 * q;
+      const float* wj = cw + j * KP + 4 * q;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int m = 0; m < KP / 16; ++m) {
+        const float4 k4 = ld4(kj, 16 * m), w4 = ld4(wj, 16 * m);
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+        if constexpr (SCAN) {
+          const float4 r4 = ld4(rj, 16 * m);
+          const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float kv = kk[e] * vt;
+            acc[e] += rr[e] * (S[4 * m + e] + uu[4 * m + e] * kv);
+            S[4 * m + e] = ww[e] * S[4 * m + e] + kv;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            S[4 * m + e] = ww[e] * S[4 * m + e] + kk[e] * vt;
+        }
+      }
+      if constexpr (SCAN) {
+        float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (q == 0 && live)
+          o[((size_t)row * Tn + t0 + j) * V + c0 + cl] = from_f<T>(sum);
+      }
+    }
+  }
+}
+
+// 1. L_c and D_c of chunk blockIdx.y (< nc - 1) of row blockIdx.x.
+template <typename T, int KP>
+__global__ void __launch_bounds__(WKV_THREADS)
+wkv6_chunk_state(int Tn, int K, int V, int nc, bool kvec, bool vvec,
+                 const T* __restrict__ r, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ w,
+                 float* __restrict__ states, float* __restrict__ decays) {
+  extern __shared__ __align__(16) unsigned char wkv_raw[];
+  const int row = blockIdx.x, chunk = blockIdx.y;
+  const int c0 = blockIdx.z * WKV_VB, tid = threadIdx.x, q = tid & 3;
+  const int col = c0 + (tid >> 2);
+  float S[KP / 4], none[KP / 4], decay = 1.f;
+#pragma unroll
+  for (int s = 0; s < KP / 4; ++s) S[s] = none[s] = 0.f;
+  wkv_sweep<T, KP, false>(wkv_raw, S, none, decay, r, k, w, v, nullptr, row,
+                          Tn, K, V, c0, chunk * WKV_C, (chunk + 1) * WKV_C,
+                          kvec, vvec);
+  const size_t slot = (size_t)row * (nc - 1) + chunk;
+  if (col < V) {
+    float* L = states + slot * K * V + col;
+#pragma unroll
+    for (int m = 0; m < KP / 16; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * q + 16 * m + e;
+        if (i < K) L[(size_t)i * V] = S[4 * m + e];
+      }
+  }
+  if (blockIdx.z == 0 && tid < K) decays[slot * K + tid] = decay;
+}
+
+// 2. In place over slots 1 .. nc - 2 of row blockIdx.x: slot c <- D_c *
+// slot (c - 1) + slot c.  A thread walks VEC state elements of one row k;
+// the next slot's load is issued before this one's update.
+template <int VEC>
+__global__ void __launch_bounds__(WKV_PASS_THREADS)
+wkv6_state_passing(int K, int V, int nc, float* __restrict__ states,
+                   const float* __restrict__ decays) {
+  const int kv = K * V;
+  const int e = (blockIdx.y * WKV_PASS_THREADS + threadIdx.x) * VEC;
+  if (e >= kv) return;
+  const int full = nc - 1;
+  float* s = states + (size_t)blockIdx.x * full * kv + e;
+  const float* d = decays + (size_t)blockIdx.x * full * K + e / V;
+  float run[VEC], nxt[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) run[i] = s[i];
+  if (full > 1)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) nxt[i] = s[kv + i];
+  for (int c = 1; c < full; ++c) {
+    float cur[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) cur[i] = nxt[i];
+    if (c + 1 < full)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) nxt[i] = s[(size_t)(c + 1) * kv + i];
+    const float dc = d[(size_t)c * K];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      run[i] = fmaf(dc, run[i], cur[i]);
+      s[(size_t)c * kv + i] = run[i];
+    }
+  }
+}
+
+// 3. o over chunk blockIdx.y of row blockIdx.x, from the state entering it.
+template <typename T, int KP>
+__global__ void __launch_bounds__(WKV_THREADS)
+wkv6_chunk_scan(int Tn, int K, int V, int nc, bool kvec, bool vvec,
+                const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ w,
+                const T* __restrict__ u, const float* __restrict__ states,
+                T* __restrict__ o) {
+  extern __shared__ __align__(16) unsigned char wkv_raw[];
+  const int row = blockIdx.x, chunk = blockIdx.y;
+  const int c0 = blockIdx.z * WKV_VB, tid = threadIdx.x, q = tid & 3;
+  const int col = c0 + (tid >> 2);
+  const float* H = chunk > 0 && col < V
+                       ? states + ((size_t)row * (nc - 1) + chunk - 1) * K *
+                                      V + col
+                       : nullptr;
+  float S[KP / 4], uu[KP / 4], unused = 1.f;
+#pragma unroll
+  for (int m = 0; m < KP / 16; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * q + 16 * m + e;
+      uu[4 * m + e] = i < K ? to_f(u[(size_t)row * K + i]) : 0.f;
+      S[4 * m + e] = H && i < K ? H[(size_t)i * V] : 0.f;
+    }
+  wkv_sweep<T, KP, true>(wkv_raw, S, uu, unused, r, k, w, v, o, row, Tn, K, V,
+                         c0, chunk * WKV_C, min(Tn, (chunk + 1) * WKV_C),
+                         kvec, vvec);
+}
+
 template <typename T, int KP>
 int launch_wkv6(int BH, int Tn, int K, int V, const void* r, const void* k,
                 const void* v, const void* w, const void* u, void* o,
-                cudaStream_t stream) {
-  const int VT = rec_threads(V);
-  const size_t smem = sizeof(float) * ((size_t)3 * REC_C * KP + KP +
-                                       (size_t)REC_C * VT);
-  const int err = set_smem(wkv6_kernel<T, KP>, smem);
-  if (err) return err;
-  const dim3 grid((unsigned)BH, (unsigned)((V + VT - 1) / VT));
-  wkv6_kernel<T, KP><<<grid, VT, smem, stream>>>(
-      Tn, K, V, (const T*)r, (const T*)k, (const T*)v, (const T*)w,
-      (const T*)u, (T*)o);
+                void* scratch, cudaStream_t stream) {
+  const int nc = (Tn + WKV_C - 1) / WKV_C;
+  if (nc > 65535 || (long long)K * V > INT_MAX / 4)
+    return (int)cudaErrorInvalidValue;
+  const unsigned vblocks = (unsigned)((V + WKV_VB - 1) / WKV_VB);
+  const bool kvec = (size_t)K * sizeof(T) % 16 == 0 && aligned(r, 16) &&
+                    aligned(k, 16) && aligned(w, 16);
+  const bool vvec = (size_t)V * sizeof(T) % 16 == 0 && aligned(v, 16);
+  // scratch: L (BH, nc - 1, K, V), then D (BH, nc - 1, K)
+  float* states = (float*)scratch;
+  float* decays = states + (size_t)BH * (nc - 1) * K * V;
+  constexpr size_t smem = wkv_smem<T, KP>();
+  int err;
+  if (nc > 1) {
+    auto* state = &wkv6_chunk_state<T, KP>;
+    if ((err = set_smem(state, smem))) return err;
+    KERNEL_LAUNCH(state, dim3((unsigned)BH, (unsigned)(nc - 1), vblocks),
+                  WKV_THREADS, smem, stream, Tn, K, V, nc, kvec, vvec,
+                  (const T*)r, (const T*)k, (const T*)v, (const T*)w, states,
+                  decays);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (nc > 2) {
+    const int vec = V % 4 == 0 ? 4 : 1;
+    const dim3 grid((unsigned)BH, (unsigned)((K * V / vec +
+                                              WKV_PASS_THREADS - 1) /
+                                             WKV_PASS_THREADS));
+    auto* pass =
+        vec == 4 ? &wkv6_state_passing<4> : &wkv6_state_passing<1>;
+    KERNEL_LAUNCH(pass, grid, WKV_PASS_THREADS, 0, stream, K, V, nc, states,
+                  decays);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  auto* scan = &wkv6_chunk_scan<T, KP>;
+  if ((err = set_smem(scan, smem))) return err;
+  KERNEL_LAUNCH(scan, dim3((unsigned)BH, (unsigned)nc, vblocks), WKV_THREADS,
+                smem, stream, Tn, K, V, nc, kvec, vvec, (const T*)r,
+                (const T*)k, (const T*)v, (const T*)w, (const T*)u, states,
+                (T*)o);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int wkv6_for_dim(int BH, int Tn, int K, int V, const void* r, const void* k,
                  const void* v, const void* w, const void* u, void* o,
-                 cudaStream_t s) {
+                 void* scratch, cudaStream_t s) {
   switch (state_pad(K)) {
-    case 16: return launch_wkv6<T, 16>(BH, Tn, K, V, r, k, v, w, u, o, s);
-    case 32: return launch_wkv6<T, 32>(BH, Tn, K, V, r, k, v, w, u, o, s);
-    case 64: return launch_wkv6<T, 64>(BH, Tn, K, V, r, k, v, w, u, o, s);
-    case 128: return launch_wkv6<T, 128>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    case 16:
+      return launch_wkv6<T, 16>(BH, Tn, K, V, r, k, v, w, u, o, scratch, s);
+    case 32:
+      return launch_wkv6<T, 32>(BH, Tn, K, V, r, k, v, w, u, o, scratch, s);
+    case 64:
+      return launch_wkv6<T, 64>(BH, Tn, K, V, r, k, v, w, u, o, scratch, s);
+    case 128:
+      return launch_wkv6<T, 128>(BH, Tn, K, V, r, k, v, w, u, o, scratch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+// ==== end of the K17 span
 
 // ---------------------------------------------------------------------------
 // K18 ssd — replaces src/repro/kernels/mamba2.py ssd (_ssd_kernel,
@@ -1158,16 +1380,6 @@ constexpr int SSD_HG_SCAN = 8;           // heads a chunk_scan CTA, at most
 static_assert(SSD_L == 64 && SSD_PT == 64, "the tiles are 16 x 4 wide");
 static_assert(SSD_HG_SCAN <= SSD_THREADS / 32, "a warp scans a head");
 static_assert(SSD_HG_STATE * SSD_L <= SSD_THREADS, "a weight a thread");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
-               ::: "memory");
-}
 
 // `count` elements of T from global `src` to shared `dst`: by 16-byte
 // cp.async when `vec` (both 16-byte aligned, count * sizeof(T) a multiple
@@ -1713,16 +1925,20 @@ int tf_flash_attention(int BH, int Tq, int Tk, int D, int dtype, int causal,
   }
 }
 
+// scratch: float32, BH * (ceil(Tn / 64) - 1) * K * (V + 1) words (the
+// wrapper allocates it; nothing is allocated here)
 int tf_wkv6(int BH, int Tn, int K, int V, int dtype, void* r, void* k,
-            void* v, void* w, void* u, void* o, void* stream) {
+            void* v, void* w, void* u, void* o, void* scratch, void* stream) {
   if (BH < 0 || Tn < 0 || K < 1 || V < 1)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Tn == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case DT_F32: return wkv6_for_dim<float>(BH, Tn, K, V, r, k, v, w, u, o, s);
+    case DT_F32:
+      return wkv6_for_dim<float>(BH, Tn, K, V, r, k, v, w, u, o, scratch, s);
     case DT_BF16:
-      return wkv6_for_dim<__nv_bfloat16>(BH, Tn, K, V, r, k, v, w, u, o, s);
+      return wkv6_for_dim<__nv_bfloat16>(BH, Tn, K, V, r, k, v, w, u, o,
+                                         scratch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -283,6 +283,56 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(r.dtype)
 
 
+def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       chunk: int = 64) -> torch.Tensor:
+    """:func:`rwkv6_scan` in the chunked form of the K17 kernel, its three
+    steps in plain torch, for the tests.
+
+    Per chunk of ``chunk`` steps: (1) each chunk's own end state ``L_c``
+    by the exact update from zero, and its decay product ``D_c = Π_t
+    w_t`` as a running product; (2) the state entering each chunk, ``S_0
+    = 0``, ``S_{c+1} = diag(D_c) S_c + L_c``; (3) each chunk's outputs by
+    the exact recurrence from ``S_c``.  No ratio of decay products and no
+    log-space sum, so w = 0 and w = 1 are exact.  Steps past T are zeros
+    in the last chunk, whose state is never passed on.  o in r's dtype,
+    rounded once.
+    """
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+
+    def chunks(x):
+        return F.pad(x.float(), (0, 0, 0, 0, 0, pad)).view(
+            B, nc, chunk, H, x.shape[-1])
+    rc, kc, vc, wc = (chunks(x) for x in (r, k, v, w))
+    uf = u.float()[:, :, None]                                 # (H, K, 1)
+
+    def kv_at(j):
+        return kc[:, :, j, :, :, None] * vc[:, :, j, :, None, :]
+    # 1. each chunk's own end state and decay product
+    L = torch.zeros(B, nc, H, K, V, dtype=torch.float32, device=r.device)
+    D = torch.ones(B, nc, H, K, dtype=torch.float32, device=r.device)
+    for j in range(chunk):
+        L = wc[:, :, j, :, :, None] * L + kv_at(j)
+        D = D * wc[:, :, j]
+    # 2. the state entering each chunk
+    states = [torch.zeros(B, H, K, V, dtype=torch.float32, device=r.device)]
+    for c in range(1, nc):
+        states.append(D[:, c - 1, :, :, None] * states[-1] + L[:, c - 1])
+    S = torch.stack(states, 1)                                # (B, nc, H, K, V)
+    # 3. each chunk's outputs
+    out = torch.empty(B, nc, chunk, H, V, dtype=torch.float32,
+                      device=r.device)
+    for j in range(chunk):
+        kv = kv_at(j)
+        out[:, :, j] = torch.einsum("bchk,bchkv->bchv", rc[:, :, j],
+                                    S + uf * kv)
+        S = wc[:, :, j, :, :, None] * S + kv
+    return out.reshape(B, nc * chunk, H, V)[:, :T].to(r.dtype)
+
+
 def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor) -> torch.Tensor:
     """Mamba-2 SSD recurrence (state-space dual), per head.

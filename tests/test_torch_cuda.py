@@ -240,18 +240,61 @@ def test_persistent_resumes_a_carry_taken_mid_run(card, monkeypatch):
 
 
 def test_persistent_refuses_a_spec_past_shared_memory(card):
-    """60000 words of memory do not fit in a CTA's 227 KB: ValueError
-    before any launch."""
+    """60000 words of memory do not fit in a CTA's 227 KB: ``hts_run``
+    itself raises ValueError before any launch (``Machine.run`` takes the
+    per-phase route instead: the tests below)."""
     p = HtsParams(mem_words=60_000)
     pop = batch.pack_population(programs.all_benches()[:2], params=p)
     spec = machine.MachineSpec(params=p, costs=costs.costs_by_name("naive"),
                                max_fu_per_class=4)
     m = machine.make_machine(spec, pop.max_prog, card)
     args = pop.machine_args()
+    a = machine.norm_args(m, *args)
+    assert not cuda_run.fits(m, pop.streams.shape[1])
     cuda_run.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
-        m.run(*args)
+        cuda_run.run_slice(m, m.init(*args), a, machine.BIG)
     assert cuda_run.launches == {"run": 0}
+
+
+#: specs ``hts_run`` cannot hold: an RS past its 64 entries, a lane state
+#: past 227 KB of shared memory
+UNFIT = {"rs_entries128": HtsParams(rs_entries=128),
+         "past_smem": HtsParams(mem_words=60_000)}
+
+
+@pytest.mark.parametrize("name", list(UNFIT))
+def test_a_spec_hts_run_cannot_hold_takes_the_per_phase_route(card, name):
+    """``hts.run`` and ``run_many`` on such a spec equal golden, through
+    the per-phase loop with the K1–K4 kernels: the launch counters show
+    K1–K4 and no ``hts_run``."""
+    p = UNFIT[name]
+    progs = programs.all_benches()[:3]
+    cuda_run.reset_launches()
+    cuda_step.reset_launches()
+    one = api.run(progs[0], params=p, device=card)
+    many = api.run_many(progs, params=p, device=card)
+    assert cuda_run.launches == {"run": 0}
+    assert all(n > 0 for n in cuda_step.launches.values()), \
+        cuda_step.launches
+    for i, prog in enumerate(progs):
+        g = api.run(prog, params=p, backend="golden")
+        for got in ([one] if i == 0 else []) + [many[i]]:
+            assert got.cycles == g.cycles, (name, prog.name)
+            assert got.schedule_tuple() == g.schedule_tuple(), prog.name
+
+
+def test_a_spec_hts_run_holds_takes_one_launch(card):
+    """At ``HtsParams()`` a ``run_many`` call is still one ``hts_run``
+    launch, and no K1–K4."""
+    progs = programs.all_benches()[:3]
+    cuda_run.reset_launches()
+    cuda_step.reset_launches()
+    r = api.run_many(progs, device=card)
+    assert cuda_run.launches == {"run": 1}
+    assert not any(cuda_step.launches.values()), cuda_step.launches
+    for i, prog in enumerate(progs):
+        assert r[i].cycles == api.run(prog, backend="golden").cycles
 
 
 def _frames(card, seed, *shape):
@@ -273,12 +316,32 @@ WIDTHS = pytest.mark.parametrize("n", [40, 256])
 
 
 @RAGGED
-@WIDTHS
-@pytest.mark.parametrize("k", [5, 8])
+@pytest.mark.parametrize("n", [40, 256, 42, 2056])
+@pytest.mark.parametrize("k", [5, 8, 12, 33])
 def test_real_fir_kernel_matches_plain(card, b, n, k):
+    """Rows packed into blocks (40, 256), a row wider than a block (2056),
+    the flat path (42 samples; 33 taps), taps in registers (5, 8) or
+    shared memory (12)."""
     x, h = _frames(card, b * n, b, n), _frames(card, k, k)
     got = _counted("real_fir", dsp_fir.real_fir, x, h)
     torch.testing.assert_close(got, ref.real_fir(x, h), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n", [(7, 40), (524288, 40)])
+def test_real_fir_kernel_off_16_byte_alignment_and_at_table_ii(card, b, n):
+    """x and y 4 bytes off 16-byte alignment take the flat path; Table II's
+    524288 frames of 40 the packed one."""
+    for off in (1, 0):
+        buf = _frames(card, b, b * n + off)
+        x = buf[off:].view(b, n)
+        y = torch.empty(b * n + off, device=card)[off:].view(b, n)
+        h = _frames(card, 8, 8)
+        before = dsp.launches["real_fir"]
+        dsp.launch("real_fir", b, n, 8, x, h, y)
+        torch.cuda.synchronize()
+        assert dsp.launches["real_fir"] == before + 1
+        torch.testing.assert_close(y, ref.real_fir(x, h), rtol=1e-5,
+                                   atol=1e-5)
 
 
 @RAGGED
@@ -740,26 +803,49 @@ def _rec_close(got, want, dtype):
                                    atol=tol)
 
 
+def _model_decays(card, seed, bh, t, kd, dtype):
+    """w as rwkv6's time mixing makes it: ``exp(-exp(x))``, x ~ N(0, 2),
+    in ``dtype`` (some underflow to 0 and, in bf16, some round to 1), with
+    channel 0 exactly 0 and channel 1 exactly 1 in every row, and the last
+    row (given two or more) exactly 1 throughout."""
+    w = torch.exp(-torch.exp(2.0 * _frames(card, seed, bh, t, kd)))
+    w[..., 0], w[..., 1] = 0.0, 1.0
+    if bh > 1:
+        w[-1] = 1.0
+    return w.to(dtype)
+
+
 @pytest.mark.parametrize("bh,t,kd,vd", [(2, 64, 32, 32), (8, 128, 64, 64),
                                         (1, 96, 64, 128), (3, 1000, 64, 64),
-                                        (5, 33, 16, 200), (2, 70, 100, 24)])
+                                        (5, 33, 16, 200), (2, 70, 100, 24),
+                                        (3, 1, 64, 64), (2, 129, 64, 64),
+                                        (80, 1024, 64, 64)])
+@pytest.mark.parametrize("decay", ["drawn", "model"])
 @pytest.mark.parametrize("dtype", list(REC_TOL))
-def test_wkv6_kernel_matches_plain(card, bh, t, kd, vd, dtype):
-    """Ragged T (no multiple of the staged chunk), a K padded to its
-    register width, V split over CTAs; w in (0.5, 1) as the JAX test."""
+def test_wkv6_kernel_matches_plain(card, bh, t, kd, vd, decay, dtype):
+    """Ragged T (one step, one past two chunks, no multiple of the
+    chunk), a K padded to its register width, V split over CTAs, rwkv6-3b's
+    forward rows; w in (0.5, 1) as the JAX test draws it, or as the model
+    does (exact 0 and 1 among them).  One counted launch, against the
+    step-by-step plain scan and its chunked mirror."""
     r = (_frames(card, 1, bh, t, kd) * 0.5).to(dtype)
     k = (_frames(card, 2, bh, t, kd) * 0.5).to(dtype)
     v = (_frames(card, 3, bh, t, vd) * 0.5).to(dtype)
-    w = (torch.sigmoid(_frames(card, 4, bh, t, kd)) * 0.5 + 0.5).to(dtype)
+    if decay == "model":
+        w = _model_decays(card, 4, bh, t, kd, dtype)
+    else:
+        w = (torch.sigmoid(_frames(card, 4, bh, t, kd)) * 0.5 + 0.5).to(dtype)
     u = (_frames(card, 5, bh, kd) * 0.3).to(dtype)
     lib = dsp.TRANSFORMER_LIB
     before = lib.launches["wkv6"]
     got = rwkv6.wkv6(r, k, v, w, u)
     torch.cuda.synchronize()
     assert lib.launches["wkv6"] == before + 1
-    want = ref.rwkv6_scan(*(x.transpose(0, 1)[None] for x in (r, k, v, w)),
-                          u)[0].transpose(0, 1)
+    rows = [x.transpose(0, 1)[None] for x in (r, k, v, w)]
+    want = ref.rwkv6_scan(*rows, u)[0].transpose(0, 1)
     _rec_close(got, want, dtype)
+    mirror = ref.rwkv6_scan_chunked(*rows, u, rwkv6.KERNEL_CHUNK)
+    _rec_close(got, mirror[0].transpose(0, 1), dtype)
 
 
 def _ssd_checked(x, a, bb, c, dtype):

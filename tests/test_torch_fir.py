@@ -234,3 +234,52 @@ def test_main_runs_table2_and_a_synthetic_program(capsys):
     pipeline.main(["--program", "synthetic", "--bench", "no_dependency",
                    "--frames", "4", "--device", "cpu"])
     assert "18692 cycles" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# K5 real_fir: the kernel's source under emulation (csrc/dsp.cu's K5 span
+# built with g++ against tests/cuda_emu.h)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def emulated_fir(tmp_path_factory):
+    """K5's span (both kernels and the launcher) built for the CPU, with a
+    C entry that runs it as ``dsp_real_fir`` does."""
+    import ctypes
+
+    import emu_build
+    from repro_torch.kernels import common
+    code = emu_build.span(common.LIB.source.read_text(), "K5")
+    code = code.replace("extern __shared__ __align__(16) unsigned char "
+                        "fir_raw[];", "unsigned char* fir_raw = emu_smem();")
+    code += r"""
+extern "C" int emu_real_fir(int B, int N, int K, void* x, void* h, void* y) {
+  return launch_real_fir(B, N, K, (const float*)x, (const float*)h,
+                         (float*)y, nullptr);
+}
+"""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return emu_build.build(tmp_path_factory.mktemp("fir_emu"), code,
+                           {"emu_real_fir": [I] * 3 + [P] * 3})
+
+
+@pytest.mark.parametrize("b,n,k,offset", [
+    (1, 40, 8, 0), (300, 40, 5, 0), (300, 256, 8, 0), (33, 40, 8, 0),
+    (3, 40, 12, 0), (7, 2056, 8, 0), (2, 4, 32, 0), (9, 64, 1, 0),
+    (5, 42, 8, 0), (6, 40, 8, 1), (4, 40, 33, 0)],
+    ids=["1x40", "300x40-k5", "300x256", "33x40", "k12", "tiled-2056",
+         "halo-past-row", "k1", "flat-42", "flat-misaligned", "flat-k33"])
+def test_real_fir_kernel_source_matches_plain_under_emulation(
+        emulated_fir, b, n, k, offset):
+    """Rows packed into blocks (25 rows of 40, 4 of 256, a ragged last
+    block), a row wider than a block (three tiles, halos from the row), a
+    halo wider than the row, the taps in registers (8, 5) or shared memory
+    (12, 32, 1); the flat path for N not a multiple of 4, a base 4 bytes
+    off 16-byte alignment and K past 32.  Against the plain version within
+    the reference tests' 1e-5."""
+    x = torch.from_numpy(frames(n * 31 + k, b * n + offset))[offset:]
+    x = x.view(b, n)
+    h = torch.from_numpy(frames(k, k)) / k
+    y = torch.full((b * n + offset,), float("nan"))[offset:].view(b, n)
+    assert emulated_fir.emu_real_fir(b, n, k, x.data_ptr(), h.data_ptr(),
+                                     y.data_ptr()) == 0
+    close(y, dsp_fir.real_fir(x, h), TOL["real_fir"])

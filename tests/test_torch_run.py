@@ -14,9 +14,6 @@ makes of it.
 import ctypes
 import dataclasses
 import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -217,6 +214,59 @@ def test_refuses_a_spec_it_cannot_take(change, match):
         cuda_run.check_fits(_machine(*MAIN), 33)
 
 
+@pytest.mark.parametrize("params,wc,NS,want", [
+    MAIN + (8, True), FIG10 + (1, True),
+    (HtsParams(rs_entries=128), 4, 1, False),
+    (HtsParams(), 4, 33, False),
+    (HtsParams(mem_words=60_000), 4, 1, False)],
+    ids=["main", "fig10", "rs_entries128", "streams33", "past_smem"])
+def test_fits_says_which_specs_hts_run_takes(params, wc, NS, want):
+    """The route's predicate: never raises, and agrees with
+    ``check_fits``."""
+    m = _machine(params, wc)
+    assert cuda_run.fits(m, NS) is want
+    if want:
+        assert cuda_run.check_fits(m, NS) == cuda_run.layout(m, NS)[2]
+    else:
+        with pytest.raises(ValueError, match="hts_run"):
+            cuda_run.check_fits(m, NS)
+
+
+@pytest.mark.parametrize("params,hts_run", [
+    (HtsParams(), True), (HtsParams(rs_entries=128), False),
+    (HtsParams(mem_words=60_000), False)],
+    ids=["defaults", "rs_entries128", "past_smem"])
+def test_a_card_carry_takes_the_route_its_spec_allows(monkeypatch, params,
+                                                      hts_run):
+    """``machine._advance`` on a carry it takes for the card's: one
+    ``hts_run`` slice where the spec fits, else the per-phase loop, chosen
+    before any launch; ``hts.run`` still equals golden either way.  Here
+    the card is a stand-in: ``_advance`` sees the CPU carry as on the card,
+    and ``cuda_run.run_slice`` runs the per-phase loop and is recorded."""
+    slices, loops = [], []
+    real_loop = machine._loop
+    monkeypatch.setattr(machine, "_build",
+                        type("Card", (), {"on_card": staticmethod(
+                            lambda dev: True)}))
+
+    def run_slice(m, st, a, budget):
+        cuda_run.check_fits(m, a.streams.shape[1])
+        slices.append(budget)
+        return real_loop(m, st, a, budget)
+
+    def loop(*args, **kw):
+        loops.append(args[3])
+        return real_loop(*args, **kw)
+    monkeypatch.setattr(cuda_run, "run_slice", run_slice)
+    monkeypatch.setattr(machine, "_loop", loop)
+    prog = programs.all_benches()[0]
+    got = thts.run(prog, params=params, device="cpu")
+    want = thts.run(prog, params=params, backend="golden")
+    assert got.cycles == want.cycles
+    assert got.schedule_tuple() == want.schedule_tuple()
+    assert (len(slices), len(loops)) == ((1, 0) if hts_run else (0, 1))
+
+
 def test_checks_every_carry_tensor():
     progs, fu_cost = _population(tworkloads, 3)
     pop = tbatch.pack_population(progs, fu_cost=fu_cost)
@@ -307,27 +357,18 @@ def emulated(tmp_path_factory):
     """``hts_run.cu``'s kernel built for the CPU: its C entries (which
     launch on the card) are cut off and the runner above takes their
     place."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ (C++20) to build the emulated kernel")
+    import emu_build
     kernel = SOURCE[:SOURCE.index('extern "C" {')]
-    swaps = (("#include <cuda_runtime.h>", '#include "cuda_emu.h"'),
+    swaps = (("#include <cuda_runtime.h>", ""),
              ("extern __shared__ __align__(16) unsigned char smem[];",
               "unsigned char* smem = emu_smem();"))
     for old, new in swaps:
         assert kernel.count(old) == 1, old
         kernel = kernel.replace(old, new)
-    out = tmp_path_factory.mktemp("hts_run_emu")
-    (out / "emu.cpp").write_text(kernel + EMU_RUNNER)
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-         f"-I{Path(__file__).parent}", "-o", str(out / "libemu.so"),
-         str(out / "emu.cpp")], capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    lib = ctypes.CDLL(str(out / "libemu.so"))
-    lib.emu_hts_run.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                ctypes.c_void_p]
-    return lib
+    return emu_build.build(tmp_path_factory.mktemp("hts_run_emu"),
+                           kernel + EMU_RUNNER,
+                           {"emu_hts_run": [ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_void_p]})
 
 
 def _launch_emulated(lib, m, st, a, budget):

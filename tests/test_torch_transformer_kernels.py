@@ -317,3 +317,120 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         attention.flash_attention(q, torch.zeros(2, 8, 16), q)
     with pytest.raises(ValueError, match="at least one key"):
         attention.flash_attention(q, q[:, :0], q[:, :0])
+
+
+# ---------------------------------------------------------------------------
+# K17 wkv6 in chunks: the plain mirror, and the kernel's source under
+# emulation (csrc/transformer.cu's K17 span built with g++)
+# ---------------------------------------------------------------------------
+WKV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def wkv_inputs(seed, b, t, h, kd, vd):
+    """r, k, v (0.5 N) and u (0.3 N) as the JAX tests draw them; w as
+    rwkv6's time mixing makes it, ``exp(-exp(x))`` with x ~ N(0, 2) (so
+    that some underflow to 0 and, in bf16, some round to 1), with channel
+    0 of every head exactly 0 and channel 1 exactly 1, and, given two
+    heads or more, the last head exactly 1 throughout.  float32 numpy,
+    (B, T, H, ·) and u (H, K)."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s, sc=0.5):
+        return (rng.standard_normal(s) * sc).astype(np.float32)
+    r, k, v = f(b, t, h, kd), f(b, t, h, kd), f(b, t, h, vd)
+    w = np.exp(-np.exp(2.0 * rng.standard_normal((b, t, h, kd)))).astype(
+        np.float32)
+    w[..., 0], w[..., 1] = 0.0, 1.0
+    if h > 1:
+        w[:, :, -1] = 1.0
+    return r, k, v, w, f(h, kd, sc=0.3)
+
+
+def wkv_close(got, want, dtype):
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= WKV_TOL[dtype], err
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=WKV_TOL[dtype], atol=WKV_TOL[dtype])
+
+
+@pytest.mark.parametrize("kd,vd", [(16, 24), (64, 64), (100, 200)])
+@pytest.mark.parametrize("t", [1, rwkv6.KERNEL_CHUNK - 1,
+                               rwkv6.KERNEL_CHUNK + 1, 1000])
+def test_plain_chunked_wkv6_matches_the_reference(t, kd, vd):
+    """``ref.rwkv6_scan_chunked`` (the K17 kernel's three steps in plain
+    torch) against the port's step-by-step ``ref.rwkv6_scan`` and JAX's
+    Pallas ``wkv6`` (through its op, interpret mode), float32 within 1e-5
+    normwise, at the decays the model draws (exact 0 and 1 included)."""
+    arrays = wkv_inputs(t * 7 + kd, 1, t, 2, kd, vd)
+    tin = [torch.from_numpy(a) for a in arrays]
+    got = tref.rwkv6_scan_chunked(*tin, chunk=rwkv6.KERNEL_CHUNK)
+    wkv_close(got, tref.rwkv6_scan(*tin), torch.float32)
+    want = np.array(jops.rwkv6_scan(*[jnp.asarray(a) for a in arrays]))
+    wkv_close(got, torch.from_numpy(want), torch.float32)
+
+
+@pytest.fixture(scope="module")
+def emulated_wkv6(tmp_path_factory):
+    """K17's span of ``csrc/transformer.cu`` (its three kernels, launcher
+    and dispatch) built for the CPU, with the helpers it takes from the
+    file's top and a C entry that runs it as ``tf_wkv6`` does."""
+    import ctypes
+
+    import emu_build
+    code = r"""
+inline float to_f(float v) { return v; }
+inline float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> T from_f(float v);
+template <> inline float from_f<float>(float v) { return v; }
+template <> inline __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+""" + emu_build.span(common.TRANSFORMER_LIB.source.read_text(), "K17")
+    code = code.replace("extern __shared__ __align__(16) unsigned char "
+                        "wkv_raw[];", "unsigned char* wkv_raw = emu_smem();")
+    code += r"""
+extern "C" int emu_wkv6(int BH, int Tn, int K, int V, int dtype, void* r,
+                        void* k, void* v, void* w, void* u, void* o,
+                        void* scratch) {
+  if (dtype == 0)
+    return wkv6_for_dim<float>(BH, Tn, K, V, r, k, v, w, u, o, scratch,
+                               nullptr);
+  return wkv6_for_dim<__nv_bfloat16>(BH, Tn, K, V, r, k, v, w, u, o,
+                                     scratch, nullptr);
+}
+"""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return emu_build.build(tmp_path_factory.mktemp("wkv6_emu"), code,
+                           {"emu_wkv6": [I] * 5 + [P] * 7})
+
+
+@pytest.mark.parametrize("bh,t,kd,vd,dtype", [
+    (2, 1, 16, 24, torch.float32),
+    (2, rwkv6.KERNEL_CHUNK - 1, 64, 64, torch.bfloat16),
+    (2, rwkv6.KERNEL_CHUNK + 1, 100, 200, torch.float32),
+    (3, 2 * rwkv6.KERNEL_CHUNK + 1, 100, 30, torch.bfloat16),
+    (1, 1000, 64, 64, torch.float32),
+    (2, 200, 16, 24, torch.bfloat16)],
+    ids=["t1", "c-1-bf16", "c+1", "2c+1-unaligned-bf16", "t1000",
+         "t200-bf16"])
+def test_wkv6_kernel_source_matches_plain_under_emulation(emulated_wkv6, bh,
+                                                          t, kd, vd, dtype):
+    """The three K17 kernels as the C entry launches them, in the wrapper's
+    scratch, against the step-by-step plain scan (float32 1e-5 normwise,
+    bf16 2e-2), at the decays the model draws; bf16 rows of 100 (200
+    bytes) and 30 (60) are not whole 16-byte vectors and take the plain
+    loads."""
+    r, k, v, w, u = (torch.from_numpy(a[0] if a.ndim == 4 else a).to(dtype)
+                     for a in wkv_inputs(bh * t + kd, 1, t, bh, kd, vd))
+    # the wrapper's layout: rows (BH, T, ·), u per row
+    r, k, v, w = (x.transpose(0, 1).contiguous() for x in (r, k, v, w))
+    out = torch.empty(bh, t, vd, dtype=dtype)
+    scratch = torch.empty(rwkv6.scratch_floats(bh, t, kd, vd))
+    assert emulated_wkv6.emu_wkv6(
+        bh, t, kd, vd, common.DTYPE_CODES[dtype],
+        *(x.data_ptr() for x in (r, k, v, w, u, out, scratch))) == 0
+    want = rwkv6.wkv6(r, k, v, w, u)            # the CPU route: plain scan
+    wkv_close(out, want, dtype)

@@ -18,7 +18,8 @@ at full width through ``forward`` and the ``Server`` — then checks them:
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
    spills of ``hts_run_kernel`` and of each instance of K5
-   ``real_fir_packed<KT>``, K13 ``fft_kernel<L>``, K14
+   ``real_fir_packed<KT>``, K7 ``adaptive_fir_packed<K>``, K12
+   ``correlation_packed<LT>``, K13 ``fft_kernel<L>``, K14
    ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
    ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>``, K17's three kernels
    (``wkv6_chunk_state``, ``wkv6_state_passing``, ``wkv6_chunk_scan``)
@@ -73,10 +74,15 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    ``vector_max`` and K14 ``dct`` at the image pipeline's (262144 tiles of
    64 pixels), K6 ``complex_fir``, K7 ``adaptive_fir`` and K8 ``iir`` at
    Table II's (524288 frames of 40 samples) and at the JAX tests' shapes,
-   all at ragged edge shapes too, within the reference tests' tolerances
-   (1e-5; 1e-4 for the DCT, with TF32 off for its plain version, and for
-   K6–K8; 1e-3 for the FFT; K10 and K11 ``torch.equal``, also on rows 4
-   bytes off alignment, and K11 NaN where a row holds one); the
+   all at ragged edge shapes too; K12 also at the image path's call
+   (262144 × 64, lag 4, y the same tensor as x) and K7 at Table II's with
+   d the same tensor as x (the dispatch entries' calls), each also at the
+   shapes of their packed and flat kernels (threads a row, rows longer
+   than a tile, rows 4 bytes off alignment); within the reference tests'
+   tolerances (1e-5; 1e-4 for the DCT, with TF32 off for its plain
+   version, and for K6–K8; 1e-3 for the FFT; K10 and K11 ``torch.equal``,
+   also on rows 4 bytes off alignment, and K11 NaN where a row holds one);
+   the
    ``complex_fir`` dispatch entry ``torch.equal`` to zeros;
 6b. audio pipeline: ``audio_compression(8)``, both arms, scheduled on the
    card (equal to golden in cycles and schedule) and executed through
@@ -92,7 +98,9 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    (2)`` alone is scheduled too, for the sharing gain.  Each schedule
    must take one ``hts_run`` launch, DSP launches must
    equal live tasks, the output must be finite and within 1e-3 of the
-   plain table's; the phase's peak device memory is printed;
+   plain table's; the phase's peak device memory and each DSP kernel's
+   device ms a launch inside the profiled schedules (K12's among them)
+   are printed;
 8. the paper's evaluation: (a) Table II — each of the ten dispatch
    entries once on 524288 frames at its Table II width, against the plain
    table, one launch each; (b) Figs 7 and 8 — the synthetic benchmarks
@@ -169,7 +177,10 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    at rwkv6's and zamba2's forward rows) and of K17 and K18 at the models'
    forward shapes (each one's device time the sum of its three kernels,
    split; their scratch bytes), K5 and ``conv1d`` also at Table II's 524288
-   x 40, beside the bound.  ``--only 5b`` times them
+   x 40, K12 and grouped ``conv1d`` also at the image path's call (262144
+   x 64, y is x), K7 also with d is x, beside the bound (with the second
+   array x itself, x read once; the bound reading it twice beside it).
+   ``--only 5b`` times them
    all on their own (launches are counted only on the paths that ran).
 
 The last lines are the card (``nvidia-smi``), one JSON object
@@ -290,14 +301,16 @@ DSP_CASES = {
     "complex_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
                     (64, 40, 8), (1, 96, 12), (64, 96, 12), (300, 40, 8)],
     "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
-                     (32, 40, 8), (1, 64, 4), (32, 64, 4), (300, 40, 8)],
+                     (32, 40, 8), (1, 64, 4), (32, 64, 4), (300, 40, 8),
+                     (5, 136, 8), (260, 200, 4), (7, 42, 8)],
     "iir": [(TABLE_FRAMES, TABLE_SAMPLES, ENTRY_IIR), (1, 40, TEST_IIR),
             (33, 40, TEST_IIR), (1, 80, TEST_IIR), (33, 80, TEST_IIR),
             (300, 40, ENTRY_IIR)],
     "vector_dot": [(FRAMES, SAMPLES, None), (1, 40, None), (300, 40, None),
                    (300, 256, None)],
-    "correlation": [(FRAMES, SAMPLES, MAX_LAG), (1, 40, 4), (300, 40, 10),
-                    (300, 256, 4)],
+    "correlation": [(FRAMES, SAMPLES, MAX_LAG), (TILES, PIXELS, MAX_LAG),
+                    (1, 40, 4), (300, 40, 10), (300, 256, 4), (130, 128, 10),
+                    (3, 1024, 10), (9, 42, 4), (7, 64, 0)],
     "fft": [(FRAMES, SAMPLES, None), (1, 256, None), (300, 256, None),
             (300, 64, None)],
     "vector_add": [(TILES, PIXELS, None), (1, 40, None), (300, 64, None),
@@ -307,18 +320,31 @@ DSP_CASES = {
     "dct": [(TILES, PIXELS, None), (1, 40, None), (300, 64, None),
             (65, 128, None), (7, 40, None)],
 }
+#: the same with the second array the first (y is x, d is x), as the
+#: dispatch entries call K12 and K7: the image path's shape first
+ALIAS_CASES = {
+    "correlation": [(TILES, PIXELS, MAX_LAG), (300, 64, 4), (70, 256, 4),
+                    (33, 40, 10), (3, 1024, 10), (9, 42, 4)],
+    "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (300, 40, 8),
+                     (130, 64, 4), (5, 136, 8), (7, 42, 8)],
+}
 #: the shape each DSP kernel is timed at (phase 5b): its pipeline's
 DSP_SHAPE = {"vector_add": (TILES, PIXELS), "vector_max": (TILES, PIXELS),
              "dct": (TILES, PIXELS),
              "complex_fir": (TABLE_FRAMES, TABLE_SAMPLES),
              "adaptive_fir": (TABLE_FRAMES, TABLE_SAMPLES),
              "iir": (TABLE_FRAMES, TABLE_SAMPLES)}
-#: K5 is also timed at Table II's shape (phase 5b), with its library call
-FIR_TABLE_SHAPE = (TABLE_FRAMES, TABLE_SAMPLES)
+#: more shapes each is timed at (phase 5b), beside its row's: (B, N, taps
+#: or lag, second array the first): K5 at Table II's, K12 at the image
+#: path's call (y is x), K7 at Table II's with d is x
+DSP_EXTRA = {"real_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, False)],
+             "correlation": [(TILES, PIXELS, MAX_LAG, True)],
+             "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, True)]}
 #: the kernel a DSP wrapper launches, as the profiler names it (a
-#: substring), where it is not ``<name>_kernel``: K5's packed and flat
-#: kernels (one of them a call)
-DSP_KERNEL = {"real_fir": "real_fir_"}
+#: substring), where it is not ``<name>_kernel``: K5's, K7's and K12's
+#: packed and flat kernels (one of them a call)
+DSP_KERNEL = {"real_fir": "real_fir_", "adaptive_fir": "adaptive_fir_",
+              "correlation": "correlation_"}
 #: taps, lag or (b, a) per kernel in phase 5b
 DSP_PARAM = {"real_fir": TAPS, "complex_fir": 8, "adaptive_fir": 8,
              "iir": ENTRY_IIR, "correlation": MAX_LAG}
@@ -700,11 +726,12 @@ def costliest(events, per=1, n=8):
 # ---------------------------------------------------------------------------
 # the DSP kernels (K5, K9–K14) and the audio, image and shared pipelines
 # ---------------------------------------------------------------------------
-def dsp_case(torch, kern, name, b, n, p, seed):
+def dsp_case(torch, kern, name, b, n, p, seed, alias=False):
     """(wrapper, plain version, args) of one call of DSP kernel ``name`` on
     float32 frames made from ``seed``; ``p`` is the FIR's tap count, the
-    correlation's lag or the IIR's (b, a).  ``kern`` holds the port's
-    kernel modules."""
+    correlation's lag or the IIR's (b, a).  ``alias``: K12's y and K7's d
+    are x itself, as the dispatch entries pass them.  ``kern`` holds the
+    port's kernel modules."""
     rng = np.random.default_rng(seed)
 
     def f(*shape):
@@ -718,8 +745,9 @@ def dsp_case(torch, kern, name, b, n, p, seed):
         return kern["fir"].complex_fir, ref.complex_fir, (f(b, n, 2),
                                                           f(p, 2))
     if name == "adaptive_fir":
+        x = f(b, n)
         return (kern["fir"].adaptive_fir, ref.adaptive_fir,
-                (f(b, n), f(b, n), LMS_MU, p))
+                (x, x if alias else f(b, n), LMS_MU, p))
     if name == "iir":
         bc, ac = (torch.tensor(c, dtype=torch.float32, device=DEVICE)
                   for c in p)
@@ -731,8 +759,9 @@ def dsp_case(torch, kern, name, b, n, p, seed):
     if name == "vector_max":
         return kern["vec"].vector_max, ref.vector_max, (f(b, n),)
     if name == "correlation":
+        x = f(b, n)
         return (kern["vec"].correlation, ref.correlation,
-                (f(b, n), f(b, n), p))
+                (x, x if alias else f(b, n), p))
     if name == "dct":
         return kern["spec"].dct, ref.dct, (f(b, n),)
     return kern["spec"].fft, ref.fft, (f(b, n, 2),)
@@ -767,11 +796,13 @@ def same(torch, got, want, tol) -> bool:
     return torch.allclose(got, want, rtol=tol, atol=tol)
 
 
-def dsp_bound(name, args):
+def dsp_bound(name, args, once=True):
     """Least time for the function on these inputs: each input byte read
     once and each output byte written once at HBM bandwidth, against the
     flops these inputs need (zero-fill terms not counted) at the fp32 rate
-    outside the tensor cores; the larger, and which one it is."""
+    outside the tensor cores; the larger, and which one it is.  Where K7's
+    d or K12's y is x itself, x is one input, read once; ``once=False``
+    counts it twice, as the figures before that case did."""
     if name == "real_fir":
         x, h = args
         (B, N), K = x.shape, h.shape[0]
@@ -783,9 +814,9 @@ def dsp_bound(name, args):
         nbytes = 4 * (4 * B * N + 2 * K)
         ops = B * sum(6 + 8 * (min(K, i + 1) - 1) for i in range(N))
     elif name == "adaptive_fir":
-        x, _d, _mu, K = args
+        x, d, _mu, K = args
         B, N = x.shape
-        nbytes = 4 * 3 * B * N
+        nbytes = 4 * (2 if once and d is x else 3) * B * N
         ops = B * N * (4 * K + 1)
     elif name == "iir":
         x, bc, ac = args
@@ -814,9 +845,10 @@ def dsp_bound(name, args):
         nbytes = 4 * (2 * B * N + N * N)       # x, out, the matrix once
         ops = B * N * (2 * N - 1)
     elif name == "correlation":
-        x, _y, L = args
+        x, y, L = args
         B, N = x.shape
-        nbytes = 4 * (2 * B * N + B * (2 * L + 1))
+        reads = 1 if once and y is x else 2
+        nbytes = 4 * (reads * B * N + B * (2 * L + 1))
         ops = B * sum(max(0, 2 * (N - abs(l - L)) - 1)
                       for l in range(2 * L + 1))
     else:
@@ -1250,7 +1282,8 @@ def main(argv=None) -> int:
         return 1
 
     # the redesigned kernels: ptxas's registers and spills of hts_run and
-    # of each instance of K13, K14, bf16 K15, K16 and K18's three kernels,
+    # of each instance of K5, K7, K12, K13, K14, bf16 K15, K16, K17's and
+    # K18's three kernels,
     # and the
     # tensor-core instructions (HGMMA) in K15's SASS: the bf16 kernel must
     # have them, the float32 one none
@@ -1282,7 +1315,11 @@ def main(argv=None) -> int:
                 ("wkv6", tf, rf"wkv6_chunk_scanI{dt}Li(\d+)E",
                  "wkv6_chunk_scan"),
                 ("real_fir", dsp.LIB, r"real_fir_packedILi(\d+)E",
-                 "real_fir_packed")):
+                 "real_fir_packed"),
+                ("adaptive_fir", dsp.LIB, r"adaptive_fir_packedILi(\d+)E",
+                 "adaptive_fir_packed"),
+                ("correlation", dsp.LIB, r"correlation_packedILi(\d+)E",
+                 "correlation_packed")):
             facts.setdefault(name, {})
             if not lib.info:
                 log(f"{label}: cached build, no ptxas report")
@@ -1302,7 +1339,7 @@ def main(argv=None) -> int:
         assert len(bf16) == 2 and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
         assert len(fp32) == 4 and not any(fp32.values()), fp32
-    phase("1 ptxas of hts_run, K5, K13-K18, SASS of K15", build_facts)
+    phase("1 ptxas of hts_run, K5, K7, K12-K18, SASS of K15", build_facts)
 
     ctx: dict = {}
 
@@ -1665,6 +1702,13 @@ def main(argv=None) -> int:
                 wrapper, plain, args = dsp_case(torch, kern, name, b, n, p, i)
                 check_dsp(name, wrapper, plain, args,
                           f"B={b:<6d} N={n:<4d} p={p}")
+        for name, cases in ALIAS_CASES.items():
+            for i, (b, n, p) in enumerate(cases):
+                wrapper, plain, args = dsp_case(torch, kern, name, b, n, p,
+                                                40 + i, alias=True)
+                check_dsp(name, wrapper, plain, args,
+                          f"B={b:<6d} N={n:<4d} p={p} "
+                          f"{'y' if name == 'correlation' else 'd'} is x")
         # rows 4 bytes past a 16-byte boundary: the scalar loads
         unaligned = {
             "vector_dot": (dsp_vector.vector_dot, ref.vector_dot, 256),
@@ -1681,6 +1725,22 @@ def main(argv=None) -> int:
         h = torch.full((8,), 0.125, device=DEVICE)
         check_dsp("real_fir", dsp_fir.real_fir, ref.real_fir, (x, h),
                   "B=300    N=40   unaligned rows")
+        # K12 and K7 there take their flat kernels, with and without alias
+        def off_rows(seed, n):
+            rng = np.random.default_rng(seed)
+            return torch.from_numpy(rng.standard_normal(
+                300 * n + 1, dtype=np.float32)).to(DEVICE)[1:].view(300, n)
+
+        for alias in (False, True):
+            x, z = off_rows(20 + alias, 64), off_rows(22 + alias, 40)
+            tag = " (second array x)" if alias else ""
+            check_dsp("correlation", dsp_vector.correlation,
+                      ref.correlation, (x, x if alias else x.flip(0), 4),
+                      f"B=300    N=64   unaligned rows{tag}")
+            check_dsp("adaptive_fir", dsp_fir.adaptive_fir,
+                      ref.adaptive_fir,
+                      (z, z if alias else z.flip(0), LMS_MU, 8),
+                      f"B=300    N=40   unaligned rows{tag}")
         # a NaN in one row: vector_max must give NaN there, as amax does
         wrapper, plain, (x,) = dsp_case(torch, kern, "vector_max", 300, 64,
                                         None, 12)
@@ -1712,10 +1772,13 @@ def main(argv=None) -> int:
             walls.append(time.perf_counter() - t0)
         return sorted(walls)[EXEC_REPS // 2], walls, out
 
+    in_schedule: dict = {}      # DSP kernel -> schedule -> device ms a launch
+
     def profile_execution(name, tasks, x, table, exec_s):
         """One profiled execution (after one traced as the warm-up): the
         device's busy share read two ways (over the profiled wall; over
-        the unprofiled median) and the costliest device activities."""
+        the unprofiled median), the costliest device activities, and each
+        DSP kernel's device ms a launch there (into ``in_schedule``)."""
         def run():
             dsp_pipeline.execute(tasks, x, table)
 
@@ -1732,6 +1795,14 @@ def main(argv=None) -> int:
             f"median), {len(events)} device activities  on {card}")
         for key, us, cnt in costliest(events):
             log(f"    {us:9.1f} us  x{cnt:<4d} {key}  on {card}")
+        for kname in dsp.launches:
+            sub = DSP_KERNEL.get(kname, f"{kname}_kernel")
+            times = [us for key, us in events if sub in key]
+            if times:
+                ms = sum(times) / len(times) / 1e3
+                in_schedule.setdefault(kname, {})[name] = ms
+                log(f"{name}: {kname} {ms:.4f} ms a launch on the device "
+                    f"over {len(times)} traced launches  on {card}")
 
     def pipeline_run(bench, x, params, live_want, unit):
         """``run_pipeline`` with every DSP count set to 0 just before and
@@ -2684,27 +2755,45 @@ def main(argv=None) -> int:
     phase("10d forward vs decode in float32", ssm_logic)
 
     # 5b. DSP kernel times at each path's shape -----------------------------
-    def fir_at_table(row, wrapper, plain, i):
-        """K5 at Table II's 524288 x 40 too (the synthetic schedules'
-        shape): device, call, plain and conv1d (TF32 off) times and the
-        bound, into ``row`` under ``*_524288x40``; a note for the log."""
-        b, n = FIR_TABLE_SHAPE
-        _w, _p, args = dsp_case(torch, kern, "real_fir", b, n, 8, 150 + i)
-        calls = [functools.partial(wrapper, *args)] * 23
-        key = f"{b}x{n}"
-        row[f"ms_{key}"] = profiled_ms(torch, calls, DSP_KERNEL["real_fir"])
-        row[f"call_ms_{key}"] = events_ms(torch, calls)
-        row[f"plain_ms_{key}"] = events_ms(
-            torch, [functools.partial(plain, *args)] * 8)
-        with Fp32Matmul(torch):
-            call = library_call(torch, "real_fir", args, ref)
-            row[f"library_ms_{key}"] = events_ms(torch, [call] * 23)
-        row[f"bound_ms_{key}"] = dsp_bound("real_fir", args)[0]
-        return (f"; at {b} x {n}: kernel {row[f'ms_{key}']} ms on the "
-                f"device, {row[f'call_ms_{key}']:.4f} ms per call, plain "
-                f"{row[f'plain_ms_{key}']:.4f} ms, conv1d "
-                f"{row[f'library_ms_{key}']:.4f} ms, bound "
-                f"{row[f'bound_ms_{key}']:.4f} ms")
+    def extra_times(row, name, wrapper, plain, i):
+        """The kernel at its ``DSP_EXTRA`` shapes too: device, call, plain
+        and library (TF32 off) times and the bound, into ``row`` under
+        ``*_<B>x<N>`` (``_y_is_x`` / ``_d_is_x`` where the second array is
+        x itself, with the bound counting x twice beside it as
+        ``bound_two_reads_ms_*``); a note for the log."""
+        note = ""
+        for b, n, p, alias in DSP_EXTRA.get(name, ()):
+            _w, _p, args = dsp_case(torch, kern, name, b, n, p, 150 + i,
+                                    alias=alias)
+            calls = [functools.partial(wrapper, *args)] * 23
+            key = f"{b}x{n}"
+            if alias:
+                key += "_y_is_x" if name == "correlation" else "_d_is_x"
+            row[f"ms_{key}"] = profiled_ms(
+                torch, calls, DSP_KERNEL.get(name, f"{name}_kernel"))
+            row[f"call_ms_{key}"] = events_ms(torch, calls)
+            row[f"plain_ms_{key}"] = events_ms(
+                torch, [functools.partial(plain, *args)] * 8)
+            with Fp32Matmul(torch):
+                call = library_call(torch, name, args, ref)
+                row[f"library_ms_{key}"] = (None if call is None else
+                                            events_ms(torch, [call] * 23))
+            row[f"bound_ms_{key}"] = dsp_bound(name, args)[0]
+            two = ""
+            if alias:
+                row[f"bound_two_reads_ms_{key}"] = dsp_bound(
+                    name, args, once=False)[0]
+                two = (f" (x read twice: "
+                       f"{row[f'bound_two_reads_ms_{key}']:.4f} ms)")
+            dev = row[f"ms_{key}"]
+            lib = row[f"library_ms_{key}"]
+            note += (f"; at {key}: kernel "
+                     f"{'not measured' if dev is None else f'{dev:.4f} ms'}"
+                     f" on the device, {row[f'call_ms_{key}']:.4f} ms per "
+                     f"call, plain {row[f'plain_ms_{key}']:.4f} ms, library "
+                     f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                     f"{row[f'bound_ms_{key}']:.4f} ms{two}")
+        return note
 
     def dsp_times():
         log(f"torch.get_float32_matmul_precision() = "
@@ -2746,8 +2835,9 @@ def main(argv=None) -> int:
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
                 bound_by=by, library_ms=lib, shape=[b, n],
                 **facts.get(name, {}))
-            if name == "real_fir":
-                lib_note += fir_at_table(row, wrapper, plain, i)
+            if name in in_schedule:
+                row["ms_in_schedules"] = in_schedule[name]
+            lib_note += extra_times(row, name, wrapper, plain, i)
             rows.append(row)
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             libs = "none" if lib is None else f"{lib:.4f} ms"

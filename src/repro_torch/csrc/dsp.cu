@@ -33,17 +33,50 @@
 namespace {
 
 constexpr int DOT_THREADS = 256;         // one warp per row: 8 rows a block
-constexpr int CORR_WARPS = 8;            // one warp per row, at most 8 a block
 constexpr int ADD_THREADS = 256;
 constexpr int MAX_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int DCT_THREADS = 128;         // at most: column x row threads
 constexpr int DCT_MAX_N = 128;
-constexpr int SMEM_LIMIT = 48 * 1024;    // default-launch shared memory cap
 constexpr int CFIR_THREADS = 256;
-constexpr int SEQ_ROWS = 128;            // LMS, IIR: a thread a frame
-constexpr int SEQ_CHUNK = 32;            // samples a frame, staged at a time
-constexpr int SEQ_PITCH = SEQ_CHUNK + 1; // odd pitch: conflict-free row walks
 constexpr int IIR_MAX_TAPS = 8;
+
+// cp.async: 16- and 4-byte copies from device to shared memory that run
+// while the thread goes on; commit groups the copies issued so far, and a
+// wait blocks until all groups (or all but the newest) have landed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
+               ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {  // all but newest
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// `kernel` (a function pointer: no template commas in the macro's
+// arguments) on `grid` x `threads` with `smem` dynamic shared bytes.  A
+// macro so that the K5, K7 and K12 spans below also build with g++ against
+// tests/cuda_emu.h, which runs a launch's blocks on the CPU.
+#define KERNEL_LAUNCH(kernel, grid, threads, smem, stream, ...) \
+  kernel<<<grid, threads, smem, stream>>>(__VA_ARGS__)
+
+__host__ __device__ inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// ==== helpers span: the K7 and K12 tests build this before their spans
+constexpr int SMEM_LIMIT = 48 * 1024;    // default-launch shared memory cap
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -51,22 +84,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
+// Copies `rows` rows of `vecs` float4s each, the first at `src`, one every
+// `stride` floats, into shared memory at `dst`, one every `pitch` floats,
+// by 16-byte cp.async (uncommitted).  The `nthreads` threads of the block
+// take consecutive float4s of the rows (coalesced: whole rows, as K7 and
+// K12 copy them, are one contiguous span), and each steps its row and
+// column along without a divide.
+__device__ __forceinline__ void stage_rows(float* dst, int pitch,
+                                           const float* src, int stride,
+                                           int rows, int vecs, int nthreads) {
+  int r = (int)threadIdx.x / vecs, c = (int)threadIdx.x % vecs;
+  const int dr = nthreads / vecs, dc = nthreads % vecs;
+  for (int e = threadIdx.x; e < rows * vecs; e += nthreads) {
+    cp_async16(dst + r * pitch + 4 * c, src + (size_t)r * stride + 4 * c);
+    r += dr;
+    c += dc;
+    if (c >= vecs) {
+      c -= vecs;
+      ++r;
+    }
+  }
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;"
-               ::: "memory");
-}
-
-// `kernel` (a function pointer: no template commas in the macro's
-// arguments) on `grid` x `threads` with `smem` dynamic shared bytes.  A
-// macro so that the K5 span below also builds with g++ against
-// tests/cuda_emu.h, which runs a launch's blocks on the CPU.
-#define KERNEL_LAUNCH(kernel, grid, threads, smem, stream, ...) \
-  kernel<<<grid, threads, smem, stream>>>(__VA_ARGS__)
+// ==== end of the helpers span
 
 // ==== K5 span: tests/test_torch_fir.py builds from here
 // ---------------------------------------------------------------------------
@@ -241,14 +280,20 @@ complex_fir_kernel(size_t total, int N, int K, const float2* __restrict__ x,
   y[i] = make_float2(ar, ai);
 }
 
+// ==== K7 span: tests/test_torch_fir.py builds from here (after the helpers)
 // The LMS and IIR kernels walk each frame in order, one thread a frame.
 // A thread reading its own 160-byte row would not coalesce with its
-// neighbours, so a block stages SEQ_CHUNK samples of each of its SEQ_ROWS
-// frames through shared memory (a warp copies 32 consecutive floats of
-// one row), walks them from there, writes each output over the sample it
-// came from, and copies the outputs back the same way; the filter state
-// (weights, windows, histories) stays in registers across chunks, so any
-// N works with a fixed 17 KB tile per staged array.
+// neighbours, so a block stages samples of its frames through shared
+// memory, walks them from there, writes each output over the sample it
+// came from, and copies the outputs back; the filter state (weights,
+// windows, histories) stays in registers across a row's tiles, so any N
+// works.  stage_in / stage_out are the flat kernels' (K7's flat path and
+// K8): SEQ_CHUNK samples of each of SEQ_ROWS frames at a time, a warp
+// copying 32 consecutive floats of one row, a fixed 17 KB tile per array.
+constexpr int SEQ_ROWS = 128;            // LMS, IIR: a thread a frame
+constexpr int SEQ_CHUNK = 32;            // samples a frame, staged at a time
+constexpr int SEQ_PITCH = SEQ_CHUNK + 1; // odd pitch: conflict-free row walks
+
 __device__ __forceinline__ void stage_in(float* tile, const float* g,
                                          size_t r0, int rows, int N, int c0,
                                          int cols) {
@@ -273,15 +318,31 @@ __device__ __forceinline__ void stage_out(const float* tile, float* g,
 //   LMS per frame, weights w (K) from zero; for n = 0..N-1, with
 //   win[k] = x[n - k] (zero fill): y[n] = sum_k w[k]*win[k],
 //   e = d[n] - y[n], w[k] += (mu*e)*win[k].  Output y (B, N).
-// Bound: x and d read, y written, B*N*12 bytes; about 4K flops a sample.
-// Design: one thread a frame, the K weights and the window in registers
-// (K a template parameter: 4 and 8, the reference's), sequential over the
-// frame, staged through shared memory as above (x and d in, y out over x).
+// Bound: x and d read, y written, B*N*12 bytes (B*N*8 when d is x, as the
+// dispatch entry passes it); about 4K flops a sample.  The recursion is
+// sequential in n, so one thread walks one frame, the K weights and the
+// window in registers (K a template parameter: 4 and 8, the reference's).
+// Its arithmetic is cheap (about 26 instructions a sample); what costs is
+// moving the frames, so the design is about data movement.
+// adaptive_fir_packed, where N is a multiple of 4 and x, d, y are 16-byte
+// aligned: a persistent grid (as many blocks as fit on the card, at most
+// one a row group) whose blocks walk tiles of LMS_THREADS whole rows (or,
+// past LMS_SPAN samples, LMS_SPAN-sample column tiles of them, the state
+// carried in registers from one to the next) through a two-stage ring in
+// shared memory: tile i+1 is copied by 16-byte cp.async while the threads
+// walk tile i.  A tile of whole rows is one contiguous span, so the copy
+// is coalesced.  The row pitch is an odd number of float4s, so each
+// thread's float4 reads and writes of its own row are conflict-free.  The
+// outputs go over x in shared memory and leave by 16-byte stores.  When d
+// is x (one pointer) one array is staged.  adaptive_fir_flat takes every
+// other shape: SEQ_ROWS frames a block, SEQ_CHUNK-sample chunks by 4-byte
+// loads, x and d both staged.  Both do the same arithmetic in the same
+// order, so they agree bit for bit.
 // ---------------------------------------------------------------------------
 template <int K>
 __global__ void __launch_bounds__(SEQ_ROWS)
-adaptive_fir_kernel(int B, int N, float mu, const float* __restrict__ x,
-                    const float* __restrict__ d, float* __restrict__ y) {
+adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
+                  const float* __restrict__ d, float* __restrict__ y) {
   __shared__ float xs[SEQ_ROWS * SEQ_PITCH];
   __shared__ float ds[SEQ_ROWS * SEQ_PITCH];
   const int t = threadIdx.x;
@@ -317,6 +378,154 @@ adaptive_fir_kernel(int B, int N, float mu, const float* __restrict__ x,
   }
 }
 
+constexpr int LMS_THREADS = 128;         // packed: a thread a row of a tile
+constexpr int LMS_SPAN = 64;             // packed: samples of a row a tile
+
+// the packed kernel's tile: columns, and its pitch (an odd float4 count)
+__host__ __device__ inline int lms_cols(int N) {
+  return N < LMS_SPAN ? N : LMS_SPAN;
+}
+__host__ __device__ inline int lms_pitch(int N) {
+  return 4 * ((lms_cols(N) / 4) | 1);
+}
+// shared bytes: two stages of one (d is x) or two arrays
+inline size_t lms_smem(int N, bool alias) {
+  return sizeof(float) * 2 * (alias ? 1 : 2) * LMS_THREADS *
+         (size_t)lms_pitch(N);
+}
+
+template <int K>
+__global__ void __launch_bounds__(LMS_THREADS)
+adaptive_fir_packed(long long B, int N, float mu, const float* __restrict__ x,
+                    const float* __restrict__ d, float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char lms_raw[];
+  const bool alias = x == d;
+  const int cols = lms_cols(N), pitch = lms_pitch(N);
+  const int chunks = (N + cols - 1) / cols;      // tiles a row group
+  const int plane = LMS_THREADS * pitch;         // one array of a stage
+  const int stage = (alias ? 1 : 2) * plane;
+  float* ring = reinterpret_cast<float*>(lms_raw);
+  const long long groups = (B + LMS_THREADS - 1) / LMS_THREADS;
+  const int t = threadIdx.x;
+
+  // tile (g, j): rows g*LMS_THREADS.., columns j*cols..; copies uncommitted
+  auto rows_of = [&](long long g) {
+    return (int)min((long long)LMS_THREADS, B - g * LMS_THREADS);
+  };
+  auto load = [&](long long g, int j, float* st) {
+    const size_t at = (size_t)g * LMS_THREADS * N + (size_t)j * cols;
+    const int vecs = min(cols, N - j * cols) / 4;
+    stage_rows(st, pitch, x + at, N, rows_of(g), vecs, LMS_THREADS);
+    if (!alias)
+      stage_rows(st + plane, pitch, d + at, N, rows_of(g), vecs, LMS_THREADS);
+  };
+
+  float w[K], win[K];
+  long long g = blockIdx.x;
+  int j = 0;
+  if (g < groups) load(g, 0, ring);
+  for (int s = 0; g < groups; s ^= 1) {
+    long long gn = g;                            // the tile after this one
+    int jn = j + 1;
+    if (jn == chunks) {
+      jn = 0;
+      gn += gridDim.x;
+    }
+    cp_async_wait_all();                         // this tile's copies
+    __syncthreads();       // ... seen by all; the last tile's stores done
+    if (gn < groups) load(gn, jn, ring + (s ^ 1) * stage);
+    cp_async_commit();
+
+    float* xs = ring + s * stage;
+    const float* ds = alias ? xs : xs + plane;
+    const int nrows = rows_of(g), c0 = j * cols, w4 = min(cols, N - c0) / 4;
+    if (j == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) w[k] = win[k] = 0.f;
+    }
+    if (t < nrows) {
+      float* xr = xs + t * pitch;
+      const float* dr = ds + t * pitch;
+      for (int c = 0; c < w4; ++c) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * c);
+        const float4 dv =
+            alias ? xv : *reinterpret_cast<const float4*>(dr + 4 * c);
+        const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+        const float dq[4] = {dv.x, dv.y, dv.z, dv.w};
+        float yq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int k = K - 1; k > 0; --k) win[k] = win[k - 1];
+          win[0] = xq[q];
+          float acc = w[0] * win[0];
+#pragma unroll
+          for (int k = 1; k < K; ++k) acc += w[k] * win[k];
+          const float me = mu * (dq[q] - acc);
+#pragma unroll
+          for (int k = 0; k < K; ++k) w[k] += me * win[k];
+          yq[q] = acc;
+        }
+        *reinterpret_cast<float4*>(xr + 4 * c) =     // y over x
+            make_float4(yq[0], yq[1], yq[2], yq[3]);
+      }
+    }
+    __syncthreads();                             // the tile's outputs
+    {
+      // y's tile from shared memory, float4 e of its rows, as it came in
+      float* dst = y + (size_t)g * LMS_THREADS * N + c0;
+      int r = t / w4, c = t % w4;
+      const int dr = LMS_THREADS / w4, dc = LMS_THREADS % w4;
+      for (int e = t; e < nrows * w4; e += LMS_THREADS) {
+        *reinterpret_cast<float4*>(dst + (size_t)r * N + 4 * c) =
+            *reinterpret_cast<const float4*>(xs + r * pitch + 4 * c);
+        r += dr;
+        c += dc;
+        if (c >= w4) {
+          c -= w4;
+          ++r;
+        }
+      }
+    }
+    g = gn;
+    j = jn;
+  }
+}
+
+int launch_adaptive_fir(int B, int N, int K, float mu, const float* x,
+                        const float* d, float* y, cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (N % 4 == 0 && aligned(x, 16) && aligned(d, 16) && aligned(y, 16)) {
+    // packed: a persistent grid of blocks walking whole-row tiles
+    const size_t smem = lms_smem(N, x == d);
+    auto* kern = K == 4 ? &adaptive_fir_packed<4> : &adaptive_fir_packed<8>;
+    int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (!err) err = (int)cudaGetDevice(&dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    if (!err)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kern, LMS_THREADS, smem);
+    if (err) return err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long groups = ((long long)B + LMS_THREADS - 1) / LMS_THREADS;
+    const long long grid = min(groups, (long long)sms * per_sm);
+    KERNEL_LAUNCH(kern, dim3((unsigned)grid), LMS_THREADS, smem, stream,
+                  (long long)B, N, mu, x, d, y);
+  } else {
+    // flat: SEQ_ROWS frames a block, SEQ_CHUNK samples at a time
+    const unsigned blocks = (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
+    auto* kern = K == 4 ? &adaptive_fir_flat<4> : &adaptive_fir_flat<8>;
+    KERNEL_LAUNCH(kern, dim3(blocks), SEQ_ROWS, 0, stream, B, N, mu, x, d,
+                  y);
+  }
+  return (int)cudaGetLastError();
+}
+// ==== end of the K7 span
+
 // ---------------------------------------------------------------------------
 // K8 iir — replaces src/repro/kernels/dsp_fir.py iir (_iir_kernel,
 // pl.pallas_call at dsp_fir.py:160).
@@ -324,9 +533,9 @@ adaptive_fir_kernel(int B, int N, float mu, const float* __restrict__ x,
 //   ignored (the reference assumes 1 and never divides by it); the two
 //   sums are formed separately and then subtracted, as xwin @ b - ys @ a[1:].
 // Bound: x read and y written, B*N*8 bytes; 2(Kb + Ka) flops a sample.
-// Design: one thread a frame, staged as K7; the Kb newest inputs, the
-// Ka-1 newest outputs and both coefficient sets in registers (arrays of
-// IIR_MAX_TAPS, fully unrolled, terms past Kb or Ka masked).
+// Design: one thread a frame, staged as K7's flat path; the Kb newest
+// inputs, the Ka-1 newest outputs and both coefficient sets in registers
+// (arrays of IIR_MAX_TAPS, fully unrolled, terms past Kb or Ka masked).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(SEQ_ROWS)
 iir_kernel(int B, int N, int Kb, int Ka, const float* __restrict__ x,
@@ -480,22 +689,48 @@ vector_max_kernel(int B, int N, int vec4, const float* __restrict__ x,
   if (lane == 0) out[row] = m;
 }
 
+// ==== K12 span: tests/test_torch_dsp.py builds from here (after the helpers)
 // ---------------------------------------------------------------------------
 // K12 correlation — replaces src/repro/kernels/dsp_vector.py correlation
 // (_corr_kernel, pl.pallas_call at dsp_vector.py:83).
 //   c[b, l] = sum_n x[b, n] * y[b, n + l - L], l = 0..2L (column 0 is lag
 //   -L), y zero-padded by L on both sides.
-// Bound: 2*B*N*4 bytes read plus B*(2L+1)*4 written; 2(2L+1)N flops a row
-// is far below the fp32 rate at small L.  Design: one warp per row; the
-// warp stages its x row and its zero-padded y row in shared memory (each
-// byte read once from device memory, coalesced), then computes the 2L+1
-// lag sums from shared memory, one shuffle reduction each.  Rows per
-// block shrink for long frames so the block stays under 48 KB.
+// Bound: 2*B*N*4 bytes read (B*N*4 when y is x, as the dispatch entry
+// passes it) plus B*(2L+1)*4 written; 2(2L+1)N flops a row is far below
+// the fp32 rate at small L.
+// correlation_packed<LT>, where L is 4 or 10 (the repo's), N is a multiple
+// of 4, x, y and out are 16-byte aligned and a block's rows fit
+// CORR_PACKED_SMEM: whole rows packed into blocks of CORR_THREADS threads.
+// A block takes CORR_THREADS / tpr consecutive rows (one contiguous span
+// of x and of y) and stages them into shared memory by 16-byte cp.async,
+// each y row between zero halos (CorrShape.halo >= L floats before, the
+// rest of the last window after).  When y is x (one pointer) one array is
+// staged and x is read from the middle of the haloed rows.  Then tpr
+// threads take a row (tpr = 1 at 64 samples; more for longer rows, so
+// that the SMs hold enough threads): each walks float4 chunks of its row
+// (chunks ts, ts + tpr, ...), keeps the 2L+1 lag sums in registers (four
+// interleaved partials each, one a position of the float4, added at the
+// end: short sequential sums), reads each x float4 once and a window of
+// WIN4 y float4s (with tpr = 1 it slides: one new float4 a chunk), and
+// does no shuffle until the tpr threads of a row add their sums (log2 tpr
+// xor steps).  The row pitches are chosen so that the float4 walks of a
+// quarter warp (8/tpr rows, tpr threads on consecutive float4s) hit eight
+// distinct 16-byte bank groups.  The block's (rows, 2L+1) outputs are one
+// contiguous span of out: they go through shared memory and leave by
+// 16-byte stores.  correlation_flat takes every other shape: one warp a
+// row, its x row and zero-padded y row in shared memory (4-byte loads),
+// one shuffle reduction a lag; rows a block shrink for long frames so the
+// block stays under 48 KB.  The sums' order differs from the plain
+// version's; both are held to the reference tests' 1e-5.
 // ---------------------------------------------------------------------------
-__global__ void correlation_kernel(int B, int N, int L,
-                                   const float* __restrict__ x,
-                                   const float* __restrict__ y,
-                                   float* __restrict__ out) {
+constexpr int CORR_WARPS = 8;                // flat: a warp a row, 8 rows
+constexpr int CORR_THREADS = 128;            // packed: threads a block
+constexpr int CORR_PACKED_SMEM = 96 * 1024;  // packed: shared bytes at most
+
+__global__ void correlation_flat(int B, int N, int L,
+                                 const float* __restrict__ x,
+                                 const float* __restrict__ y,
+                                 float* __restrict__ out) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int W = N + 2 * L;                       // padded y row
@@ -517,6 +752,167 @@ __global__ void correlation_kernel(int B, int N, int L,
     if (lane == 0) out[row * (size_t)lags + l] = acc;
   }
 }
+
+// the packed kernel's geometry at (N, L)
+struct CorrShape {
+  int tpr;        // threads a row: 1, 2, 4 or 8
+  int rows;       // rows a block, CORR_THREADS / tpr
+  int ypitch;     // floats a staged y row (halos included) takes
+  int xpitch;     // floats a staged x row takes (y is not x)
+};
+// y float4s a chunk of 4 x samples reads, and the zeros before a y row
+__host__ __device__ constexpr int corr_halo(int L) { return (L + 3) / 4 * 4; }
+__host__ __device__ constexpr int corr_win4(int L) {
+  return (corr_halo(L) - L + 2 * L + 7) / 4;
+}
+// the least pitch >= n4 float4s at which a quarter warp's float4 walks
+// (8/tpr rows, tpr consecutive float4s each) are conflict-free: a row
+// moves tpr 16-byte bank groups on, modulo 2 tpr
+__host__ __device__ inline int corr_pitch4(int n4, int tpr) {
+  if (tpr >= 8) return n4;
+  const int m = 2 * tpr;
+  return n4 + ((tpr - n4 % m) % m + m) % m;
+}
+inline CorrShape corr_shape(int N, int L) {
+  const int n4 = N / 4;
+  int tpr = 1;                                   // >= 16 float4s a thread
+  while (tpr < 8 && n4 >= 32 * tpr) tpr *= 2;
+  const int ylen = N - 4 + 4 * corr_win4(L);     // halos included
+  return {tpr, CORR_THREADS / tpr, 4 * corr_pitch4(ylen / 4, tpr),
+          4 * corr_pitch4(n4, tpr)};
+}
+inline size_t corr_smem(const CorrShape& s, bool alias) {
+  return sizeof(float) * (size_t)s.rows * (s.ypitch + (alias ? 0 : s.xpitch));
+}
+
+template <int LT>
+__global__ void __launch_bounds__(CORR_THREADS)
+correlation_packed(long long B, int N, CorrShape s,
+                   const float* __restrict__ x, const float* __restrict__ y,
+                   float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char corr_raw[];
+  constexpr int LAGS = 2 * LT + 1, HALO = corr_halo(LT), OFF = HALO - LT;
+  constexpr int WIN4 = corr_win4(LT);
+  constexpr int TAIL = 4 * WIN4 - 4 - HALO;     // zeros after a y row
+  constexpr int Z4 = (HALO + TAIL) / 4;         // zero float4s a y row
+  const bool alias = x == y;
+  float* ys = reinterpret_cast<float*>(corr_raw);  // [rows][ypitch]
+  float* xs = alias ? ys + HALO : ys + s.rows * s.ypitch;
+  const int xp = alias ? s.ypitch : s.xpitch;
+  const long long row0 = (long long)blockIdx.x * s.rows;
+  const int nrows = (int)min((long long)s.rows, B - row0);
+  const int n4 = N / 4, t = threadIdx.x;
+
+  for (int e = t; e < nrows * Z4; e += CORR_THREADS) {  // the zero halos
+    const int r = e / Z4, k = e % Z4;
+    // before the samples, or after them: HALO + N + 4 (k - HALO / 4)
+    const int c = k < HALO / 4 ? 4 * k : N + 4 * k;
+    *reinterpret_cast<float4*>(ys + r * s.ypitch + c) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  stage_rows(ys + HALO, s.ypitch, y + row0 * N, N, nrows, n4, CORR_THREADS);
+  if (!alias)
+    stage_rows(xs, s.xpitch, x + row0 * N, N, nrows, n4, CORR_THREADS);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // thread ts of row tr: ys[tr][p] = y[p - HALO], so the window of chunk c
+  // is win[i] = ys[tr][4c + i] and x[4c + q] * ypad[4c + q + l] is
+  // xq[q] * win[q + l + OFF]
+  const int tr = t / s.tpr, ts = t % s.tpr;
+  float acc[LAGS][4];
+#pragma unroll
+  for (int l = 0; l < LAGS; ++l)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[l][q] = 0.f;
+  if (tr < nrows) {
+    const float* xr = xs + tr * xp;
+    const float* yr = ys + tr * s.ypitch;
+    float win[4 * WIN4];
+    for (int c = ts; c < n4; c += s.tpr) {
+      if (s.tpr == 1 && c > 0) {                 // slide by one float4
+#pragma unroll
+        for (int i = 0; i < 4 * (WIN4 - 1); ++i) win[i] = win[i + 4];
+        const float4 v =
+            *reinterpret_cast<const float4*>(yr + 4 * (c + WIN4 - 1));
+        win[4 * WIN4 - 4] = v.x;
+        win[4 * WIN4 - 3] = v.y;
+        win[4 * WIN4 - 2] = v.z;
+        win[4 * WIN4 - 1] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < WIN4; ++k) {
+          const float4 v = *reinterpret_cast<const float4*>(yr + 4 * (c + k));
+          win[4 * k] = v.x;
+          win[4 * k + 1] = v.y;
+          win[4 * k + 2] = v.z;
+          win[4 * k + 3] = v.w;
+        }
+      }
+      const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * c);
+      const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int l = 0; l < LAGS; ++l) acc[l][q] += xq[q] * win[q + l + OFF];
+    }
+  }
+  float v[LAGS];
+#pragma unroll
+  for (int l = 0; l < LAGS; ++l) {
+    v[l] = (acc[l][0] + acc[l][1]) + (acc[l][2] + acc[l][3]);
+    for (int o = 1; o < s.tpr; o <<= 1)          // the row's threads, whole
+      v[l] += __shfl_xor_sync(0xffffffffu, v[l], o);
+  }
+  __syncthreads();                               // every read of the rows
+
+  // the block's outputs, one contiguous span, through shared memory
+  float* os = ys;                                // [rows][LAGS]
+  if (tr < nrows) {
+#pragma unroll
+    for (int l = 0; l < LAGS; ++l)
+      if ((l & (s.tpr - 1)) == ts) os[tr * LAGS + l] = v[l];
+  }
+  __syncthreads();
+  float* dst = out + row0 * LAGS;
+  const int total = nrows * LAGS;                // rows % 4 == 0: aligned
+  for (int e = t; e < total / 4; e += CORR_THREADS)
+    *reinterpret_cast<float4*>(dst + 4 * e) =
+        *reinterpret_cast<const float4*>(os + 4 * e);
+  for (int e = total / 4 * 4 + t; e < total; e += CORR_THREADS)
+    dst[e] = os[e];
+}
+
+int launch_correlation(int B, int N, int L, const float* x, const float* y,
+                       float* out, cudaStream_t stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  const CorrShape s = corr_shape(N, L);
+  const size_t smem = corr_smem(s, x == y);
+  if ((L == 4 || L == 10) && N % 4 == 0 && aligned(x, 16) && aligned(y, 16) &&
+      aligned(out, 16) && smem <= (size_t)CORR_PACKED_SMEM) {
+    // packed: whole rows a block, tpr threads a row
+    auto* kern = L == 4 ? &correlation_packed<4> : &correlation_packed<10>;
+    const int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    const long long blocks = ((long long)B + s.rows - 1) / s.rows;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    KERNEL_LAUNCH(kern, dim3((unsigned)blocks), CORR_THREADS, smem, stream,
+                  (long long)B, N, s, x, y, out);
+  } else {
+    // flat: a warp a row, as many rows a block as fit 48 KB
+    const size_t row_bytes = (size_t)(2 * N + 2 * L) * sizeof(float);
+    int rows = CORR_WARPS;
+    while (rows > 1 && rows * row_bytes > (size_t)SMEM_LIMIT) rows >>= 1;
+    if (rows * row_bytes > (size_t)SMEM_LIMIT)
+      return (int)cudaErrorInvalidValue;
+    auto* kern = &correlation_flat;
+    KERNEL_LAUNCH(kern, dim3((unsigned)((B + rows - 1) / rows)), rows * 32,
+                  rows * row_bytes, stream, B, N, L, x, y, out);
+  }
+  return (int)cudaGetLastError();
+}
+// ==== end of the K12 span
 
 // ---------------------------------------------------------------------------
 // K13 fft — replaces src/repro/kernels/dsp_spectral.py fft (_fft_kernel,
@@ -715,23 +1111,6 @@ struct DctShape {
   }
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prior() {  // all but newest
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
 __device__ __forceinline__ float lane4(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
@@ -908,24 +1287,12 @@ int dsp_complex_fir(int B, int N, int K, void* x, void* h, void* y,
   return (int)cudaGetLastError();
 }
 
-// K must be 4 or 8 (the kernel's template instances).
+// K must be 4 or 8 (the kernels' template instances).
 int dsp_adaptive_fir(int B, int N, int K, float mu, void* x, void* d,
                      void* y, void* stream) {
   if (K != 4 && K != 8) return (int)cudaErrorInvalidValue;
-  if (B > 0 && N > 0) {
-    const unsigned blocks =
-        (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
-    cudaStream_t s = (cudaStream_t)stream;
-    const float* xf = (const float*)x;
-    const float* df = (const float*)d;
-    if (K == 4)
-      adaptive_fir_kernel<4><<<blocks, SEQ_ROWS, 0, s>>>(B, N, mu, xf, df,
-                                                         (float*)y);
-    else
-      adaptive_fir_kernel<8><<<blocks, SEQ_ROWS, 0, s>>>(B, N, mu, xf, df,
-                                                         (float*)y);
-  }
-  return (int)cudaGetLastError();
+  return launch_adaptive_fir(B, N, K, mu, (const float*)x, (const float*)d,
+                             (float*)y, (cudaStream_t)stream);
 }
 
 // 1 <= Kb <= IIR_MAX_TAPS, 2 <= Ka <= IIR_MAX_TAPS.
@@ -984,16 +1351,8 @@ int dsp_vector_max(int B, int N, void* x, void* out, void* stream) {
 
 int dsp_correlation(int B, int N, int L, void* x, void* y, void* out,
                     void* stream) {
-  if (B > 0) {
-    const size_t row_bytes = (size_t)(2 * N + 2 * L) * sizeof(float);
-    int rows = CORR_WARPS;
-    while (rows > 1 && rows * row_bytes > (size_t)SMEM_LIMIT) rows >>= 1;
-    if (rows * row_bytes > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    correlation_kernel<<<(B + rows - 1) / rows, rows * 32, rows * row_bytes,
-                         (cudaStream_t)stream>>>(B, N, L, (const float*)x,
-                                                 (const float*)y, (float*)out);
-  }
-  return (int)cudaGetLastError();
+  return launch_correlation(B, N, L, (const float*)x, (const float*)y,
+                            (float*)out, (cudaStream_t)stream);
 }
 
 // twr, twi: the last row (N/2 entries) of the (stages, N/2) twiddle tables

@@ -10,10 +10,12 @@ import torch
 from . import ref
 from .common import check, launch, on_card
 
-#: the correlation kernel stages a row of x and a zero-padded row of y in
-#: shared memory: (2N + 2L) floats must fit the 48 KB a block may use.
-#: Checked on the card route only (the plain version takes any size); the
-#: C entry refuses the same sizes as a backstop.
+#: the correlation's flat kernel, which takes every shape the packed one
+#: does not (rows past its 96 KB a block among them), stages a row of x
+#: and a zero-padded row of y in shared memory: (2N + 2L) floats must fit
+#: the 48 KB a block may use.  Checked on the card route only (the plain
+#: version takes any size); the C entry refuses the same sizes as a
+#: backstop.
 CORR_MAX_SPAN = 6144
 
 

@@ -2,8 +2,9 @@
 // their source can be compiled with g++ (C++20) and held against the plain
 // versions where there is no card: csrc/hts_run.cu's kernel
 // (tests/test_torch_run.py), K17's span of csrc/transformer.cu
-// (tests/test_torch_transformer_kernels.py) and K5's of csrc/dsp.cu
-// (tests/test_torch_fir.py).  A block runs as blockDim.x std::threads;
+// (tests/test_torch_transformer_kernels.py), and K5's and K7's
+// (tests/test_torch_fir.py) and K12's (tests/test_torch_dsp.py) of
+// csrc/dsp.cu.  A block runs as blockDim.x std::threads;
 // each warp shares a std::barrier, and every warp collective is a gather
 // through it: all 32 lanes post a value, wait, read every lane's, wait.  A
 // lane reaching a different collective than the others aborts
@@ -11,7 +12,10 @@
 // is the block's buffer, returned by emu_smem(); emu_launch fills it with
 // 0xff bytes (NaN as float) before each block, since the card leaves it
 // undefined.  cp.async is a plain 16-byte copy, complete at once, so its
-// wait is a no-op; the emulation shows the kernel's logic, not its timing.
+// commit and waits are no-ops; the emulation shows the kernel's logic, not
+// its timing.  The card it reports has EMU_SMS multiprocessors, each
+// holding one block of any kernel, so a persistent grid has EMU_SMS blocks
+// and each walks several tiles.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -38,7 +42,7 @@ using std::min;
 #define __align__(n) alignas(n)
 
 struct EmuDim { unsigned x, y, z; };
-inline thread_local EmuDim threadIdx, blockIdx;
+inline thread_local EmuDim threadIdx, blockIdx, blockDim, gridDim;
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
@@ -157,16 +161,35 @@ inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
-// cp.async: the copy lands at once, so waiting is a no-op
+// cp.async: the copy lands at once, so committing and waiting are no-ops
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
+inline void cp_async_wait_prior() {}
 
 // the runtime calls a launch makes
 using cudaStream_t = void*;
-enum { cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize };
+using cudaError_t = int;
+enum {
+  cudaSuccess = 0, cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
+  cudaFuncAttributeMaxDynamicSharedMemorySize, cudaDevAttrMultiProcessorCount
+};
+constexpr int EMU_SMS = 2;
 inline int cudaGetLastError() { return 0; }
 template <class F>
 inline int cudaFuncSetAttribute(F*, int, int) { return 0; }
+inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? EMU_SMS : 0;
+  return 0;
+}
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int,
+                                                         size_t) {
+  *n = 1;
+  return 0;
+}
 
 // kernel<<<grid, block, smem>>>(args...): blocks one after another, each
 // as block.x threads (whole warps) over a fresh shared buffer
@@ -195,6 +218,8 @@ inline void emu_launch(void (*kernel)(P...), dim3 grid, dim3 block,
           threads.emplace_back([&, t] {
             threadIdx = {t, 0, 0};
             blockIdx = {x, y, z};
+            blockDim = {block.x, block.y, block.z};
+            gridDim = {grid.x, grid.y, grid.z};
             emu_warp = &warps[t / 32];
             emu_block = &blk;
             emu_shared = reinterpret_cast<unsigned char*>(sm.data());

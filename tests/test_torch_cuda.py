@@ -368,6 +368,39 @@ def test_correlation_kernel_matches_plain(card, b, n, lag):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("b,n,lag", [
+    (262144, 64, 4), (300, 64, 4), (1, 64, 4), (70, 256, 4), (33, 40, 10),
+    (130, 128, 10), (3, 1024, 10), (9, 42, 4), (7, 64, 0)])
+@pytest.mark.parametrize("alias", [True, False], ids=["y-is-x", "distinct"])
+def test_correlation_kernel_routes_match_plain(card, b, n, lag, alias):
+    """The image path's call (262144 tiles of 64, lag 4, y the same tensor
+    as x) and the packed kernel's other shapes (a thread a row at 64 and
+    40 samples, two and four at 128 and 256, lags 4 and 10, ragged last
+    blocks), each with y is x and with a distinct y; rows of 1024 at lag
+    10 (packed when y is x, flat otherwise), the flat path at 42 samples
+    and lag 0."""
+    x = _frames(card, b + n + lag, b, n)
+    y = x if alias else _frames(card, b + n + lag + 1, b, n)
+    got = _counted("correlation", dsp_vector.correlation, x, y, lag)
+    torch.testing.assert_close(got, ref.correlation(x, y, lag), rtol=1e-5,
+                               atol=1e-5)
+    if alias and b == 262144:          # the dispatch entry itself
+        entry = ops.dsp_dispatch_table()["correlation"]
+        got = _counted("correlation", entry, x)
+        want = ops.plain_dispatch_table()["correlation"](x)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("alias", [True, False], ids=["y-is-x", "distinct"])
+def test_correlation_kernel_off_16_byte_alignment(card, alias):
+    """Rows 4 bytes past a 16-byte boundary take the flat path."""
+    x = _unaligned(card, 31, 300, 64)
+    y = x if alias else _unaligned(card, 32, 300, 64)
+    got = _counted("correlation", dsp_vector.correlation, x, y, 4)
+    torch.testing.assert_close(got, ref.correlation(x, y, 4), rtol=1e-5,
+                               atol=1e-5)
+
+
 def _unaligned(card, seed, b, n):
     """(b, n) rows 4 bytes past a 16-byte boundary: the scalar loads."""
     return _frames(card, seed, b * n + 1)[1:].view(b, n)
@@ -476,6 +509,43 @@ def test_adaptive_fir_kernel_matches_plain(card, b, n, k):
     got = _counted("adaptive_fir", dsp_fir.adaptive_fir, x, d, 0.01, k)
     torch.testing.assert_close(got, ref.adaptive_fir(x, d, 0.01, k),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (524288, 40, 8), (300, 40, 8), (1, 40, 8), (130, 64, 4), (5, 136, 8),
+    (260, 200, 4), (7, 42, 8)])
+@pytest.mark.parametrize("alias", [True, False], ids=["d-is-x", "distinct"])
+def test_adaptive_fir_kernel_routes_match_plain(card, b, n, k, alias):
+    """Table II's 524288 frames of 40 and the packed kernel's other
+    shapes (ragged row groups over a persistent grid, rows of 136 and 200
+    walked in 64-sample tiles with the weights carried), each with d the
+    same tensor as x (the dispatch entry's call) and a distinct d; the
+    flat path at 42 samples."""
+    x = _frames(card, b + n + k, b, n)
+    d = x if alias else _frames(card, b + n + k + 1, b, n)
+    got = _counted("adaptive_fir", dsp_fir.adaptive_fir, x, d, 0.01, k)
+    torch.testing.assert_close(got, ref.adaptive_fir(x, d, 0.01, k),
+                               rtol=1e-4, atol=1e-4)
+    if alias and b == 524288:          # the dispatch entry itself
+        entry = ops.dsp_dispatch_table()["adaptive_fir"]
+        got = _counted("adaptive_fir", entry, x)
+        want = ops.plain_dispatch_table()["adaptive_fir"](x)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("alias", [True, False], ids=["d-is-x", "distinct"])
+def test_adaptive_fir_kernel_off_16_byte_alignment(card, alias):
+    """x, d 4 bytes past a 16-byte boundary take the flat path, which
+    agrees with the packed one bit for bit (the same arithmetic)."""
+    x = _unaligned(card, 33, 300, 40)
+    d = x if alias else _unaligned(card, 34, 300, 40)
+    got = _counted("adaptive_fir", dsp_fir.adaptive_fir, x, d, 0.01, 8)
+    torch.testing.assert_close(got, ref.adaptive_fir(x, d, 0.01, 8),
+                               rtol=1e-4, atol=1e-4)
+    xa = x.clone()                     # 16-byte aligned copies: packed
+    da = xa if alias else d.clone()
+    packed = _counted("adaptive_fir", dsp_fir.adaptive_fir, xa, da, 0.01, 8)
+    assert torch.equal(got, packed)
 
 
 @pytest.mark.parametrize("b", [1, 33, 300])

@@ -321,3 +321,62 @@ def test_dsp_build_paths_are_inside_the_checkout():
     assert common.SOURCE.exists() and common.SOURCE.name == "dsp.cu"
     from repro_torch import _build
     assert _build.BUILD_DIR == root / "build" / "repro_torch"
+
+
+# ---------------------------------------------------------------------------
+# K12 correlation: the kernel's source under emulation (csrc/dsp.cu's
+# helpers and K12 spans built with g++ against tests/cuda_emu.h)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def emulated_corr(tmp_path_factory):
+    """K12's span (both kernels and the launcher) built for the CPU, with
+    a C entry that runs it as ``dsp_correlation`` does."""
+    import ctypes
+
+    import emu_build
+    source = common.LIB.source.read_text()
+    code = emu_build.span(source, "helpers") + emu_build.span(source, "K12")
+    code = code.replace("extern __shared__ __align__(16) unsigned char "
+                        "corr_raw[];", "unsigned char* corr_raw = emu_smem();")
+    code = code.replace("extern __shared__ float smem[];",
+                        "float* smem = reinterpret_cast<float*>(emu_smem());")
+    code += r"""
+extern "C" int emu_correlation(int B, int N, int L, void* x, void* y,
+                               void* out) {
+  return launch_correlation(B, N, L, (const float*)x, (const float*)y,
+                            (float*)out, nullptr);
+}
+"""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return emu_build.build(tmp_path_factory.mktemp("corr_emu"), code,
+                           {"emu_correlation": [I] * 3 + [P] * 3})
+
+
+@pytest.mark.parametrize("b,n,lag,alias,offset", [
+    (1, 64, 4, False, 0), (300, 64, 4, False, 0), (300, 64, 4, True, 0),
+    (70, 256, 4, False, 0), (70, 256, 4, True, 0), (33, 40, 10, False, 0),
+    (130, 128, 10, True, 0), (3, 1024, 10, False, 0),
+    (3, 1024, 10, True, 0), (7, 64, 0, False, 0), (9, 42, 4, False, 0),
+    (9, 42, 4, True, 0), (6, 64, 4, False, 1), (6, 64, 4, True, 1)],
+    ids=["1x64", "300x64", "300x64-y-is-x", "70x256", "70x256-y-is-x",
+         "33x40-lag10", "130x128-lag10-y-is-x", "flat-1024-lag10",
+         "1024-lag10-y-is-x", "flat-lag0", "flat-42", "flat-42-y-is-x",
+         "flat-misaligned", "flat-misaligned-y-is-x"])
+def test_correlation_kernel_source_matches_plain_under_emulation(
+        emulated_corr, b, n, lag, alias, offset):
+    """The packed kernel at a thread a row (64 and 40 samples: a ragged
+    last block, one row), two and four threads a row (128, 256 samples),
+    lags 4 and 10, y the same tensor as x and a distinct one; rows of
+    1024 at lag 10, packed when y is x and flat when the second array
+    would pass the packed kernel's shared memory; the flat path for lag
+    0, for N not a multiple of 4 and for rows 4 bytes off 16-byte
+    alignment.  Against the plain version within the reference tests'
+    1e-5."""
+    x = torch.from_numpy(frames(n * 3 + lag, b * n + offset))[offset:]
+    x = x.view(b, n)
+    y = x if alias else torch.from_numpy(
+        frames(n * 3 + lag + 1, b * n + offset))[offset:].view(b, n)
+    out = torch.full((b, 2 * lag + 1), float("nan"))
+    assert emulated_corr.emu_correlation(b, n, lag, x.data_ptr(),
+                                         y.data_ptr(), out.data_ptr()) == 0
+    close(out, dsp_vector.correlation(x, y, lag), TOL["correlation"])

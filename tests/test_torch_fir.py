@@ -283,3 +283,62 @@ def test_real_fir_kernel_source_matches_plain_under_emulation(
     assert emulated_fir.emu_real_fir(b, n, k, x.data_ptr(), h.data_ptr(),
                                      y.data_ptr()) == 0
     close(y, dsp_fir.real_fir(x, h), TOL["real_fir"])
+
+
+# ---------------------------------------------------------------------------
+# K7 adaptive_fir: the kernel's source under emulation (csrc/dsp.cu's
+# helpers and K7 spans built with g++ against tests/cuda_emu.h)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def emulated_lms(tmp_path_factory):
+    """K7's span (both kernels and the launcher) built for the CPU, with a
+    C entry that runs it as ``dsp_adaptive_fir`` does.  The flat kernel's
+    static ``__shared__`` arrays become function statics: one object
+    shared by the block's threads, as the emulated blocks run one at a
+    time."""
+    import ctypes
+
+    import emu_build
+    from repro_torch.kernels import common
+    source = common.LIB.source.read_text()
+    code = emu_build.span(source, "helpers") + emu_build.span(source, "K7")
+    code = code.replace("extern __shared__ __align__(16) unsigned char "
+                        "lms_raw[];", "unsigned char* lms_raw = emu_smem();")
+    code = "#define __shared__ static\n" + code + r"""
+extern "C" int emu_adaptive_fir(int B, int N, int K, float mu, void* x,
+                                void* d, void* y) {
+  return launch_adaptive_fir(B, N, K, mu, (const float*)x, (const float*)d,
+                             (float*)y, nullptr);
+}
+"""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return emu_build.build(tmp_path_factory.mktemp("lms_emu"), code,
+                           {"emu_adaptive_fir": [I] * 3 + [ctypes.c_float]
+                            + [P] * 3})
+
+
+@pytest.mark.parametrize("b,n,k,alias,offset", [
+    (1, 40, 8, False, 0), (300, 40, 8, False, 0), (300, 40, 8, True, 0),
+    (130, 64, 4, False, 0), (130, 64, 4, True, 0), (5, 136, 8, False, 0),
+    (260, 200, 4, True, 0), (7, 42, 8, False, 0), (7, 42, 4, True, 0),
+    (6, 40, 8, False, 1), (6, 40, 8, True, 1)],
+    ids=["1x40", "300x40", "300x40-d-is-x", "130x64-k4", "130x64-k4-d-is-x",
+         "row-of-3-tiles", "260x200-d-is-x", "flat-42", "flat-42-d-is-x",
+         "flat-misaligned", "flat-misaligned-d-is-x"])
+def test_adaptive_fir_kernel_source_matches_plain_under_emulation(
+        emulated_lms, b, n, k, alias, offset):
+    """The packed kernel's persistent walk (two emulated SMs: each block
+    takes several row groups, a ragged last one), whole rows of 40 and 64
+    and rows longer than a tile (64 + 64 + 8 samples; 200 in four tiles,
+    the weights carried across), d the same tensor as x and a distinct
+    one; the flat path for N not a multiple of 4 and for x, d, y 4 bytes
+    off 16-byte alignment.  Against the plain version within the
+    reference tests' 1e-4."""
+    x = torch.from_numpy(frames(n * 7 + k, b * n + offset))[offset:]
+    x = x.view(b, n)
+    d = x if alias else torch.from_numpy(
+        frames(n * 7 + k + 1, b * n + offset))[offset:].view(b, n)
+    y = torch.full((b * n + offset,), float("nan"))[offset:].view(b, n)
+    assert emulated_lms.emu_adaptive_fir(b, n, k, 0.01, x.data_ptr(),
+                                         d.data_ptr(), y.data_ptr()) == 0
+    close(y, dsp_fir.adaptive_fir(x, d, 0.01, k), TOL["adaptive_fir"])

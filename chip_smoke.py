@@ -18,7 +18,8 @@ at full width through ``forward`` and the ``Server`` — then checks them:
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
    spills of ``hts_run_kernel`` and of each instance of K5
-   ``real_fir_packed<KT>``, K7 ``adaptive_fir_packed<K>``, K12
+   ``real_fir_packed<KT>``, K7 ``adaptive_fir_packed<K>``, K8
+   ``iir_packed<MT>`` and ``iir_flat<MT>``, K12
    ``correlation_packed<LT>``, K13 ``fft_kernel<L>``, K14
    ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
    ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>``, K17's three kernels
@@ -65,7 +66,9 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    the arguments read once, the trace elements the slice changes written
    once), with ptxas's registers
    and spills, its shared bytes and CTAs an SM
-   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); beside K1–K4's
+   bytes bounds, the card's launch floor: the device time a launch of a
+   one-element in-place ``add_`` (20 launches after 3 warm-ups);
 6a. DSP kernels against plain: K5 ``real_fir`` (also at Table II's
    524288 frames of 40, rows of 2056 and 42 samples, 12 taps, and rows 4
    bytes off alignment), K9 ``vector_dot``, K12
@@ -78,8 +81,9 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    (262144 × 64, lag 4, y the same tensor as x) and K7 at Table II's with
    d the same tensor as x (the dispatch entries' calls), each also at the
    shapes of their packed and flat kernels (threads a row, rows longer
-   than a tile, rows 4 bytes off alignment); within the reference tests'
-   tolerances (1e-5; 1e-4 for the DCT, with TF32 off for its plain
+   than a tile, rows 4 bytes off alignment); K8 likewise, and with
+   filters of 9 and 12 coefficients (the flat kernel's generic
+   instance); within the reference tests' tolerances (1e-5; 1e-4 for the DCT, with TF32 off for its plain
    version, and for K6–K8; 1e-3 for the FFT; K10 and K11 ``torch.equal``,
    also on rows 4 bytes off alignment, and K11 NaN where a row holds one);
    the
@@ -272,6 +276,11 @@ TABLE_SEED, SYNTH_SEED = 2021, 2022
 LMS_MU = 0.01
 ENTRY_IIR = ([0.2, 0.3], [1.0, -0.5])
 TEST_IIR = ([0.2, 0.3, 0.1], [1.0, -0.4, 0.05])
+#: a filter past the 8 coefficients K8 keeps in registers (sum |a[1:]| =
+#: 0.73: stable)
+LONG_IIR = ([0.3, -0.2, 0.15, 0.1, -0.05, 0.05, 0.02, -0.02, 0.01],
+            [1.0, -0.3, 0.1, 0.1, -0.05, 0.05, -0.04, 0.03, 0.02, -0.02,
+             0.01, 0.01])
 #: 0 is torch.equal (NaN where the plain version has NaN)
 DSP_TOL = {"real_fir": 1e-5, "complex_fir": 1e-4, "adaptive_fir": 1e-4,
            "iir": 1e-4, "vector_dot": 1e-5, "vector_add": 0,
@@ -305,7 +314,8 @@ DSP_CASES = {
                      (5, 136, 8), (260, 200, 4), (7, 42, 8)],
     "iir": [(TABLE_FRAMES, TABLE_SAMPLES, ENTRY_IIR), (1, 40, TEST_IIR),
             (33, 40, TEST_IIR), (1, 80, TEST_IIR), (33, 80, TEST_IIR),
-            (300, 40, ENTRY_IIR)],
+            (300, 40, ENTRY_IIR), (5, 136, ENTRY_IIR), (260, 200, TEST_IIR),
+            (7, 42, TEST_IIR), (130, 80, LONG_IIR)],
     "vector_dot": [(FRAMES, SAMPLES, None), (1, 40, None), (300, 40, None),
                    (300, 256, None)],
     "correlation": [(FRAMES, SAMPLES, MAX_LAG), (TILES, PIXELS, MAX_LAG),
@@ -341,10 +351,10 @@ DSP_EXTRA = {"real_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, False)],
              "correlation": [(TILES, PIXELS, MAX_LAG, True)],
              "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, True)]}
 #: the kernel a DSP wrapper launches, as the profiler names it (a
-#: substring), where it is not ``<name>_kernel``: K5's, K7's and K12's
-#: packed and flat kernels (one of them a call)
+#: substring), where it is not ``<name>_kernel``: K5's, K7's, K8's and
+#: K12's packed and flat kernels (one of them a call)
 DSP_KERNEL = {"real_fir": "real_fir_", "adaptive_fir": "adaptive_fir_",
-              "correlation": "correlation_"}
+              "iir": "iir_", "correlation": "correlation_"}
 #: taps, lag or (b, a) per kernel in phase 5b
 DSP_PARAM = {"real_fir": TAPS, "complex_fir": 8, "adaptive_fir": 8,
              "iir": ENTRY_IIR, "correlation": MAX_LAG}
@@ -1282,7 +1292,7 @@ def main(argv=None) -> int:
         return 1
 
     # the redesigned kernels: ptxas's registers and spills of hts_run and
-    # of each instance of K5, K7, K12, K13, K14, bf16 K15, K16, K17's and
+    # of each instance of K5, K7, K8, K12, K13, K14, bf16 K15, K16, K17's and
     # K18's three kernels,
     # and the
     # tensor-core instructions (HGMMA) in K15's SASS: the bf16 kernel must
@@ -1318,6 +1328,8 @@ def main(argv=None) -> int:
                  "real_fir_packed"),
                 ("adaptive_fir", dsp.LIB, r"adaptive_fir_packedILi(\d+)E",
                  "adaptive_fir_packed"),
+                ("iir", dsp.LIB, r"iir_packedILi(\d+)E", "iir_packed"),
+                ("iir", dsp.LIB, r"iir_flatILi(\d+)E", "iir_flat"),
                 ("correlation", dsp.LIB, r"correlation_packedILi(\d+)E",
                  "correlation_packed")):
             facts.setdefault(name, {})
@@ -1329,6 +1341,10 @@ def main(argv=None) -> int:
             facts[name].setdefault("ptxas", {}).update(found)
             for fn, f in found.items():
                 log(f"ptxas {fn:32s} {f}")
+        spilled = {k: f for k, f in facts["iir"].get("ptxas", {}).items()
+                   if k.startswith("iir_packed")
+                   and (f.get("spill_stores") or f.get("spill_loads"))}
+        assert not spilled, f"K8's packed kernel spills: {spilled}"
         hgmma = sass_counts(tf.build(), "HGMMA", {
             r"flash_attention_wgmmaILi(\d+)E": "flash_attention_wgmma",
             r"flash_attention_kernelILi(\d+)E": "flash_attention_kernel"})
@@ -1339,7 +1355,8 @@ def main(argv=None) -> int:
         assert len(bf16) == 2 and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
         assert len(fp32) == 4 and not any(fp32.values()), fp32
-    phase("1 ptxas of hts_run, K5, K7, K12-K18, SASS of K15", build_facts)
+    phase("1 ptxas of hts_run, K5, K7, K8, K12-K18, SASS of K15",
+          build_facts)
 
     ctx: dict = {}
 
@@ -1553,6 +1570,14 @@ def main(argv=None) -> int:
     rows = []
 
     def kernel_times():
+        # the card's launch floor: a one-element in-place add_
+        one = torch.zeros(1, device=DEVICE)
+        floor_ms = profiled_call_ms(torch, [functools.partial(one.add_, 1.0)]
+                                    * 23)
+        log("launch floor: "
+            f"{'not measured' if floor_ms is None else f'{floor_ms:.4f} ms'}"
+            " on the device a launch of a one-element add_ (20 after 3 "
+            f"warm-ups)  on {card}")
         for name, (wrapper, plain, _keys) in cuda_step.KERNELS.items():
             saved = checker.saved[name]
             # the paths that run K1–K4: the main path no more (hts_run
@@ -1581,13 +1606,14 @@ def main(argv=None) -> int:
                 ms=k_dev if k_dev is not None else k_call,
                 kernel_ms=k_dev if k_dev is not None else k_call,
                 call_ms=k_call, plain_ms=p_call, bound_ms=bound,
-                bound_by=by, library_ms=None))
+                bound_by=by, library_ms=None, launch_floor_ms=floor_ms))
             dev = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
             r = rows[-1]
             log(f"{name:8s} kernel {dev} on the device, {k_call:.4f} ms per "
                 f"call  plain {p_call:.4f} ms per call  bound {bound:.6f} ms "
-                f"({by})  launches {by_path}, checks (2a, 2b) "
-                f"{r['check_launches']}  on {card}")
+                f"({by}; the launch floor {floor_ms} ms)  launches "
+                f"{by_path}, checks (2a, 2b) {r['check_launches']}  on "
+                f"{card}")
         run_times()
 
         m = machine.make_machine(spec, pop.max_prog, DEVICE)
@@ -1741,6 +1767,13 @@ def main(argv=None) -> int:
                       ref.adaptive_fir,
                       (z, z if alias else z.flip(0), LMS_MU, 8),
                       f"B=300    N=40   unaligned rows{tag}")
+        # K8 there takes its flat kernel, the entry's filter and a long one
+        z = off_rows(24, 40)
+        for coef in (ENTRY_IIR, LONG_IIR):
+            bc, ac = (torch.tensor(c, device=DEVICE) for c in coef)
+            check_dsp("iir", dsp_fir.iir, ref.iir, (z, bc, ac),
+                      f"B=300    N=40   unaligned rows p={len(coef[0])},"
+                      f"{len(coef[1])} taps")
         # a NaN in one row: vector_max must give NaN there, as amax does
         wrapper, plain, (x,) = dsp_case(torch, kern, "vector_max", 300, 64,
                                         None, 12)
@@ -2021,6 +2054,7 @@ def main(argv=None) -> int:
             (TABLE_FRAMES, TABLE_SAMPLES), dtype=np.float32)).to(DEVICE)
         table = ops.dsp_dispatch_table()
         totals = {k: 0 for k in dsp.launches}
+        walls_ms = []                   # each schedule's median wall
         for name, gen in dsp_pipeline.SYNTHETIC.items():
             bench = gen()
             g = api.run(bench, scheduler="hts_spec", n_fu=2,
@@ -2068,6 +2102,7 @@ def main(argv=None) -> int:
                 f"{name}: the kernels are not repeatable"
             for k, v in counts.items():
                 totals[k] += v
+            walls_ms.append(exec_s * 1e3)
             log(f"{name}: {r.cycles} cycles = golden, {len(executed)} tasks "
                 f"executed, each held against the plain entry (max abs err "
                 f"by function {worst}); launches "
@@ -2079,7 +2114,8 @@ def main(argv=None) -> int:
                 f"frames/s; first all-zero output at task index "
                 f"{first_zero}; launches on non-zero input "
                 f"{ {k: v for k, v in on_nonzero.items() if v} }  on {card}")
-        log(f"nine synthetic schedules: launches {totals}")
+        log(f"nine synthetic schedules: launches {totals}; median walls "
+            f"summed {sum(walls_ms):.3f} ms  on {card}")
         assert (totals["complex_fir"], totals["adaptive_fir"],
                 totals["iir"]) == (18, 18, 17), totals
 

@@ -38,7 +38,6 @@ constexpr int MAX_THREADS = 256;         // one warp per row: 8 rows a block
 constexpr int DCT_THREADS = 128;         // at most: column x row threads
 constexpr int DCT_MAX_N = 128;
 constexpr int CFIR_THREADS = 256;
-constexpr int IIR_MAX_TAPS = 8;
 
 // cp.async: 16- and 4-byte copies from device to shared memory that run
 // while the thread goes on; commit groups the copies issued so far, and a
@@ -66,8 +65,8 @@ __device__ __forceinline__ void cp_async_wait_prior() {  // all but newest
 
 // `kernel` (a function pointer: no template commas in the macro's
 // arguments) on `grid` x `threads` with `smem` dynamic shared bytes.  A
-// macro so that the K5, K7 and K12 spans below also build with g++ against
-// tests/cuda_emu.h, which runs a launch's blocks on the CPU.
+// macro so that the K5, K7, K8 and K12 spans below also build with g++
+// against tests/cuda_emu.h, which runs a launch's blocks on the CPU.
 #define KERNEL_LAUNCH(kernel, grid, threads, smem, stream, ...) \
   kernel<<<grid, threads, smem, stream>>>(__VA_ARGS__)
 
@@ -75,7 +74,7 @@ __host__ __device__ inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// ==== helpers span: the K7 and K12 tests build this before their spans
+// ==== helpers span: the K7, K8 and K12 tests build this before their spans
 constexpr int SMEM_LIMIT = 48 * 1024;    // default-launch shared memory cap
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -105,6 +104,175 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch,
     }
   }
 }
+
+// The LMS and IIR kernels walk each frame in order, one thread a frame.
+// A thread reading its own row would not coalesce with its neighbours, so
+// a block stages samples of its frames through shared memory, walks them
+// from there, writes each output over the sample it came from, and copies
+// the outputs back; the filter state (weights, windows, histories) stays
+// in registers across a row's tiles, so any N works.  stage_in / stage_out
+// are the flat kernels' (K7's and K8's): SEQ_CHUNK samples of each of
+// SEQ_ROWS frames at a time, a warp copying 32 consecutive floats of one
+// row, a fixed 17 KB tile per array.
+constexpr int SEQ_ROWS = 128;            // LMS, IIR: a thread a frame
+constexpr int SEQ_CHUNK = 32;            // samples a frame, staged at a time
+constexpr int SEQ_PITCH = SEQ_CHUNK + 1; // odd pitch: conflict-free row walks
+
+__device__ __forceinline__ void stage_in(float* tile, const float* g,
+                                         size_t r0, int rows, int N, int c0,
+                                         int cols) {
+  for (int e = threadIdx.x; e < rows * SEQ_CHUNK; e += SEQ_ROWS) {
+    const int r = e / SEQ_CHUNK, c = e % SEQ_CHUNK;
+    if (c < cols) tile[r * SEQ_PITCH + c] = __ldg(g + (r0 + r) * N + c0 + c);
+  }
+}
+
+__device__ __forceinline__ void stage_out(const float* tile, float* g,
+                                          size_t r0, int rows, int N, int c0,
+                                          int cols) {
+  for (int e = threadIdx.x; e < rows * SEQ_CHUNK; e += SEQ_ROWS) {
+    const int r = e / SEQ_CHUNK, c = e % SEQ_CHUNK;
+    if (c < cols) g[(r0 + r) * N + c0 + c] = tile[r * SEQ_PITCH + c];
+  }
+}
+
+// The packed LMS and IIR kernels (K7, K8) walk their frames on a
+// persistent grid: as many blocks as fit on the card, at most one a row
+// group, each block walking tiles of ROW_THREADS whole rows (or, past
+// ROW_SPAN samples, ROW_SPAN-sample column tiles of them, the filter
+// state carried in registers from one to the next) through a two-stage
+// ring in shared memory: tile i+1 is copied by 16-byte cp.async while the
+// threads walk tile i.  A tile of whole rows is one contiguous span, so
+// the copy is coalesced.  The row pitch is an odd number of float4s, so
+// each thread's float4 reads and writes of its own row are conflict-free.
+// The outputs go over x in shared memory and leave by 16-byte stores.
+// When d is x (one pointer) one array is staged.
+constexpr int ROW_THREADS = 128;         // a thread a row of a tile
+constexpr int ROW_SPAN = 64;             // samples of a row a tile
+
+// a tile's columns, and its pitch (an odd float4 count)
+__host__ __device__ inline int row_cols(int N) {
+  return N < ROW_SPAN ? N : ROW_SPAN;
+}
+__host__ __device__ inline int row_pitch(int N) {
+  return 4 * ((row_cols(N) / 4) | 1);
+}
+// shared bytes: two stages of one (d is x) or two arrays
+inline size_t row_smem(int N, bool alias) {
+  return sizeof(float) * 2 * (alias ? 1 : 2) * ROW_THREADS *
+         (size_t)row_pitch(N);
+}
+
+// One thread a row of x (B, N): f.reset() at the row's start, then
+// y[n] = f.step(x[n], d[n]) for n in order.  N a multiple of 4; x, d and
+// y 16-byte aligned; `ring` is row_smem(N, x == d) bytes of shared memory.
+template <class Frame>
+__device__ void walk_row_tiles(long long B, int N, const float* x,
+                               const float* d, float* y, float* ring,
+                               Frame& f) {
+  const bool alias = x == d;
+  const int cols = row_cols(N), pitch = row_pitch(N);
+  const int chunks = (N + cols - 1) / cols;      // tiles a row group
+  const int plane = ROW_THREADS * pitch;         // one array of a stage
+  const int stage = (alias ? 1 : 2) * plane;
+  const long long groups = (B + ROW_THREADS - 1) / ROW_THREADS;
+  const int t = threadIdx.x;
+
+  // tile (g, j): rows g*ROW_THREADS.., columns j*cols..; copies uncommitted
+  auto rows_of = [&](long long g) {
+    return (int)min((long long)ROW_THREADS, B - g * ROW_THREADS);
+  };
+  auto load = [&](long long g, int j, float* st) {
+    const size_t at = (size_t)g * ROW_THREADS * N + (size_t)j * cols;
+    const int vecs = min(cols, N - j * cols) / 4;
+    stage_rows(st, pitch, x + at, N, rows_of(g), vecs, ROW_THREADS);
+    if (!alias)
+      stage_rows(st + plane, pitch, d + at, N, rows_of(g), vecs, ROW_THREADS);
+  };
+
+  long long g = blockIdx.x;
+  int j = 0;
+  if (g < groups) load(g, 0, ring);
+  for (int s = 0; g < groups; s ^= 1) {
+    long long gn = g;                            // the tile after this one
+    int jn = j + 1;
+    if (jn == chunks) {
+      jn = 0;
+      gn += gridDim.x;
+    }
+    cp_async_wait_all();                         // this tile's copies
+    __syncthreads();       // ... seen by all; the last tile's stores done
+    if (gn < groups) load(gn, jn, ring + (s ^ 1) * stage);
+    cp_async_commit();
+
+    float* xs = ring + s * stage;
+    const float* ds = alias ? xs : xs + plane;
+    const int nrows = rows_of(g), c0 = j * cols, w4 = min(cols, N - c0) / 4;
+    if (j == 0) f.reset();
+    if (t < nrows) {
+      float* xr = xs + t * pitch;
+      const float* dr = ds + t * pitch;
+      for (int c = 0; c < w4; ++c) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * c);
+        const float4 dv =
+            alias ? xv : *reinterpret_cast<const float4*>(dr + 4 * c);
+        const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+        const float dq[4] = {dv.x, dv.y, dv.z, dv.w};
+        float yq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) yq[q] = f.step(xq[q], dq[q]);
+        *reinterpret_cast<float4*>(xr + 4 * c) =     // y over x
+            make_float4(yq[0], yq[1], yq[2], yq[3]);
+      }
+    }
+    __syncthreads();                             // the tile's outputs
+    {
+      // y's tile from shared memory, float4 e of its rows, as it came in
+      float* dst = y + (size_t)g * ROW_THREADS * N + c0;
+      int r = t / w4, c = t % w4;
+      const int dr = ROW_THREADS / w4, dc = ROW_THREADS % w4;
+      for (int e = t; e < nrows * w4; e += ROW_THREADS) {
+        *reinterpret_cast<float4*>(dst + (size_t)r * N + 4 * c) =
+            *reinterpret_cast<const float4*>(xs + r * pitch + 4 * c);
+        r += dr;
+        c += dc;
+        if (c >= w4) {
+          c -= w4;
+          ++r;
+        }
+      }
+    }
+    g = gn;
+    j = jn;
+  }
+}
+
+// Launches `kern`, a kernel of ROW_THREADS threads around walk_row_tiles
+// over B rows, on the persistent grid: as many blocks as the occupancy
+// query fits on the card with `smem` shared bytes each, at most one a row
+// group.  A failed query or launch returns its error.
+template <class... P, class... A>
+int launch_persistent(void (*kern)(P...), size_t smem, long long B,
+                      cudaStream_t stream, A... args) {
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, ROW_THREADS, smem);
+  if (err) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (B + ROW_THREADS - 1) / ROW_THREADS;
+  const long long grid = min(groups, (long long)sms * per_sm);
+  KERNEL_LAUNCH(kern, dim3((unsigned)grid), ROW_THREADS, smem, stream,
+                args...);
+  return (int)cudaGetLastError();
+}
+
 // ==== end of the helpers span
 
 // ==== K5 span: tests/test_torch_fir.py builds from here
@@ -281,37 +449,6 @@ complex_fir_kernel(size_t total, int N, int K, const float2* __restrict__ x,
 }
 
 // ==== K7 span: tests/test_torch_fir.py builds from here (after the helpers)
-// The LMS and IIR kernels walk each frame in order, one thread a frame.
-// A thread reading its own 160-byte row would not coalesce with its
-// neighbours, so a block stages samples of its frames through shared
-// memory, walks them from there, writes each output over the sample it
-// came from, and copies the outputs back; the filter state (weights,
-// windows, histories) stays in registers across a row's tiles, so any N
-// works.  stage_in / stage_out are the flat kernels' (K7's flat path and
-// K8): SEQ_CHUNK samples of each of SEQ_ROWS frames at a time, a warp
-// copying 32 consecutive floats of one row, a fixed 17 KB tile per array.
-constexpr int SEQ_ROWS = 128;            // LMS, IIR: a thread a frame
-constexpr int SEQ_CHUNK = 32;            // samples a frame, staged at a time
-constexpr int SEQ_PITCH = SEQ_CHUNK + 1; // odd pitch: conflict-free row walks
-
-__device__ __forceinline__ void stage_in(float* tile, const float* g,
-                                         size_t r0, int rows, int N, int c0,
-                                         int cols) {
-  for (int e = threadIdx.x; e < rows * SEQ_CHUNK; e += SEQ_ROWS) {
-    const int r = e / SEQ_CHUNK, c = e % SEQ_CHUNK;
-    if (c < cols) tile[r * SEQ_PITCH + c] = __ldg(g + (r0 + r) * N + c0 + c);
-  }
-}
-
-__device__ __forceinline__ void stage_out(const float* tile, float* g,
-                                          size_t r0, int rows, int N, int c0,
-                                          int cols) {
-  for (int e = threadIdx.x; e < rows * SEQ_CHUNK; e += SEQ_ROWS) {
-    const int r = e / SEQ_CHUNK, c = e % SEQ_CHUNK;
-    if (c < cols) g[(r0 + r) * N + c0 + c] = tile[r * SEQ_PITCH + c];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K7 adaptive_fir — replaces src/repro/kernels/dsp_fir.py adaptive_fir
 // (_adaptive_fir_kernel, pl.pallas_call at dsp_fir.py:123).
@@ -321,24 +458,38 @@ __device__ __forceinline__ void stage_out(const float* tile, float* g,
 // Bound: x and d read, y written, B*N*12 bytes (B*N*8 when d is x, as the
 // dispatch entry passes it); about 4K flops a sample.  The recursion is
 // sequential in n, so one thread walks one frame, the K weights and the
-// window in registers (K a template parameter: 4 and 8, the reference's).
-// Its arithmetic is cheap (about 26 instructions a sample); what costs is
+// window in registers (LmsFilter<K>, K 4 and 8, the reference's).  Its
+// arithmetic is cheap (about 26 instructions a sample); what costs is
 // moving the frames, so the design is about data movement.
 // adaptive_fir_packed, where N is a multiple of 4 and x, d, y are 16-byte
-// aligned: a persistent grid (as many blocks as fit on the card, at most
-// one a row group) whose blocks walk tiles of LMS_THREADS whole rows (or,
-// past LMS_SPAN samples, LMS_SPAN-sample column tiles of them, the state
-// carried in registers from one to the next) through a two-stage ring in
-// shared memory: tile i+1 is copied by 16-byte cp.async while the threads
-// walk tile i.  A tile of whole rows is one contiguous span, so the copy
-// is coalesced.  The row pitch is an odd number of float4s, so each
-// thread's float4 reads and writes of its own row are conflict-free.  The
-// outputs go over x in shared memory and leave by 16-byte stores.  When d
-// is x (one pointer) one array is staged.  adaptive_fir_flat takes every
-// other shape: SEQ_ROWS frames a block, SEQ_CHUNK-sample chunks by 4-byte
-// loads, x and d both staged.  Both do the same arithmetic in the same
-// order, so they agree bit for bit.
+// aligned, is walk_row_tiles (the helpers span) on its persistent grid.
+// adaptive_fir_flat takes every other shape: SEQ_ROWS frames a block,
+// SEQ_CHUNK-sample chunks by 4-byte loads, x and d both staged.  Both run
+// LmsFilter, so they agree bit for bit.
 // ---------------------------------------------------------------------------
+template <int K>
+struct LmsFilter {
+  float mu, w[K], win[K];
+
+  __device__ void reset() {
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = win[k] = 0.f;
+  }
+  // y[n] from x[n] and d[n]; the window and weights move on a sample
+  __device__ float step(float xv, float dv) {
+#pragma unroll
+    for (int k = K - 1; k > 0; --k) win[k] = win[k - 1];
+    win[0] = xv;
+    float acc = w[0] * win[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) acc += w[k] * win[k];
+    const float me = mu * (dv - acc);
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] += me * win[k];
+    return acc;
+  }
+};
+
 template <int K>
 __global__ void __launch_bounds__(SEQ_ROWS)
 adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
@@ -348,9 +499,8 @@ adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
   const int t = threadIdx.x;
   const size_t r0 = (size_t)blockIdx.x * SEQ_ROWS;
   const int rows = (size_t)B - r0 < (size_t)SEQ_ROWS ? (int)(B - r0) : SEQ_ROWS;
-  float w[K], win[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) w[k] = win[k] = 0.f;
+  LmsFilter<K> f{mu};
+  f.reset();
   for (int c0 = 0; c0 < N; c0 += SEQ_CHUNK) {
     const int cols = N - c0 < SEQ_CHUNK ? N - c0 : SEQ_CHUNK;
     stage_in(xs, x, r0, rows, N, c0, cols);
@@ -359,18 +509,7 @@ adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
     if (t < rows) {
       float* xr = xs + t * SEQ_PITCH;
       const float* dr = ds + t * SEQ_PITCH;
-      for (int c = 0; c < cols; ++c) {
-#pragma unroll
-        for (int k = K - 1; k > 0; --k) win[k] = win[k - 1];
-        win[0] = xr[c];
-        float acc = w[0] * win[0];
-#pragma unroll
-        for (int k = 1; k < K; ++k) acc += w[k] * win[k];
-        const float me = mu * (dr[c] - acc);
-#pragma unroll
-        for (int k = 0; k < K; ++k) w[k] += me * win[k];
-        xr[c] = acc;                            // y[n] over x[n]
-      }
+      for (int c = 0; c < cols; ++c) xr[c] = f.step(xr[c], dr[c]);
     }
     __syncthreads();
     stage_out(xs, y, r0, rows, N, c0, cols);
@@ -378,154 +517,32 @@ adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
   }
 }
 
-constexpr int LMS_THREADS = 128;         // packed: a thread a row of a tile
-constexpr int LMS_SPAN = 64;             // packed: samples of a row a tile
-
-// the packed kernel's tile: columns, and its pitch (an odd float4 count)
-__host__ __device__ inline int lms_cols(int N) {
-  return N < LMS_SPAN ? N : LMS_SPAN;
-}
-__host__ __device__ inline int lms_pitch(int N) {
-  return 4 * ((lms_cols(N) / 4) | 1);
-}
-// shared bytes: two stages of one (d is x) or two arrays
-inline size_t lms_smem(int N, bool alias) {
-  return sizeof(float) * 2 * (alias ? 1 : 2) * LMS_THREADS *
-         (size_t)lms_pitch(N);
-}
-
 template <int K>
-__global__ void __launch_bounds__(LMS_THREADS)
+__global__ void __launch_bounds__(ROW_THREADS)
 adaptive_fir_packed(long long B, int N, float mu, const float* __restrict__ x,
                     const float* __restrict__ d, float* __restrict__ y) {
   extern __shared__ __align__(16) unsigned char lms_raw[];
-  const bool alias = x == d;
-  const int cols = lms_cols(N), pitch = lms_pitch(N);
-  const int chunks = (N + cols - 1) / cols;      // tiles a row group
-  const int plane = LMS_THREADS * pitch;         // one array of a stage
-  const int stage = (alias ? 1 : 2) * plane;
-  float* ring = reinterpret_cast<float*>(lms_raw);
-  const long long groups = (B + LMS_THREADS - 1) / LMS_THREADS;
-  const int t = threadIdx.x;
-
-  // tile (g, j): rows g*LMS_THREADS.., columns j*cols..; copies uncommitted
-  auto rows_of = [&](long long g) {
-    return (int)min((long long)LMS_THREADS, B - g * LMS_THREADS);
-  };
-  auto load = [&](long long g, int j, float* st) {
-    const size_t at = (size_t)g * LMS_THREADS * N + (size_t)j * cols;
-    const int vecs = min(cols, N - j * cols) / 4;
-    stage_rows(st, pitch, x + at, N, rows_of(g), vecs, LMS_THREADS);
-    if (!alias)
-      stage_rows(st + plane, pitch, d + at, N, rows_of(g), vecs, LMS_THREADS);
-  };
-
-  float w[K], win[K];
-  long long g = blockIdx.x;
-  int j = 0;
-  if (g < groups) load(g, 0, ring);
-  for (int s = 0; g < groups; s ^= 1) {
-    long long gn = g;                            // the tile after this one
-    int jn = j + 1;
-    if (jn == chunks) {
-      jn = 0;
-      gn += gridDim.x;
-    }
-    cp_async_wait_all();                         // this tile's copies
-    __syncthreads();       // ... seen by all; the last tile's stores done
-    if (gn < groups) load(gn, jn, ring + (s ^ 1) * stage);
-    cp_async_commit();
-
-    float* xs = ring + s * stage;
-    const float* ds = alias ? xs : xs + plane;
-    const int nrows = rows_of(g), c0 = j * cols, w4 = min(cols, N - c0) / 4;
-    if (j == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) w[k] = win[k] = 0.f;
-    }
-    if (t < nrows) {
-      float* xr = xs + t * pitch;
-      const float* dr = ds + t * pitch;
-      for (int c = 0; c < w4; ++c) {
-        const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * c);
-        const float4 dv =
-            alias ? xv : *reinterpret_cast<const float4*>(dr + 4 * c);
-        const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float dq[4] = {dv.x, dv.y, dv.z, dv.w};
-        float yq[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-#pragma unroll
-          for (int k = K - 1; k > 0; --k) win[k] = win[k - 1];
-          win[0] = xq[q];
-          float acc = w[0] * win[0];
-#pragma unroll
-          for (int k = 1; k < K; ++k) acc += w[k] * win[k];
-          const float me = mu * (dq[q] - acc);
-#pragma unroll
-          for (int k = 0; k < K; ++k) w[k] += me * win[k];
-          yq[q] = acc;
-        }
-        *reinterpret_cast<float4*>(xr + 4 * c) =     // y over x
-            make_float4(yq[0], yq[1], yq[2], yq[3]);
-      }
-    }
-    __syncthreads();                             // the tile's outputs
-    {
-      // y's tile from shared memory, float4 e of its rows, as it came in
-      float* dst = y + (size_t)g * LMS_THREADS * N + c0;
-      int r = t / w4, c = t % w4;
-      const int dr = LMS_THREADS / w4, dc = LMS_THREADS % w4;
-      for (int e = t; e < nrows * w4; e += LMS_THREADS) {
-        *reinterpret_cast<float4*>(dst + (size_t)r * N + 4 * c) =
-            *reinterpret_cast<const float4*>(xs + r * pitch + 4 * c);
-        r += dr;
-        c += dc;
-        if (c >= w4) {
-          c -= w4;
-          ++r;
-        }
-      }
-    }
-    g = gn;
-    j = jn;
-  }
+  LmsFilter<K> f{mu};
+  walk_row_tiles(B, N, x, d, y, reinterpret_cast<float*>(lms_raw), f);
 }
 
 int launch_adaptive_fir(int B, int N, int K, float mu, const float* x,
                         const float* d, float* y, cudaStream_t stream) {
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
   if (N % 4 == 0 && aligned(x, 16) && aligned(d, 16) && aligned(y, 16)) {
-    // packed: a persistent grid of blocks walking whole-row tiles
-    const size_t smem = lms_smem(N, x == d);
     auto* kern = K == 4 ? &adaptive_fir_packed<4> : &adaptive_fir_packed<8>;
-    int err = (int)cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (!err) err = (int)cudaGetDevice(&dev);
-    if (!err)
-      err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        dev);
-    if (!err)
-      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kern, LMS_THREADS, smem);
-    if (err) return err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long groups = ((long long)B + LMS_THREADS - 1) / LMS_THREADS;
-    const long long grid = min(groups, (long long)sms * per_sm);
-    KERNEL_LAUNCH(kern, dim3((unsigned)grid), LMS_THREADS, smem, stream,
-                  (long long)B, N, mu, x, d, y);
-  } else {
-    // flat: SEQ_ROWS frames a block, SEQ_CHUNK samples at a time
-    const unsigned blocks = (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
-    auto* kern = K == 4 ? &adaptive_fir_flat<4> : &adaptive_fir_flat<8>;
-    KERNEL_LAUNCH(kern, dim3(blocks), SEQ_ROWS, 0, stream, B, N, mu, x, d,
-                  y);
+    return launch_persistent(kern, row_smem(N, x == d), B, stream,
+                             (long long)B, N, mu, x, d, y);
   }
+  // flat: SEQ_ROWS frames a block, SEQ_CHUNK samples at a time
+  const unsigned blocks = (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
+  auto* kern = K == 4 ? &adaptive_fir_flat<4> : &adaptive_fir_flat<8>;
+  KERNEL_LAUNCH(kern, dim3(blocks), SEQ_ROWS, 0, stream, B, N, mu, x, d, y);
   return (int)cudaGetLastError();
 }
 // ==== end of the K7 span
 
+// ==== K8 span: tests/test_torch_fir.py builds from here (after the helpers)
 // ---------------------------------------------------------------------------
 // K8 iir — replaces src/repro/kernels/dsp_fir.py iir (_iir_kernel,
 // pl.pallas_call at dsp_fir.py:160).
@@ -533,26 +550,85 @@ int launch_adaptive_fir(int B, int N, int K, float mu, const float* x,
 //   ignored (the reference assumes 1 and never divides by it); the two
 //   sums are formed separately and then subtracted, as xwin @ b - ys @ a[1:].
 // Bound: x read and y written, B*N*8 bytes; 2(Kb + Ka) flops a sample.
-// Design: one thread a frame, staged as K7's flat path; the Kb newest
-// inputs, the Ka-1 newest outputs and both coefficient sets in registers
-// (arrays of IIR_MAX_TAPS, fully unrolled, terms past Kb or Ka masked).
+// The recursion is sequential in n, so one thread walks one frame; what
+// costs is moving the frames, so the design is about data movement, as
+// K7's is.  iir_packed, where max(Kb, Ka) <= IIR_REG_TAPS, N is a
+// multiple of 4 and x, y are 16-byte aligned, is walk_row_tiles (the
+// helpers span) on its persistent grid, one array staged.  iir_flat takes
+// every other shape: SEQ_ROWS frames a block, SEQ_CHUNK-sample chunks by
+// 4-byte loads.  Both keep the coefficients and both histories in
+// registers (IirFilter<MT>: arrays of MT, fully unrolled, terms past Kb
+// or Ka skipped): MT 8, and for iir_packed MT 2 where the filter is first
+// order, as the dispatch entry's is, so that it shifts two registers a
+// sample, not eight (0.0602-0.0610 ms against 0.0647-0.0651 at MT 8 on an
+// H100 at 524288 x 40, tools/dsp_kernel_ab.py).  iir_flat<0> takes longer
+// filters: the coefficients through the read-only cache, the histories
+// read back from the frame itself (x from global memory, y from the
+// staged chunk or the rows already stored), so no filter is too long.
+// Every instance rounds alike: b[0]*x[n], then one fused multiply-add a
+// tap, j = 1 up; a[1]*y[n-1], then one a tap, j = 2 up; then the
+// difference; each an explicit intrinsic, so no instance's contraction
+// differs and all agree bit for bit.
 // ---------------------------------------------------------------------------
+constexpr int IIR_REG_TAPS = 8;          // the register instances' bound
+
+// One frame's filter: Kb <= MT and Ka <= MT coefficients and the
+// histories xw[j] = x[n-j], yh[j] = y[n-1-j] in registers
+template <int MT>
+struct IirFilter {
+  int Kb, Ka;
+  float bc[MT], ac[MT], xw[MT], yh[MT];
+
+  __device__ void load(const float* b, const float* a, int kb, int ka) {
+    Kb = kb;
+    Ka = ka;
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      bc[j] = j < Kb ? __ldg(b + j) : 0.f;
+      ac[j] = j < Ka ? __ldg(a + j) : 0.f;
+    }
+    reset();
+  }
+  __device__ void reset() {
+#pragma unroll
+    for (int j = 0; j < MT; ++j) xw[j] = yh[j] = 0.f;
+  }
+  // y[n] from x[n] (walk_row_tiles passes d, which is x); the histories
+  // move on a sample
+  __device__ float step(float in, float = 0.f) {
+#pragma unroll
+    for (int j = MT - 1; j > 0; --j) xw[j] = xw[j - 1];
+    xw[0] = in;
+    float fwd = __fmul_rn(bc[0], xw[0]);
+#pragma unroll
+    for (int j = 1; j < MT; ++j)
+      if (j < Kb) fwd = __fmaf_rn(bc[j], xw[j], fwd);
+    float back = __fmul_rn(ac[1], yh[0]);
+#pragma unroll
+    for (int j = 2; j < MT; ++j)
+      if (j < Ka) back = __fmaf_rn(ac[j], yh[j - 1], back);
+    const float v = __fsub_rn(fwd, back);
+#pragma unroll
+    for (int j = MT - 1; j > 0; --j) yh[j] = yh[j - 1];
+    yh[0] = v;
+    return v;
+  }
+};
+
+// MT > 0: IirFilter<MT>; MT == 0: any Kb, Ka, the histories read back
+template <int MT>
 __global__ void __launch_bounds__(SEQ_ROWS)
-iir_kernel(int B, int N, int Kb, int Ka, const float* __restrict__ x,
-           const float* __restrict__ b, const float* __restrict__ a,
-           float* __restrict__ y) {
+iir_flat(int B, int N, int Kb, int Ka, const float* __restrict__ x,
+         const float* __restrict__ b, const float* __restrict__ a,
+         float* __restrict__ y) {
   __shared__ float xs[SEQ_ROWS * SEQ_PITCH];
   const int t = threadIdx.x;
   const size_t r0 = (size_t)blockIdx.x * SEQ_ROWS;
   const int rows = (size_t)B - r0 < (size_t)SEQ_ROWS ? (int)(B - r0) : SEQ_ROWS;
-  float bc[IIR_MAX_TAPS], ac[IIR_MAX_TAPS], xw[IIR_MAX_TAPS],
-      yh[IIR_MAX_TAPS];                         // yh[j] = y[n-1-j]
-#pragma unroll
-  for (int j = 0; j < IIR_MAX_TAPS; ++j) {
-    bc[j] = j < Kb ? __ldg(b + j) : 0.f;
-    ac[j] = j < Ka ? __ldg(a + j) : 0.f;
-    xw[j] = yh[j] = 0.f;
-  }
+  IirFilter<(MT > 0 ? MT : 2)> f;
+  if constexpr (MT > 0) f.load(b, a, Kb, Ka);
+  const float* xg = x + (r0 + t) * N;            // this thread's frame
+  const float* yg = y + (r0 + t) * N;
   for (int c0 = 0; c0 < N; c0 += SEQ_CHUNK) {
     const int cols = N - c0 < SEQ_CHUNK ? N - c0 : SEQ_CHUNK;
     stage_in(xs, x, r0, rows, N, c0, cols);
@@ -560,29 +636,62 @@ iir_kernel(int B, int N, int Kb, int Ka, const float* __restrict__ x,
     if (t < rows) {
       float* xr = xs + t * SEQ_PITCH;
       for (int c = 0; c < cols; ++c) {
-#pragma unroll
-        for (int j = IIR_MAX_TAPS - 1; j > 0; --j) xw[j] = xw[j - 1];
-        xw[0] = xr[c];
-        float fwd = bc[0] * xw[0];
-#pragma unroll
-        for (int j = 1; j < IIR_MAX_TAPS; ++j)
-          if (j < Kb) fwd += bc[j] * xw[j];
-        float back = ac[1] * yh[0];
-#pragma unroll
-        for (int j = 2; j < IIR_MAX_TAPS; ++j)
-          if (j < Ka) back += ac[j] * yh[j - 1];
-        const float v = fwd - back;
-#pragma unroll
-        for (int j = IIR_MAX_TAPS - 1; j > 0; --j) yh[j] = yh[j - 1];
-        yh[0] = v;
-        xr[c] = v;                              // y[n] over x[n]
+        if constexpr (MT > 0) {
+          xr[c] = f.step(xr[c]);                  // y[n] over x[n]
+        } else {
+          const int n = c0 + c;
+          float fwd = __fmul_rn(__ldg(b), xr[c]);
+          for (int j = 1; j < Kb; ++j)
+            fwd = __fmaf_rn(__ldg(b + j), n >= j ? __ldg(xg + n - j) : 0.f,
+                            fwd);
+          // y[m]: this chunk's from shared memory, earlier ones stored
+          auto past = [&](int m) {
+            return m < 0 ? 0.f : m >= c0 ? xr[m - c0] : yg[m];
+          };
+          float back = __fmul_rn(__ldg(a + 1), past(n - 1));
+          for (int j = 2; j < Ka; ++j)
+            back = __fmaf_rn(__ldg(a + j), past(n - j), back);
+          xr[c] = __fsub_rn(fwd, back);
+        }
       }
     }
     __syncthreads();
     stage_out(xs, y, r0, rows, N, c0, cols);
-    __syncthreads();
+    __syncthreads();              // the chunk stored, before the next copy
   }
 }
+
+template <int MT>
+__global__ void __launch_bounds__(ROW_THREADS)
+iir_packed(long long B, int N, int Kb, int Ka, const float* __restrict__ x,
+           const float* __restrict__ b, const float* __restrict__ a,
+           float* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char iir_raw[];
+  IirFilter<MT> f;
+  f.load(b, a, Kb, Ka);
+  walk_row_tiles(B, N, x, x, y, reinterpret_cast<float*>(iir_raw), f);
+}
+
+// Kb >= 1, Ka >= 2 (any length); the route by shape and alignment only
+int launch_iir(int B, int N, int Kb, int Ka, const float* x, const float* b,
+               const float* a, float* y, cudaStream_t stream) {
+  if (Kb < 1 || Ka < 2) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0) return (int)cudaGetLastError();
+  const bool regs = (Kb > Ka ? Kb : Ka) <= IIR_REG_TAPS;
+  if (regs && N % 4 == 0 && aligned(x, 16) && aligned(y, 16)) {
+    auto* kern = Kb <= 2 && Ka <= 2 ? &iir_packed<2>
+                                    : &iir_packed<IIR_REG_TAPS>;
+    return launch_persistent(kern, row_smem(N, true), B, stream,
+                             (long long)B, N, Kb, Ka, x, b, a, y);
+  }
+  // flat: SEQ_ROWS frames a block, SEQ_CHUNK samples at a time
+  const unsigned blocks = (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
+  auto* kern = regs ? &iir_flat<IIR_REG_TAPS> : &iir_flat<0>;
+  KERNEL_LAUNCH(kern, dim3(blocks), SEQ_ROWS, 0, stream, B, N, Kb, Ka, x, b,
+                a, y);
+  return (int)cudaGetLastError();
+}
+// ==== end of the K8 span
 
 // ---------------------------------------------------------------------------
 // K9 vector_dot — replaces src/repro/kernels/dsp_vector.py vector_dot
@@ -1295,18 +1404,11 @@ int dsp_adaptive_fir(int B, int N, int K, float mu, void* x, void* d,
                              (float*)y, (cudaStream_t)stream);
 }
 
-// 1 <= Kb <= IIR_MAX_TAPS, 2 <= Ka <= IIR_MAX_TAPS.
+// Kb >= 1, Ka >= 2.
 int dsp_iir(int B, int N, int Kb, int Ka, void* x, void* b, void* a,
             void* y, void* stream) {
-  if (Kb < 1 || Kb > IIR_MAX_TAPS || Ka < 2 || Ka > IIR_MAX_TAPS)
-    return (int)cudaErrorInvalidValue;
-  if (B > 0 && N > 0) {
-    iir_kernel<<<(unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS), SEQ_ROWS, 0,
-                 (cudaStream_t)stream>>>(B, N, Kb, Ka, (const float*)x,
-                                         (const float*)b, (const float*)a,
-                                         (float*)y);
-  }
-  return (int)cudaGetLastError();
+  return launch_iir(B, N, Kb, Ka, (const float*)x, (const float*)b,
+                    (const float*)a, (float*)y, (cudaStream_t)stream);
 }
 
 int dsp_vector_dot(int B, int N, void* x, void* y, void* out, void* stream) {

@@ -14,9 +14,6 @@ from .common import check, launch, on_card
 #: per tap count: the reference's 8 (the dispatch entry) and 4 (its tests).
 #: Checked on the card route only; the C entry refuses others as a backstop.
 LMS_TAPS = (4, 8)
-#: the IIR kernel keeps both coefficient sets and both histories in
-#: registers, at most this many of each.  Checked on the card route only.
-IIR_MAX_TAPS = 8
 
 
 def real_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -84,7 +81,9 @@ def adaptive_fir(x: torch.Tensor, d: torch.Tensor, mu: float,
 def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """x: (B, N) f32; b: (Kb,); a: (Ka,) with a[0] = 1 (ignored) → (B, N).
     ``Ka >= 2``: the reference cannot run a shorter ``a`` either (its
-    output history changes shape inside the scan)."""
+    output history changes shape inside the scan).  The card takes filters
+    of any length: up to 8 coefficients each in registers, longer ones
+    through the flat kernel's generic instance."""
     if x.dim() != 2 or b.dim() != 1 or a.dim() != 1 or b.shape[0] < 1:
         raise ValueError(f"iir takes x (B, N), b (Kb,) with Kb >= 1 and a "
                          f"(Ka,), got {tuple(x.shape)}, {tuple(b.shape)}, "
@@ -99,9 +98,6 @@ def iir(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     check("a", a, dev, (Ka,))
     if not on_card(dev):
         return ref.iir(x, b, a)
-    if Kb > IIR_MAX_TAPS or Ka > IIR_MAX_TAPS:
-        raise ValueError(f"the iir kernel takes at most {IIR_MAX_TAPS} "
-                         f"coefficients in b and a, got {Kb} and {Ka}")
     y = torch.empty_like(x)
     launch("iir", B, N, Kb, Ka, x, b, a, y)
     return y

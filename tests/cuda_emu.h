@@ -2,7 +2,7 @@
 // their source can be compiled with g++ (C++20) and held against the plain
 // versions where there is no card: csrc/hts_run.cu's kernel
 // (tests/test_torch_run.py), K17's span of csrc/transformer.cu
-// (tests/test_torch_transformer_kernels.py), and K5's and K7's
+// (tests/test_torch_transformer_kernels.py), and K5's, K7's and K8's
 // (tests/test_torch_fir.py) and K12's (tests/test_torch_dsp.py) of
 // csrc/dsp.cu.  A block runs as blockDim.x std::threads;
 // each warp shares a std::barrier, and every warp collective is a gather
@@ -160,6 +160,10 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+// rounded float arithmetic, never contracted: one rounding an intrinsic
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 
 // cp.async: the copy lands at once, so committing and waiting are no-ops
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }

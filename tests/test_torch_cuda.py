@@ -548,13 +548,82 @@ def test_adaptive_fir_kernel_off_16_byte_alignment(card, alias):
     assert torch.equal(got, packed)
 
 
+def _iir_coefficients(card, kb, ka):
+    """(b, a) with ``kb`` and ``ka`` coefficients: the dispatch entry's at
+    (2, 2), the JAX tests' at (3, 3), else drawn from a seed with
+    sum |a[1:]| = 0.9 (a stable filter)."""
+    fixed = {(2, 2): ([0.2, 0.3], [1.0, -0.5]),
+             (3, 3): ([0.2, 0.3, 0.1], [1.0, -0.4, 0.05])}
+    if (kb, ka) in fixed:
+        return tuple(torch.tensor(c, device=card) for c in fixed[kb, ka])
+    g = torch.Generator().manual_seed(100 * kb + ka)
+    b = torch.randn(kb, generator=g) / kb
+    a = torch.rand(ka - 1, generator=g) * 2 - 1
+    a = torch.cat([torch.ones(1), 0.9 * a / a.abs().sum()])
+    return b.to(card), a.to(card)
+
+
+def _iir_routes(card, x, bc, ac):
+    """K8 on ``x`` (16-byte aligned: the packed kernel where N % 4 == 0
+    and the filter fits its registers) and on the same frames 4 bytes off
+    16-byte alignment (the flat kernel), each call one counted launch."""
+    b, n = x.shape
+    off = torch.empty(b * n + 1, device=card)[1:].view(b, n)
+    off.copy_(x)
+    return (_counted("iir", dsp_fir.iir, x, bc, ac),
+            _counted("iir", dsp_fir.iir, off, bc, ac))
+
+
 @pytest.mark.parametrize("b", [1, 33, 300])
 @pytest.mark.parametrize("n", [40, 80])
 @pytest.mark.parametrize("coef", [([0.2, 0.3, 0.1], [1.0, -0.4, 0.05]),
                                   ([0.2, 0.3], [1.0, -0.5])])
 def test_iir_kernel_matches_plain(card, b, n, coef):
+    """The packed and the flat kernel on the same frames: each within 1e-4
+    of the plain version, and the two equal bit for bit (the same
+    arithmetic, each rounding an explicit intrinsic)."""
     x = _frames(card, b * n, b, n)
     bc, ac = (torch.tensor(c, device=card) for c in coef)
+    packed, flat = _iir_routes(card, x, bc, ac)
+    torch.testing.assert_close(packed, ref.iir(x, bc, ac), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(packed, flat)
+
+
+@pytest.mark.parametrize("b,n,taps", [
+    (524288, 40, (2, 2)), (300, 40, (1, 2)), (300, 40, (3, 3)),
+    (300, 40, (8, 8)), (5, 136, (2, 2)), (260, 200, (3, 3)),
+    (7, 42, (3, 3))],
+    ids=["table-ii-entry", "300x40-kb1", "300x40-k3", "300x40-k8",
+         "row-of-3-tiles", "260x200-k3", "flat-42"])
+def test_iir_kernel_routes_agree_bit_for_bit(card, b, n, taps):
+    """Table II's 524288 x 40 with the dispatch entry's filter (and the
+    entry itself), ragged row groups over the persistent grid, each
+    packed instance (2 for first order, else 8, up to (8, 8)), rows
+    walked in 64-sample tiles with the histories carried, and N = 42 (flat
+    both ways): packed and flat equal bit for bit, both within 1e-4 of the
+    plain version."""
+    x = _frames(card, b + n, b, n)
+    bc, ac = _iir_coefficients(card, *taps)
+    packed, flat = _iir_routes(card, x, bc, ac)
+    assert torch.equal(packed, flat)
+    torch.testing.assert_close(packed, ref.iir(x, bc, ac), rtol=1e-4,
+                               atol=1e-4)
+    if b == 524288:                    # the dispatch entry itself
+        entry = _counted("iir", ops.dsp_dispatch_table()["iir"], x)
+        assert torch.equal(entry, packed)
+
+
+@pytest.mark.parametrize("taps", [(9, 12), (12, 9), (33, 2)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_iir_kernel_takes_filters_past_eight_coefficients(card, taps,
+                                                          offset):
+    """Past 8 coefficients in b or a the flat kernel's generic instance
+    runs (on aligned rows too) and matches the plain version within 1e-4
+    on frames of three chunks and a ragged row group."""
+    b, n = 130, 80
+    x = _frames(card, 7 + offset, b * n + offset)[offset:].view(b, n)
+    bc, ac = _iir_coefficients(card, *taps)
     got = _counted("iir", dsp_fir.iir, x, bc, ac)
     torch.testing.assert_close(got, ref.iir(x, bc, ac), rtol=1e-4,
                                atol=1e-4)
@@ -571,8 +640,6 @@ def test_fir_kernels_refuse_what_they_do_not_take(card):
     x = _frames(card, 1, 4, 40)
     with pytest.raises(ValueError, match="K in"):
         dsp_fir.adaptive_fir(x, x, 0.01, 5)
-    with pytest.raises(ValueError, match="at most 8"):
-        dsp_fir.iir(x, _frames(card, 2, 9), _frames(card, 3, 2))
     assert dsp.launches == before
 
 

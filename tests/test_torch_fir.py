@@ -342,3 +342,127 @@ def test_adaptive_fir_kernel_source_matches_plain_under_emulation(
     assert emulated_lms.emu_adaptive_fir(b, n, k, 0.01, x.data_ptr(),
                                          d.data_ptr(), y.data_ptr()) == 0
     close(y, dsp_fir.adaptive_fir(x, d, 0.01, k), TOL["adaptive_fir"])
+
+
+# ---------------------------------------------------------------------------
+# K8 iir: the kernel's source under emulation (csrc/dsp.cu's helpers and K8
+# spans built with g++ against tests/cuda_emu.h)
+# ---------------------------------------------------------------------------
+#: the packed kernel's store of a float4 of outputs (walk_row_tiles, in
+#: the helpers span), and the same outputs one sample early: the mutation
+#: the packed cases must catch
+IIR_STORE = "make_float4(yq[0], yq[1], yq[2], yq[3])"
+IIR_EARLY = "make_float4(yq[1], yq[2], yq[3], yq[3])"
+
+
+def _build_iir(tmp_path_factory, mutate: bool):
+    """K8's span (both kernels and the launcher) after the helpers, built
+    for the CPU with a C entry that runs it as ``dsp_iir`` does; the flat
+    kernel's static ``__shared__`` array becomes a function static (the
+    emulated blocks run one at a time).  ``mutate``: the packed kernel
+    stores each float4 of outputs one sample early."""
+    import ctypes
+
+    import emu_build
+    from repro_torch.kernels import common
+    source = common.LIB.source.read_text()
+    code = emu_build.span(source, "helpers") + emu_build.span(source, "K8")
+    code = code.replace("extern __shared__ __align__(16) unsigned char "
+                        "iir_raw[];", "unsigned char* iir_raw = emu_smem();")
+    if mutate:
+        assert code.count(IIR_STORE) == 1
+        code = code.replace(IIR_STORE, IIR_EARLY)
+    code = "#define __shared__ static\n" + code + r"""
+extern "C" int emu_iir(int B, int N, int Kb, int Ka, void* x, void* b,
+                       void* a, void* y) {
+  return launch_iir(B, N, Kb, Ka, (const float*)x, (const float*)b,
+                    (const float*)a, (float*)y, nullptr);
+}
+"""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    tag = "iir_mutant" if mutate else "iir_emu"
+    return emu_build.build(tmp_path_factory.mktemp(tag), code,
+                           {"emu_iir": [I] * 4 + [P] * 4})
+
+
+@pytest.fixture(scope="module")
+def emulated_iir(tmp_path_factory):
+    return _build_iir(tmp_path_factory, mutate=False)
+
+
+@pytest.fixture(scope="module")
+def mutated_iir(tmp_path_factory):
+    return _build_iir(tmp_path_factory, mutate=True)
+
+
+def iir_coefficients(kb, ka):
+    """(b, a) with ``kb`` and ``ka`` coefficients: the dispatch entry's at
+    (2, 2), the JAX tests' at (3, 3), else drawn from a seed with
+    sum |a[1:]| = 0.9, so that the filter is stable."""
+    if (kb, ka) == (2, 2):
+        return (np.asarray([0.2, 0.3], np.float32),
+                np.asarray([1.0, -0.5], np.float32))
+    if (kb, ka) == (3, 3):
+        return IIR_B, IIR_A
+    rng = np.random.default_rng(100 * kb + ka)
+    b = rng.standard_normal(kb).astype(np.float32) / kb
+    a = rng.uniform(-1.0, 1.0, ka - 1)
+    a = np.concatenate([[1.0], 0.9 * a / np.abs(a).sum()]).astype(np.float32)
+    return b, a
+
+
+#: (B, N, (Kb, Ka), offset): the packed kernel's persistent walk (two
+#: emulated SMs: three row groups of 300 rows, the last ragged), rows
+#: longer than a tile (136 = 64 + 64 + 8; 200 in four tiles), the packed
+#: instance 2 (first order: (2, 2), (1, 2)) and 8 ((3, 3), (8, 8), the
+#: bound); the flat kernel at N = 42, on x and y
+#: 4 bytes off 16-byte alignment, and its generic instance (9, 12) on a
+#: frame of three chunks (the y history reaches into stored chunks)
+IIR_CASES = [(300, 40, (2, 2), 0), (300, 40, (3, 3), 0),
+             (300, 40, (1, 2), 0), (300, 40, (8, 8), 0),
+             (5, 136, (2, 2), 0), (260, 200, (3, 3), 0),
+             (7, 42, (2, 2), 0), (7, 42, (8, 8), 0), (6, 40, (2, 2), 1),
+             (6, 40, (3, 3), 1), (33, 80, (9, 12), 0), (5, 42, (12, 9), 1)]
+IIR_IDS = ["300x40-entry", "300x40-k3", "300x40-kb1", "300x40-k8",
+           "row-of-3-tiles", "260x200-k3", "flat-42", "flat-42-k8",
+           "flat-misaligned", "flat-misaligned-k3", "generic-9-12",
+           "generic-12-9-misaligned"]
+
+
+def _iir_packed(n, kb, ka, offset):
+    return n % 4 == 0 and offset == 0 and max(kb, ka) <= 8
+
+
+def _run_emulated_iir(lib, b, n, taps, offset):
+    """(kernel output, plain output) on frames made from a seed, x and y
+    ``offset`` floats past a 16-byte boundary."""
+    kb, ka = taps
+    x = torch.from_numpy(frames(n * 11 + kb, b * n + offset))[offset:]
+    x = x.view(b, n)
+    bc, ac = (T(c) for c in iir_coefficients(kb, ka))
+    y = torch.full((b * n + offset,), float("nan"))[offset:].view(b, n)
+    assert lib.emu_iir(b, n, kb, ka, x.data_ptr(), bc.data_ptr(),
+                       ac.data_ptr(), y.data_ptr()) == 0
+    return y, dsp_fir.iir(x, bc, ac)
+
+
+@pytest.mark.parametrize("b,n,taps,offset", IIR_CASES, ids=IIR_IDS)
+def test_iir_kernel_source_matches_plain_under_emulation(
+        emulated_iir, b, n, taps, offset):
+    """Both kernels and every instance (packed 2 and 8; flat 8 and the
+    generic one for filters past 8 coefficients) against the plain version
+    within the reference tests' 1e-4."""
+    got, want = _run_emulated_iir(emulated_iir, b, n, taps, offset)
+    close(got, want, TOL["iir"])
+
+
+@pytest.mark.parametrize("b,n,taps,offset", IIR_CASES, ids=IIR_IDS)
+def test_iir_kernel_mutation_fails_exactly_the_packed_cases(
+        mutated_iir, b, n, taps, offset):
+    """With the packed kernel's outputs stored one sample early, every
+    packed case differs from the plain version and every flat case still
+    agrees: the cases above reach the route they name."""
+    got, want = _run_emulated_iir(mutated_iir, b, n, taps, offset)
+    ok = np.allclose(np.asarray(got), np.asarray(want), rtol=TOL["iir"],
+                     atol=TOL["iir"])
+    assert ok != _iir_packed(n, *taps, offset)

@@ -13,13 +13,16 @@ and shared pipelines, whose schedules run the DSP kernels; the paper's
 evaluation (Table II, Figs 7, 8 and 10 through ``sweep``, the nine
 synthetic schedules executed); Qwen2-1.5B at full width through
 ``prefill`` and the continuous-batching ``Server``; rwkv6-3b and zamba2-7b
-at full width through ``forward`` and the ``Server`` — then checks them:
+at full width through ``forward`` and the ``Server``; the scenario server
+``hts.serve``, static and slice-and-refill, on 4096 requests through 1024
+lanes — then checks them:
 
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
    spills of ``hts_run_kernel`` and of each instance of K5
    ``real_fir_packed<KT>``, K7 ``adaptive_fir_packed<K>``, K8
-   ``iir_packed<MT>`` and ``iir_flat<MT>``, K12
+   ``iir_packed<MT>`` and ``iir_flat<MT>``, K7 ``adaptive_fir_flat<K>``
+   (the generic instance ``<0>`` among them), K12
    ``correlation_packed<LT>``, K13 ``fft_kernel<L>``, K14
    ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
    ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>``, K17's three kernels
@@ -79,7 +82,8 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    Table II's (524288 frames of 40 samples) and at the JAX tests' shapes,
    all at ragged edge shapes too; K12 also at the image path's call
    (262144 × 64, lag 4, y the same tensor as x) and K7 at Table II's with
-   d the same tensor as x (the dispatch entries' calls), each also at the
+   d the same tensor as x (the dispatch entries' calls) and at 16 taps (its
+   flat kernel's generic instance, also at 33 × 100), each also at the
    shapes of their packed and flat kernels (threads a row, rows longer
    than a tile, rows 4 bytes off alignment); K8 likewise, and with
    filters of 9 and 12 coefficients (the flat kernel's generic
@@ -175,6 +179,21 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    window's busy share; (d) at the smoke configs in float32, ``forward``
    on the kernels against token-by-token ``decode_step`` over T = 100 at
    1e-3, the reference's own check;
+11. the scenario server: ``workloads.arrival_stream(11, rate=1000,
+   n=4096, n_tenants=2)`` (BENCH_serving.json's stream, 48 requests there)
+   submitted back to back to ``hts.serve(max_batch=1024, max_queue=4096,
+   deadline=60)`` and drained: (a) static, four full batches; (b)
+   slice-and-refill (``slice_steps="auto"``); (c) both on ``devices=1``,
+   and ``run_many(devices=1)``; (d) ``trip_cost_us(budget=16)`` of a
+   1024-lane ``run_many`` beside phase 5's µs a step.  Every result must
+   equal ``run_many``'s over the same programs (cycles, stalls, aborts,
+   schedule), the first 64 golden's; ``hts_run`` must launch once a
+   static batch or a slice (the server's count), K1–K4 never, and nothing
+   be built; the phase must take under 120 s.  Scenarios/s beside
+   ``run_many``'s, per-bucket occupancy, wait and time to result, the
+   slices and their ``"auto"`` budgets, the host ms a slice outside
+   ``hts_run`` (harvest and refill) and a traced 11b drain's device busy
+   share are printed;
 5b. kernel times: device, call, plain and library times of the DSP
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
    ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
@@ -182,7 +201,8 @@ at full width through ``forward`` and the ``Server`` — then checks them:
    forward shapes (each one's device time the sum of its three kernels,
    split; their scratch bytes), K5 and ``conv1d`` also at Table II's 524288
    x 40, K12 and grouped ``conv1d`` also at the image path's call (262144
-   x 64, y is x), K7 also with d is x, beside the bound (with the second
+   x 64, y is x), K7 also with d is x and at 16 taps (``*_k16``: the
+   generic instance), beside the bound (with the second
    array x itself, x read once; the bound reading it twice beside it).
    ``--only 5b`` times them
    all on their own (launches are counted only on the paths that ran).
@@ -195,7 +215,8 @@ without the rest of the repository.  ``--only PREFIX ...`` runs the
 build, the main path's set-up and the phases whose names start with a
 prefix (``--only 2c``: ``hts_run`` against the per-phase loop; ``--only
 3``: the main path; ``--only 9 "5b transformer"``: the dense model path;
-``--only 10``: the ssm and hybrid families) and prints no kernels line.
+``--only 10``: the ssm and hybrid families; ``--only 11``: the scenario
+server) and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -274,6 +295,8 @@ IMAGE_SEED = 2020
 TABLE_FRAMES, TABLE_SAMPLES = 524288, 40
 TABLE_SEED, SYNTH_SEED = 2021, 2022
 LMS_MU = 0.01
+#: K7's tap count past its register instances (4, 8): the generic instance
+LMS_GENERIC_K = 16
 ENTRY_IIR = ([0.2, 0.3], [1.0, -0.5])
 TEST_IIR = ([0.2, 0.3, 0.1], [1.0, -0.4, 0.05])
 #: a filter past the 8 coefficients K8 keeps in registers (sum |a[1:]| =
@@ -311,7 +334,9 @@ DSP_CASES = {
                     (64, 40, 8), (1, 96, 12), (64, 96, 12), (300, 40, 8)],
     "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8), (1, 40, 8),
                      (32, 40, 8), (1, 64, 4), (32, 64, 4), (300, 40, 8),
-                     (5, 136, 8), (260, 200, 4), (7, 42, 8)],
+                     (5, 136, 8), (260, 200, 4), (7, 42, 8),
+                     (TABLE_FRAMES, TABLE_SAMPLES, LMS_GENERIC_K),
+                     (33, 100, LMS_GENERIC_K)],
     "iir": [(TABLE_FRAMES, TABLE_SAMPLES, ENTRY_IIR), (1, 40, TEST_IIR),
             (33, 40, TEST_IIR), (1, 80, TEST_IIR), (33, 80, TEST_IIR),
             (300, 40, ENTRY_IIR), (5, 136, ENTRY_IIR), (260, 200, TEST_IIR),
@@ -346,10 +371,13 @@ DSP_SHAPE = {"vector_add": (TILES, PIXELS), "vector_max": (TILES, PIXELS),
              "iir": (TABLE_FRAMES, TABLE_SAMPLES)}
 #: more shapes each is timed at (phase 5b), beside its row's: (B, N, taps
 #: or lag, second array the first): K5 at Table II's, K12 at the image
-#: path's call (y is x), K7 at Table II's with d is x
+#: path's call (y is x), K7 at Table II's with d is x and at 16 taps (the
+#: generic instance; ``*_k16``)
 DSP_EXTRA = {"real_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, False)],
              "correlation": [(TILES, PIXELS, MAX_LAG, True)],
-             "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, True)]}
+             "adaptive_fir": [(TABLE_FRAMES, TABLE_SAMPLES, 8, True),
+                              (TABLE_FRAMES, TABLE_SAMPLES, LMS_GENERIC_K,
+                               False)]}
 #: the kernel a DSP wrapper launches, as the profiler names it (a
 #: substring), where it is not ``<name>_kernel``: K5's, K7's, K8's and
 #: K12's packed and flat kernels (one of them a call)
@@ -368,6 +396,15 @@ LIVE_SHARED = {"dct": 40, "vector_max": 40, "correlation": 40,
                "vector_add": 40, "fft": 4, "vector_dot": 6}
 #: golden cycles: the image program, the audio program alone, both shared
 CYCLES = {"image": 18238, "audio": 37509, "shared": 37510}
+
+# the scenario server (phase 11): BENCH_serving.json's stream (seed 11,
+# Poisson at 1000 requests/s, two tenants a scenario) at 4096 requests,
+# served back to back through 1024 lanes (one full wave of hts_run at the
+# main spec: 8 CTAs an SM on 132 SMs hold 1056)
+SCEN_SEED, SCEN_RATE, SCEN_REQUESTS, SCEN_LANES = 11, 1000.0, 4096, 1024
+SCEN_GOLDEN = 64               # the first results held against golden
+SCEN_TRIP_BUDGET = 16          # 11d: trip_cost_us's slice
+SCEN_PHASE_S = 120.0           # the phase's wall-clock limit (11a-11d)
 
 # the model path (phase 9): K15 and K16 (csrc/transformer.cu)
 TF_SOURCE = "src/repro_torch/csrc/transformer.cu"
@@ -1234,6 +1271,7 @@ def main(argv=None) -> int:
               "a CUDA card", file=sys.stderr)
         return 2
     try:
+        from repro_torch.core import hts
         from repro_torch.core.hts import (HtsParams, api, batch, costs,
                                           cuda_run, cuda_step, machine,
                                           programs, workloads)
@@ -1328,6 +1366,8 @@ def main(argv=None) -> int:
                  "real_fir_packed"),
                 ("adaptive_fir", dsp.LIB, r"adaptive_fir_packedILi(\d+)E",
                  "adaptive_fir_packed"),
+                ("adaptive_fir", dsp.LIB, r"adaptive_fir_flatILi(\d+)E",
+                 "adaptive_fir_flat"),
                 ("iir", dsp.LIB, r"iir_packedILi(\d+)E", "iir_packed"),
                 ("iir", dsp.LIB, r"iir_flatILi(\d+)E", "iir_flat"),
                 ("correlation", dsp.LIB, r"correlation_packedILi(\d+)E",
@@ -2790,6 +2830,132 @@ def main(argv=None) -> int:
         ctx.pop("ssm", None)            # one model on the card at a time
     phase("10d forward vs decode in float32", ssm_logic)
 
+    # 11. the scenario server ---------------------------------------------
+    def scenario_server():
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        stream = workloads.arrival_stream(SCEN_SEED, rate=SCEN_RATE,
+                                          n=SCEN_REQUESTS, n_tenants=2)
+        progs = [a.scenario.merged for a in stream]
+        log(f"{SCEN_REQUESTS} requests of arrival_stream({SCEN_SEED}, rate="
+            f"{SCEN_RATE}) generated in {time.perf_counter() - t0:.1f} s "
+            f"(the last arrives at {stream[-1].t:.3f} s; replayed back to "
+            "back)")
+        api.run_many(progs[:SCEN_LANES], device=DEVICE, check=False)  # warm
+        torch.cuda.synchronize()
+        cuda_run.reset_launches()
+        t0 = time.perf_counter()
+        want = api.run_many(progs, device=DEVICE, check=False)
+        wall_ref = time.perf_counter() - t0
+        assert want.all_halted and cuda_run.launches["run"] == 1, \
+            cuda_run.launches
+        want_rows = [(int(want.cycles[i]), int(want.raw["stall_cycles"][i]),
+                 int(want.raw["spec_aborted"][i]), want[i].schedule_tuple())
+                for i in range(SCEN_REQUESTS)]
+        builds0 = hts.serve(device=DEVICE).cache_info().builds
+
+        def served(label, **kw):
+            """Serve the stream back to back and drain; every result held
+            to run_many's, the hts_run launches to the server's count."""
+            cuda_run.reset_launches()
+            cuda_step.reset_launches()
+            srv = hts.serve(max_batch=SCEN_LANES, max_queue=SCEN_REQUESTS,
+                            deadline=60.0, device=DEVICE, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            futs = [srv.submit(p) for p in progs]
+            srv.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = [f.result(timeout=0) for f in futs]
+            bad = [i for i, r in enumerate(got)
+                   if (r.cycles, r.stall_cycles, r.spec_aborted,
+                       r.schedule_tuple()) != want_rows[i]]
+            assert not bad, f"{label}: requests {bad[:10]} differ from " \
+                "run_many"
+            rep = srv.report()
+            info = srv.cache_info()
+            (key, b), = rep.per_bucket.items()
+            launches = b.slices if kw.get("slice_steps") else b.batches
+            assert info.launches == launches * (kw.get("devices") or 1), \
+                f"{label}: hts_run {info.launches}, server {launches}"
+            assert not any(cuda_step.launches.values()), cuda_step.launches
+            assert info.builds == builds0, f"{label}: built {info}"
+            run_paths[f"serve {label}"] = info.launches
+            log(f"{label}: {SCEN_REQUESTS} requests in {wall:.4f} s, "
+                f"{SCEN_REQUESTS / wall:.1f} scenarios/s (run_many "
+                f"{SCEN_REQUESTS / wall_ref:.1f}); bucket {key}: "
+                f"{b.batches} batches, occupancy {b.occupancy:.3f}, mean "
+                f"wait {b.mean_wait * 1e3:.3f} ms, time to result "
+                f"{b.mean_ttr * 1e3:.3f} ms; hts_run {info.launches} "
+                f"launches, K1-K4 0, builds {info.builds} (unchanged)  on "
+                f"{card}")
+            if b.slices:
+                log(f"{label}: {b.slices} slices, budgets {list(b.budgets)}"
+                    f"; host ms a slice: {b.launch_ms:.3f} from launch to "
+                    f"the dead mask read back, {b.host_ms:.3f} outside "
+                    "hts_run (harvest and refill, the refills' packing "
+                    f"included)  on {card}")
+            return got, wall
+
+        static, wall_a = served("static (11a)")
+        sliced, wall_b = served("slice-and-refill (11b)",
+                                slice_steps="auto")
+        for i in range(SCEN_GOLDEN):
+            g = api.run(progs[i], backend="golden")
+            assert (g.cycles, g.schedule_tuple()) == \
+                (static[i].cycles, static[i].schedule_tuple()), \
+                f"request {i} differs from golden"
+        log(f"the first {SCEN_GOLDEN} requests equal golden (cycles and "
+            "schedule)")
+        served("static on devices=1 (11c)", devices=1)
+        served("slice-and-refill on devices=1 (11c)", devices=1,
+               slice_steps="auto")
+        cuda_run.reset_launches()
+        one = api.run_many(progs, devices=1, device=DEVICE, check=False)
+        assert cuda_run.launches["run"] == 1 and \
+            np.array_equal(one.cycles, want.cycles) and all(
+                one[i].schedule_tuple() == want_rows[i][3]
+                for i in range(SCEN_REQUESTS)), "run_many(devices=1)"
+        log("11c: both servers on devices=1 and run_many(devices=1) equal "
+            "run_many")
+        width = api.run_many(progs[:SCEN_LANES], device=DEVICE)
+        trip = width.trip_cost_us(budget=SCEN_TRIP_BUDGET)
+        # a longer slice spreads the launch's host work over more steps
+        long_trip = width.trip_cost_us(budget=16 * SCEN_TRIP_BUDGET)
+        hr = next((r for r in rows if r["name"] == "hts_run"), {})
+        p5 = hr.get("ms_per_step")
+        log(f"11d: trip_cost_us(budget={SCEN_TRIP_BUDGET}) of a "
+            f"{SCEN_LANES}-lane run_many: {trip:.3f} us a step "
+            f"(budget={16 * SCEN_TRIP_BUDGET}: {long_trip:.3f}; phase 5's "
+            f"hts_run: {'not run' if p5 is None else f'{p5 * 1e3:.3f}'} us "
+            f"a step on the device, a mid-run carry)  on {card}")
+
+        def drain_sliced(n):
+            srv = hts.serve(max_batch=SCEN_LANES, max_queue=SCEN_REQUESTS,
+                            deadline=60.0, device=DEVICE, slice_steps="auto")
+            for p in progs[:n]:
+                srv.submit(p)
+            srv.drain()
+        try:
+            events, wall_us = trace_window(
+                torch, lambda: drain_sliced(SCEN_LANES),
+                lambda: drain_sliced(SCEN_REQUESTS))
+            busy = sum(us for _key, us in events)
+            kern = sum(us for key, us in events if "hts_run_kernel" in key)
+            log(f"traced 11b drain: wall {wall_us / 1e3:.3f} ms, device busy "
+                f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %), "
+                f"hts_run {kern / 1e3:.3f} ms, {len(events)} device "
+                f"activities  on {card}")
+            for key, us, cnt in costliest(events):
+                log(f"    {us / 1e3:9.3f} ms  x{cnt:<5d} {key}")
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"busy share not measured (profiler unavailable: {e})")
+        wall = time.perf_counter() - t_phase
+        log(f"phase 11 wall {wall:.1f} s (limit {SCEN_PHASE_S:.0f} s)")
+        assert wall < SCEN_PHASE_S, f"phase 11 took {wall:.1f} s"
+    phase("11 scenario server", scenario_server)
+
     # 5b. DSP kernel times at each path's shape -----------------------------
     def extra_times(row, name, wrapper, plain, i):
         """The kernel at its ``DSP_EXTRA`` shapes too: device, call, plain
@@ -2805,6 +2971,8 @@ def main(argv=None) -> int:
             key = f"{b}x{n}"
             if alias:
                 key += "_y_is_x" if name == "correlation" else "_d_is_x"
+            if name == "adaptive_fir" and p != DSP_PARAM[name]:
+                key += f"_k{p}"
             row[f"ms_{key}"] = profiled_ms(
                 torch, calls, DSP_KERNEL.get(name, f"{name}_kernel"))
             row[f"call_ms_{key}"] = events_ms(torch, calls)

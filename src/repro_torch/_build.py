@@ -51,6 +51,17 @@ def on_card(device: torch.device) -> bool:
     raise ValueError(f"unsupported device {device}")
 
 
+#: every :class:`Library` this process has made (one a kernel source, made
+#: when its wrapper module is imported)
+LIBRARIES: list = []
+
+
+def loaded() -> int:
+    """How many of this process's libraries have been built and opened:
+    a warmed program that builds nothing more keeps it constant."""
+    return sum(lib._handle is not None for lib in LIBRARIES)
+
+
 class Library:
     """One CUDA source under ``csrc/``, built and loaded at first use.
 
@@ -63,6 +74,7 @@ class Library:
         self.info: dict = {}
         self.launches = {name: 0 for name in counters}
         self._handle = None
+        LIBRARIES.append(self)
 
     def build(self) -> Path:
         """Compile the source into a shared library (once per source

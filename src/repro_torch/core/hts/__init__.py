@@ -13,6 +13,14 @@ this port reaches):
   the CUDA card; without one it raises unless ``device="cpu"``).
 * :func:`pack_population` pads N programs to one lane axis;
   ``workloads.py`` generates seeded multi-tenant scenarios.
+* serving + sharding (``serve.py`` / ``shard.py``): :func:`serve` builds
+  a continuously-batched :class:`Server` — ``submit(scenario) ->
+  Future[Result]``, shape-bucket routing, launch-on-full/deadline,
+  slice-and-refill with the carry kept on the device, bounded-queue
+  backpressure, per-bucket/per-tenant service metrics and a probe of
+  builds and ``hts_run`` launches (:meth:`Server.cache_info`);
+  ``run_many(devices=N)`` and ``ServeSpec(devices=N)`` split the lanes
+  over N cards (``compare_population(devices=N)`` holds them to golden).
 
     >>> from repro_torch.core import hts
     >>> p = hts.Program("demo")
@@ -33,15 +41,19 @@ from .frontend import MultiProgram, Stream, StreamSet, build_frontends
 from .golden import HtsParams
 from .machine import MachineSpec, make_machine
 from .policy import SchedPolicy
+from .serve import (CacheInfo, ManualClock, QueueFullError, Server,
+                    ServeReport, ServeSpec, SystemClock, serve)
 
 __all__ = [
-    "ALL_SCHEDULERS", "BuilderError", "BuiltProgram", "CompareReport",
-    "FairnessReport", "HtsParams", "MachineSpec", "MismatchError",
-    "MultiProgram", "PackedPopulation", "PopulationCompareReport",
-    "PopulationResult", "Program", "Reg", "Region", "Result", "SchedPolicy",
-    "SchedulerCosts", "SimulationError", "Stream", "StreamSet", "SweepResult",
+    "ALL_SCHEDULERS", "BuilderError", "BuiltProgram", "CacheInfo",
+    "CompareReport", "FairnessReport", "HtsParams", "MachineSpec",
+    "ManualClock", "MismatchError", "MultiProgram", "PackedPopulation",
+    "PopulationCompareReport", "PopulationResult", "Program",
+    "QueueFullError", "Reg", "Region", "Result", "SchedPolicy",
+    "SchedulerCosts", "Server", "ServeReport", "ServeSpec",
+    "SimulationError", "Stream", "StreamSet", "SweepResult", "SystemClock",
     "TaskHandle", "TaskRow", "Walker", "build_frontends", "compare",
     "compare_population", "costs_by_name", "make_machine",
     "pack_population", "prog_bucket", "run", "run_many",
-    "scenarios_per_second", "sweep",
+    "scenarios_per_second", "serve", "sweep",
 ]

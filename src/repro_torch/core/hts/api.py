@@ -20,20 +20,26 @@ and executes it on either backend:
 
 Both return the same :class:`Result` with identical per-task schedule rows.
 ``run_many`` packs a population (:mod:`batch`) and runs it as one
-population machine; ``sweep`` runs a program (or a population) across FU
-points, one lane per (scenario, point), one population machine per
-scheduler; ``compare`` and ``compare_population`` are the differential
-runners (golden ≡ torch machine, event-skip on and off, per scheduler).
+population machine (``devices=N``: one a device, :mod:`shard`); ``sweep``
+runs a program (or a population) across FU points, one lane per
+(scenario, point), one population machine per scheduler; ``compare`` and
+``compare_population`` are the differential runners (golden ≡ torch
+machine, event-skip on and off, per scheduler).  The reference's
+``step_impl=`` (its JAX step lowerings) is not ported: the port has one
+step.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import statistics
 import time
 from typing import Any, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
-from . import batch, golden, machine
+from . import batch, golden, machine, shard
 from .batch import PackedPopulation
 from .costs import (ALL_SCHEDULERS, FUNC_NAMES, NUM_FUNCS, SchedulerCosts,
                     costs_by_name, fu_cost_tuple)
@@ -381,6 +387,13 @@ class PopulationResult:
     #: steps; the per-phase loop once rounded this up to a multiple of
     #: ``machine.CHECK_EVERY``); None on golden
     trips: Optional[int] = None
+    # the machine of this run (spec, table size, the 11 arguments as run,
+    # padding lanes included, and the device), kept by ``run_many`` so that
+    # :meth:`trip_cost_us` can step the same machine; None on golden
+    _spec: Any = dataclasses.field(repr=False, default=None)
+    _max_prog: Optional[int] = dataclasses.field(repr=False, default=None)
+    _margs: Any = dataclasses.field(repr=False, default=None)
+    _device: Any = dataclasses.field(repr=False, default=None)
 
     def __len__(self) -> int:
         return len(self.names)
@@ -411,8 +424,52 @@ class PopulationResult:
         return np.asarray(self.raw["steps"])
 
     def scenarios_per_second(self, wall_us: Optional[float] = None) -> float:
+        """Scenarios per host second of this call (``wall_us`` overrides
+        the call's own wall)."""
         return scenarios_per_second(
             len(self), self.wall_us if wall_us is None else wall_us)
+
+    def scenarios_per_sec(self) -> float:
+        """Throughput of this call (scenarios per host second)."""
+        return self.scenarios_per_second()
+
+    def trip_cost_us(self, budget: int = 128, reps: int = 5) -> float:
+        """Median wall-clock microseconds a step of this population's
+        machine.
+
+        A fresh carry of the run's own machine (one device, its arguments
+        as run) is advanced by ``budget`` steps a lane: one untimed
+        warm-up, then ``reps`` timed slices, each from a copy of the fresh
+        carry and synchronised on the card (one ``hts_run`` launch there).
+        The median wall is divided by the steps the slice ran (``budget``
+        unless every lane halted earlier).  Torch backend only: raises on
+        golden results.
+        """
+        if self._spec is None:
+            raise ValueError("trip_cost_us requires a torch-backend "
+                             "population run")
+        m = _runner_for(self._spec, self._max_prog, None, self._device)
+        a = machine.norm_args(m, *self._margs)
+        fresh = machine.init_state(m, a.mem_init, a.streams)
+        on_card = m.device.type == "cuda"
+
+        def timed_slice():
+            st = {k: v.clone() for k, v in fresh.items()}
+            if on_card:
+                torch.cuda.synchronize(m.device)
+            t0 = time.perf_counter()
+            machine._advance(m, st, a, budget)
+            if on_card:
+                torch.cuda.synchronize(m.device)
+            return (time.perf_counter() - t0) * 1e6, st
+
+        timed_slice()                                   # warm-up
+        walls, st = [], None
+        for _ in range(reps):
+            wall, st = timed_slice()
+            walls.append(wall)
+        trips = int((st["steps"] - fresh["steps"]).max())
+        return statistics.median(walls) / max(trips, 1)
 
     def table(self) -> str:
         lines = [f"population · {self.scheduler} · {self.backend} · "
@@ -430,7 +487,8 @@ def run_many(programs, *,
              params: HtsParams = HtsParams(), event_skip: bool = True,
              max_cycles: int = 5_000_000, max_prog: Optional[int] = None,
              max_fu_per_class: Optional[int] = None,
-             policy=None, check: bool = True, fu_cost=None,
+             policy=None, check: bool = True,
+             devices: Optional[int] = None, fu_cost=None,
              device=None) -> PopulationResult:
     """Simulate a population of programs as **one population machine**.
 
@@ -440,6 +498,16 @@ def run_many(programs, *,
     ``policy`` and ``fu_cost`` take one shared value or one per scenario.
     ``backend="golden"`` runs the oracle in a loop instead (same result
     surface).  ``device``: ``None`` = CUDA (raises without a card).
+
+    ``devices=N`` shards the lanes over N devices (:mod:`shard`): they are
+    padded to a multiple of N (pad results dropped), each card runs its
+    own ``hts_run`` launch, all launched before any is read back, and the
+    results equal the one-device path's lane for lane (``devices=None``,
+    the default; ``devices=1`` takes the sharded path on one card).  On the
+    card N must lie in ``1..torch.cuda.device_count()``; with
+    ``device="cpu"`` the shards run one after another.  Torch backend
+    only.  The machine is cached per ``(spec, max_prog, devices,
+    device)`` (:func:`_runner_for`).
     """
     pop = (programs if isinstance(programs, PackedPopulation)
            else batch.pack_population(programs, params=params, n_fu=n_fu,
@@ -447,6 +515,9 @@ def run_many(programs, *,
                                       max_prog=max_prog))
     cost = _norm_costs(scheduler)
 
+    if devices is not None and backend != "torch":
+        raise ValueError(f'devices= requires backend="torch", got '
+                         f'{backend!r}')
     if backend == "golden":
         t0 = time.perf_counter()
         results = tuple(
@@ -477,10 +548,14 @@ def run_many(programs, *,
     spec = machine.MachineSpec(params=pop.params, costs=cost,
                                event_skip=event_skip, max_cycles=max_cycles,
                                max_fu_per_class=max_fu_per_class)
-    m = machine.make_machine(spec, pop.max_prog, device)
+    m = _runner_for(spec, pop.max_prog, devices, device)
+    run_pop = pop if devices is None else shard.pad_lanes(pop, devices)
+    trips0 = m.stats["trips"]
     t0 = time.perf_counter()
-    out = machine.carry_to_numpy(m.run(*pop.machine_args()))
+    out = machine.carry_to_numpy(m.run(*run_pop.machine_args()))
     wall = (time.perf_counter() - t0) * 1e6
+    if len(run_pop) > len(pop):              # drop the shard-padding lanes
+        out = {k: v[:len(pop)] for k, v in out.items()}
 
     halted = out["halted"] & ~out["overflow"]
     result = PopulationResult(
@@ -488,7 +563,9 @@ def run_many(programs, *,
         cycles=out["cycles"], halted=halted, wall_us=wall,
         max_fu_per_class=max_fu_per_class, policies=pop.policies, raw=out,
         stream_sets=tuple(p.streams for p in pop.preps),
-        trips=m.stats["trips"])
+        trips=m.stats["trips"] - trips0, _spec=spec, _max_prog=pop.max_prog,
+        _margs=tuple(run_pop.machine_args()),
+        _device=machine.resolve_device(device))
     if check and not result.all_halted:
         bad = [pop.names[i] for i in np.nonzero(~halted)[0]]
         raise SimulationError(
@@ -496,6 +573,26 @@ def run_many(programs, *,
             f"{bad} did not halt within {max_cycles} cycles — livelock, "
             "structural overflow, or max_cycles too small")
     return result
+
+
+@functools.lru_cache(maxsize=32)
+def _machine_for(spec: machine.MachineSpec, max_prog: int,
+                 device: torch.device) -> machine.Machine:
+    return machine.make_machine(spec, max_prog, device)
+
+
+def _runner_for(spec: machine.MachineSpec, max_prog: int,
+                devices: Optional[int] = None, device=None):
+    """The population machine for one ``(spec, max_prog, devices,
+    device)`` key: a :class:`~repro_torch.core.hts.machine.Machine`, or for
+    ``devices=N`` a :class:`~repro_torch.core.hts.shard.ShardedMachine`.
+    Both are cached at module level, so every batch of a bucket gets the
+    same object (the server's hit/miss accounting reads it).  A machine is
+    resumable itself (``init``, ``run_slice``, ``collect``), so this also
+    stands for the reference's ``_slicer_for``."""
+    if devices is None:
+        return _machine_for(spec, max_prog, machine.resolve_device(device))
+    return shard.sharded_runner(spec, max_prog, devices, device)
 
 
 # ---------------------------------------------------------------------------
@@ -580,9 +677,7 @@ def sweep(program, *, n_fu=(1, 2, 4), schedulers=("naive", "hts_spec"),
 
     ``device``: ``None`` = CUDA (raises without a card).  Raises
     :class:`SimulationError` naming the points that did not halt within
-    ``max_cycles``.  The reference's ``devices=`` (its ``shard.py``) and
-    ``step_impl=`` (its JAX step lowerings) are not ported: the port has
-    one device and one step.
+    ``max_cycles``.
     """
     points = tuple(batch.norm_n_fu(k) for k in n_fu)
     widest = max(max(p) for p in points)
@@ -751,15 +846,17 @@ def compare_population(programs, *,
                        max_prog: Optional[int] = None,
                        max_fu_per_class: Optional[int] = None,
                        policy=None, fu_cost=None,
+                       devices: Optional[int] = None,
                        device=None) -> PopulationCompareReport:
     """Differential verification of a whole population: one population
     machine per (scheduler, event-skip mode), checked scenario by scenario
     against a golden loop.  Raises :class:`MismatchError` naming the
     scenario, scheduler and mode on the first divergence.
 
-    ``device``: ``None`` = CUDA (raises without a card).  The reference's
-    ``devices=`` (its ``shard.py``) and ``step_impl=`` (its JAX step
-    lowerings) are not ported.
+    ``device``: ``None`` = CUDA (raises without a card).  ``devices=N``
+    runs the machine side through the sharded path (:mod:`shard`; the
+    golden loop stays on the host), so sharding is held lane for lane to
+    the same oracle.
     """
     pop = (programs if isinstance(programs, PackedPopulation)
            else batch.pack_population(programs, params=params, n_fu=n_fu,
@@ -779,7 +876,8 @@ def compare_population(programs, *,
         for event_skip in (True, False):
             m = run_many(pop, scheduler=cost, event_skip=event_skip,
                          max_cycles=max_cycles,
-                         max_fu_per_class=max_fu_per_class, device=device)
+                         max_fu_per_class=max_fu_per_class, devices=devices,
+                         device=device)
             mode = f"torch event_skip={'on' if event_skip else 'off'}"
             for i in range(len(pop)):
                 if int(m.cycles[i]) != int(gold.cycles[i]):

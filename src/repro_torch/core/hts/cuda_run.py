@@ -10,9 +10,12 @@ loop (:func:`machine._loop`) on every carry array.  Here:
   carry and argument tensor (device, dtype, per-lane shape, contiguity),
   packs the launch's sizes and shared-memory layout (:func:`dims`) and one
   device array of the tensors' pointers (:data:`CARRY_KEYS`, then
-  :data:`ARG_KEYS`), launches once and counts it (:data:`launches`).  It
-  raises for a carry anywhere else: ``machine`` routes a CPU carry to the
-  plain version, the per-phase loop with ``cuda_step``'s plain K1–K4;
+  :data:`ARG_KEYS`), launches once and counts it (:data:`launches`), then
+  reads back the steps the slice ran.  :func:`launch` is the same without
+  the read-back, so that several cards can be launched before any is
+  waited on (``shard.advance``).  Both raise for a carry anywhere else:
+  ``machine`` routes a CPU carry to the plain version, the per-phase loop
+  with ``cuda_step``'s plain K1–K4;
 * :func:`layout` — where each hot array lives in the CTA's shared memory;
   :func:`fits` says whether the kernel takes a spec (within
   :data:`SMEM_LIMIT` and the kernel's other limits), and :func:`check_fits`
@@ -236,22 +239,36 @@ def pointers(st: dict, a, device) -> torch.Tensor:
     return torch.tensor(ptrs, dtype=torch.int64, device=device)
 
 
-def run_slice(m, st: dict, a, budget: int) -> dict:
-    """Advance every alive lane of carry ``st``, on the card, by at most
-    ``budget`` steps in one ``hts_run`` launch, in place (per-lane limit
-    ``steps + budget`` at entry), and add the largest number of steps any
-    lane advanced to ``m.stats["trips"]``."""
+def launch(m, st: dict, a, budget: int) -> torch.Tensor:
+    """Launch ``hts_run`` once on carry ``st`` (on the card, on the current
+    device's stream), advancing every alive lane in place by at most
+    ``budget`` steps (per-lane limit ``steps + budget`` at entry), and
+    count it; read nothing back.  Returns the lanes' steps at entry."""
     dev = st["cycle"].device
     if not _build.on_card(dev):
         raise ValueError(f"hts_run runs on the card; the carry is on {dev}")
     n, NS = _check_all(m, st, a)
     check_fits(m, NS)
-    if n == 0:
-        return st
     steps0 = st["steps"].clone()
-    d = dims(m, n, NS, budget)
-    LIB.launch("hts_run", "run", d, d.numel(), pointers(st, a, dev))
-    m.stats["trips"] += int((st["steps"] - steps0).max())
+    if n:
+        d = dims(m, n, NS, budget)
+        LIB.launch("hts_run", "run", d, d.numel(), pointers(st, a, dev))
+    return steps0
+
+
+def add_trips(m, st: dict, steps0: torch.Tensor) -> None:
+    """Add the largest number of steps any lane advanced since ``steps0``
+    to ``m.stats["trips"]`` (a read-back)."""
+    if steps0.numel():
+        m.stats["trips"] += int((st["steps"] - steps0).max())
+
+
+def run_slice(m, st: dict, a, budget: int) -> dict:
+    """Advance every alive lane of carry ``st``, on the card, by at most
+    ``budget`` steps in one ``hts_run`` launch, in place (:func:`launch`),
+    and add the largest number of steps any lane advanced to
+    ``m.stats["trips"]``."""
+    add_trips(m, st, launch(m, st, a, budget))
     return st
 
 

@@ -461,11 +461,18 @@ complex_fir_kernel(size_t total, int N, int K, const float2* __restrict__ x,
 // window in registers (LmsFilter<K>, K 4 and 8, the reference's).  Its
 // arithmetic is cheap (about 26 instructions a sample); what costs is
 // moving the frames, so the design is about data movement.
-// adaptive_fir_packed, where N is a multiple of 4 and x, d, y are 16-byte
-// aligned, is walk_row_tiles (the helpers span) on its persistent grid.
-// adaptive_fir_flat takes every other shape: SEQ_ROWS frames a block,
-// SEQ_CHUNK-sample chunks by 4-byte loads, x and d both staged.  Both run
-// LmsFilter, so they agree bit for bit.
+// adaptive_fir_packed, where K is 4 or 8, N is a multiple of 4 and x, d,
+// y are 16-byte aligned, is walk_row_tiles (the helpers span) on its
+// persistent grid.  adaptive_fir_flat takes every other shape: SEQ_ROWS
+// frames a block, SEQ_CHUNK-sample chunks by 4-byte loads, x and d both
+// staged.  Its generic instance adaptive_fir_flat<0> takes any other K:
+// a frame's Kw = min(K, N) weights (taps past N never meet a nonzero
+// sample) and the Kw - 1 samples before the chunk (zero before the frame)
+// in dynamic shared memory, a column a frame, the window read back from
+// the staged x chunk and that tail, y written over the staged d.  Every instance rounds alike: w[0]*win[0], then one fused
+// multiply-add a tap, k = 1 up; mu*(d - acc); then w[k] by one fused
+// multiply-add each, each an explicit intrinsic (nvcc's own contraction
+// of the sums), so all agree bit for bit.
 // ---------------------------------------------------------------------------
 template <int K>
 struct LmsFilter {
@@ -480,27 +487,46 @@ struct LmsFilter {
 #pragma unroll
     for (int k = K - 1; k > 0; --k) win[k] = win[k - 1];
     win[0] = xv;
-    float acc = w[0] * win[0];
+    float acc = __fmul_rn(w[0], win[0]);
 #pragma unroll
-    for (int k = 1; k < K; ++k) acc += w[k] * win[k];
-    const float me = mu * (dv - acc);
+    for (int k = 1; k < K; ++k) acc = __fmaf_rn(w[k], win[k], acc);
+    const float me = __fmul_rn(mu, __fsub_rn(dv, acc));
 #pragma unroll
-    for (int k = 0; k < K; ++k) w[k] += me * win[k];
+    for (int k = 0; k < K; ++k) w[k] = __fmaf_rn(me, win[k], w[k]);
     return acc;
   }
 };
 
+// the generic instance's shared memory: a frame's Kw weights and Kw - 1
+// tail samples a column, `R` frames a block (as many as LMS_W_BYTES hold,
+// at most SEQ_ROWS)
+constexpr int LMS_W_BYTES = 192 * 1024;
+__host__ __device__ inline int lms_rows(int taps) {
+  const int r = LMS_W_BYTES / (4 * (2 * taps - 1));
+  return r < SEQ_ROWS ? r : SEQ_ROWS;
+}
+
+// K > 0: LmsFilter<K>, R = SEQ_ROWS; K == 0: Kw = min(K, N) taps, the
+// weights of R frames (w[k * R + t]) and their tails (h[(j - 1) * R + t]
+// = x[c0 - j], j = 1 .. Kw - 1) in dynamic shared memory
 template <int K>
 __global__ void __launch_bounds__(SEQ_ROWS)
-adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
-                  const float* __restrict__ d, float* __restrict__ y) {
+adaptive_fir_flat(int B, int N, int Kw, int R, float mu,
+                  const float* __restrict__ x, const float* __restrict__ d,
+                  float* __restrict__ y) {
   __shared__ float xs[SEQ_ROWS * SEQ_PITCH];
   __shared__ float ds[SEQ_ROWS * SEQ_PITCH];
+  extern __shared__ float lms_w[];
   const int t = threadIdx.x;
-  const size_t r0 = (size_t)blockIdx.x * SEQ_ROWS;
-  const int rows = (size_t)B - r0 < (size_t)SEQ_ROWS ? (int)(B - r0) : SEQ_ROWS;
-  LmsFilter<K> f{mu};
+  const size_t r0 = (size_t)blockIdx.x * R;
+  const int rows = (size_t)B - r0 < (size_t)R ? (int)(B - r0) : R;
+  LmsFilter<(K > 0 ? K : 1)> f{mu};
   f.reset();
+  float* w = lms_w + t;                          // this frame's w[k * R]
+  float* h = lms_w + Kw * R + t;                 // and its tail
+  if constexpr (K == 0)
+    if (t < rows)
+      for (int k = 0; k < 2 * Kw - 1; ++k) w[k * R] = 0.f;
   for (int c0 = 0; c0 < N; c0 += SEQ_CHUNK) {
     const int cols = N - c0 < SEQ_CHUNK ? N - c0 : SEQ_CHUNK;
     stage_in(xs, x, r0, rows, N, c0, cols);
@@ -508,11 +534,33 @@ adaptive_fir_flat(int B, int N, float mu, const float* __restrict__ x,
     __syncthreads();
     if (t < rows) {
       float* xr = xs + t * SEQ_PITCH;
-      const float* dr = ds + t * SEQ_PITCH;
-      for (int c = 0; c < cols; ++c) xr[c] = f.step(xr[c], dr[c]);
+      float* dr = ds + t * SEQ_PITCH;
+      for (int c = 0; c < cols; ++c) {
+        if constexpr (K > 0) {
+          dr[c] = f.step(xr[c], dr[c]);          // y[n] over d[n]
+        } else {
+          // win[k] = x[n-k]: xr[c - k] for k <= c, else the tail's
+          // h[k - c - 1]; the same taps in the same order either way
+          const int kc = c + 1 < Kw ? c + 1 : Kw;
+          float acc = __fmul_rn(w[0], xr[c]);
+          for (int k = 1; k < kc; ++k)
+            acc = __fmaf_rn(w[k * R], xr[c - k], acc);
+          for (int k = kc; k < Kw; ++k)
+            acc = __fmaf_rn(w[k * R], h[(k - c - 1) * R], acc);
+          const float me = __fmul_rn(mu, __fsub_rn(dr[c], acc));
+          for (int k = 0; k < kc; ++k)
+            w[k * R] = __fmaf_rn(me, xr[c - k], w[k * R]);
+          for (int k = kc; k < Kw; ++k)
+            w[k * R] = __fmaf_rn(me, h[(k - c - 1) * R], w[k * R]);
+          dr[c] = acc;
+        }
+      }
+      if constexpr (K == 0)        // the next chunk's tail, newest last
+        for (int j = Kw - 1; j >= 1; --j)
+          h[(j - 1) * R] = j <= cols ? xr[cols - j] : h[(j - 1 - cols) * R];
     }
     __syncthreads();
-    stage_out(xs, y, r0, rows, N, c0, cols);
+    stage_out(ds, y, r0, rows, N, c0, cols);
     __syncthreads();                            // before the next chunk's copy
   }
 }
@@ -526,18 +574,33 @@ adaptive_fir_packed(long long B, int N, float mu, const float* __restrict__ x,
   walk_row_tiles(B, N, x, d, y, reinterpret_cast<float*>(lms_raw), f);
 }
 
+// K >= 1 with 4 * (2 * min(K, N) - 1) <= LMS_W_BYTES; the route by K,
+// shape and alignment only
 int launch_adaptive_fir(int B, int N, int K, float mu, const float* x,
                         const float* d, float* y, cudaStream_t stream) {
+  const int Kw = K < N ? K : N;
+  if (K < 1 || (N > 0 && lms_rows(Kw) < 1)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || N <= 0) return (int)cudaGetLastError();
-  if (N % 4 == 0 && aligned(x, 16) && aligned(d, 16) && aligned(y, 16)) {
+  const bool regs = K == 4 || K == 8;
+  if (regs && N % 4 == 0 && aligned(x, 16) && aligned(d, 16) &&
+      aligned(y, 16)) {
     auto* kern = K == 4 ? &adaptive_fir_packed<4> : &adaptive_fir_packed<8>;
     return launch_persistent(kern, row_smem(N, x == d), B, stream,
                              (long long)B, N, mu, x, d, y);
   }
-  // flat: SEQ_ROWS frames a block, SEQ_CHUNK samples at a time
-  const unsigned blocks = (unsigned)(((size_t)B + SEQ_ROWS - 1) / SEQ_ROWS);
-  auto* kern = K == 4 ? &adaptive_fir_flat<4> : &adaptive_fir_flat<8>;
-  KERNEL_LAUNCH(kern, dim3(blocks), SEQ_ROWS, 0, stream, B, N, mu, x, d, y);
+  // flat: R frames a block, SEQ_CHUNK samples at a time
+  const int R = regs ? SEQ_ROWS : lms_rows(Kw);
+  const size_t smem = regs ? 0 : sizeof(float) * (size_t)(2 * Kw - 1) * R;
+  auto* kern = !regs ? &adaptive_fir_flat<0>
+               : K == 4 ? &adaptive_fir_flat<4> : &adaptive_fir_flat<8>;
+  if (smem) {
+    const int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  const unsigned blocks = (unsigned)(((size_t)B + R - 1) / R);
+  KERNEL_LAUNCH(kern, dim3(blocks), SEQ_ROWS, smem, stream, B, N, Kw, R, mu,
+                x, d, y);
   return (int)cudaGetLastError();
 }
 // ==== end of the K7 span
@@ -1396,10 +1459,9 @@ int dsp_complex_fir(int B, int N, int K, void* x, void* h, void* y,
   return (int)cudaGetLastError();
 }
 
-// K must be 4 or 8 (the kernels' template instances).
+// K >= 1, 4 * (2 * min(K, N) - 1) <= LMS_W_BYTES.
 int dsp_adaptive_fir(int B, int N, int K, float mu, void* x, void* d,
                      void* y, void* stream) {
-  if (K != 4 && K != 8) return (int)cudaErrorInvalidValue;
   return launch_adaptive_fir(B, N, K, mu, (const float*)x, (const float*)d,
                              (float*)y, (cudaStream_t)stream);
 }

@@ -10,10 +10,12 @@ import torch
 from . import ref
 from .common import check, launch, on_card
 
-#: the LMS kernel keeps its weights in registers, one template instance
-#: per tap count: the reference's 8 (the dispatch entry) and 4 (its tests).
-#: Checked on the card route only; the C entry refuses others as a backstop.
-LMS_TAPS = (4, 8)
+#: the most weights a frame of the LMS kernel's generic instance holds
+#: (``min(K, N)``; they and as many past samples, less one, in shared
+#: memory: ``LMS_W_BYTES`` in ``csrc/dsp.cu``).  K 4 and 8 (the reference's
+#: tests and its dispatch entry) keep theirs in registers.  Checked on the
+#: card route only; the C entry refuses past it as a backstop.
+LMS_MAX_TAPS = (192 * 1024 // 4 + 1) // 2
 
 
 def real_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -58,7 +60,8 @@ def complex_fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def adaptive_fir(x: torch.Tensor, d: torch.Tensor, mu: float,
                  K: int) -> torch.Tensor:
     """LMS filter output per frame. x, d: (B, N) f32, ``K`` taps, step
-    ``mu`` → (B, N)."""
+    ``mu`` → (B, N).  The card takes any ``K`` with ``min(K, N)`` at most
+    :data:`LMS_MAX_TAPS` (taps past ``N`` never meet a sample)."""
     if x.dim() != 2:
         raise ValueError(f"adaptive_fir takes x (B, N), got "
                          f"{tuple(x.shape)}")
@@ -70,9 +73,10 @@ def adaptive_fir(x: torch.Tensor, d: torch.Tensor, mu: float,
     check("d", d, dev, (B, N))
     if not on_card(dev):
         return ref.adaptive_fir(x, d, mu, K)
-    if K not in LMS_TAPS:
-        raise ValueError(f"the adaptive_fir kernel takes K in {LMS_TAPS}, "
-                         f"got K = {K}")
+    if min(K, N) > LMS_MAX_TAPS:
+        raise ValueError(f"the adaptive_fir kernel holds at most "
+                         f"{LMS_MAX_TAPS} weights a frame (min(K, N)), got "
+                         f"K = {K}, N = {N}")
     y = torch.empty_like(x)
     launch("adaptive_fir", B, N, K, float(mu), x, d, y)
     return y

@@ -30,8 +30,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core import hts
 from repro_torch.core.hts import (HtsParams, api, batch, costs, cuda_run,
-                                  cuda_step, machine, programs, workloads)
+                                  cuda_step, machine, programs, shard,
+                                  workloads)
 from repro_torch.examples import dsp_pipeline
 from repro_torch.kernels import common as dsp
 from repro_torch.kernels import dsp_fir, dsp_spectral, dsp_vector, ops, ref
@@ -503,8 +505,12 @@ def test_complex_fir_kernel_matches_plain(card, b, n, k):
 
 
 @pytest.mark.parametrize("b", [1, 32, 300])
-@pytest.mark.parametrize("n,k", [(40, 8), (64, 4), (100, 8)])
+@pytest.mark.parametrize("n,k", [(40, 8), (64, 4), (100, 8), (40, 16),
+                                 (100, 3), (20, 33)])
 def test_adaptive_fir_kernel_matches_plain(card, b, n, k):
+    """K 4 and 8 in registers (packed, flat at 100 samples), any other K
+    through the flat kernel's generic instance (16 taps, 3 on rows of
+    four chunks, 33 on rows shorter than the filter)."""
     x, d = _frames(card, b + n, b, n), _frames(card, b + n + 1, b, n)
     got = _counted("adaptive_fir", dsp_fir.adaptive_fir, x, d, 0.01, k)
     torch.testing.assert_close(got, ref.adaptive_fir(x, d, 0.01, k),
@@ -636,11 +642,20 @@ def test_complex_fir_entry_is_exactly_zero_on_the_card(card):
 
 
 def test_fir_kernels_refuse_what_they_do_not_take(card):
+    """K7 takes any K >= 1 but holds at most ``LMS_MAX_TAPS`` weights a
+    frame (``min(K, N)``): past that, and for K < 1, the card route raises
+    and nothing launches."""
     before = dict(dsp.launches)
     x = _frames(card, 1, 4, 40)
-    with pytest.raises(ValueError, match="K in"):
-        dsp_fir.adaptive_fir(x, x, 0.01, 5)
+    with pytest.raises(ValueError, match="K must be"):
+        dsp_fir.adaptive_fir(x, x, 0.01, 0)
+    wide = _frames(card, 2, 1, dsp_fir.LMS_MAX_TAPS + 1)
+    with pytest.raises(ValueError, match="weights a frame"):
+        dsp_fir.adaptive_fir(wide, wide, 0.01, dsp_fir.LMS_MAX_TAPS + 1)
     assert dsp.launches == before
+    got = _counted("adaptive_fir", dsp_fir.adaptive_fir, x, x, 0.01, 5)
+    torch.testing.assert_close(got, ref.adaptive_fir(x, x, 0.01, 5),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_kernels_refuse_sizes_past_their_shared_memory(card):
@@ -1091,3 +1106,94 @@ def test_ssm_smoke_model_kernel_path_matches_plain_path(card, arch,
     assert lib.launches == want
     err = _normwise(logits, plain)
     assert err <= 1e-1, err
+
+
+# ---------------------------------------------------------------------------
+# the scenario server and sharding (core/hts/serve.py, shard.py)
+# ---------------------------------------------------------------------------
+def _serve_population(n):
+    return [workloads.generate_scenario(s, n_tenants=2, **CHEAP).merged
+            for s in range(n)]
+
+
+@pytest.mark.parametrize("slice_steps", [None, 16, "auto"],
+                         ids=["static", "sliced", "auto"])
+def test_server_on_the_card_matches_run_many(card, slice_steps):
+    """The server at 64 lanes on the card (96 requests: a full static
+    batch and a padded one, or slices with refills): every result equals
+    ``run_many``'s; ``hts_run`` launches once a static batch or a slice,
+    K1-K4 never, and nothing is built after the first launch."""
+    progs = _serve_population(96)
+    want = api.run_many(progs, device=card)
+    cuda_run.reset_launches()
+    cuda_step.reset_launches()
+    with hts.serve(max_batch=64, max_queue=128, deadline=99.0,
+                   slice_steps=slice_steps, clock=hts.ManualClock(),
+                   device=card) as srv:
+        futs = [srv.submit(p) for p in progs]
+        srv.drain()
+        got = [f.result(timeout=0) for f in futs]
+    for i, r in enumerate(got):
+        assert r.cycles == int(want.cycles[i]), i
+        assert r.schedule_tuple() == want[i].schedule_tuple(), i
+    (b,) = srv.report().per_bucket.values()
+    info = srv.cache_info()
+    assert info.launches == (b.slices if slice_steps else b.batches)
+    assert not any(cuda_step.launches.values())
+    first = info.builds
+    with hts.serve(max_batch=64, max_queue=128, deadline=99.0,
+                   slice_steps=slice_steps, clock=hts.ManualClock(),
+                   device=card) as srv:
+        [srv.submit(p) for p in progs[:40]]
+    assert srv.cache_info().builds == first
+
+
+def test_run_many_devices1_matches_run_many(card):
+    progs = _serve_population(40)
+    want = api.run_many(progs, device=card)
+    cuda_run.reset_launches()
+    got = api.run_many(progs, devices=1, device=card)
+    assert cuda_run.launches["run"] == 1
+    assert (got.cycles == want.cycles).all() and got.trips == want.trips
+    for i in range(len(progs)):
+        assert got[i].schedule_tuple() == want[i].schedule_tuple()
+
+
+def test_devices_past_the_cards_raise(card):
+    n = shard.device_count()
+    with pytest.raises(ValueError, match="CUDA device"):
+        api.run_many(_serve_population(2), devices=n + 1, device=card)
+    with pytest.raises(ValueError, match="CUDA device"):
+        hts.serve(devices=n + 1, device=card)
+
+
+@pytest.mark.parametrize("slice_steps", [None, 16], ids=["static", "sliced"])
+@pytest.mark.parametrize("devices", [2, 4])
+def test_several_cards_match_one(card, devices, slice_steps):
+    """``devices=N``: the lanes split over N cards (70 lanes: padded to a
+    multiple of N), one ``hts_run`` launch a card a call, or a slice,
+    all launched before any is read back; equal to one card's results,
+    in ``run_many`` and in the server."""
+    if torch.cuda.device_count() < devices:
+        pytest.skip(f"needs {devices} CUDA devices")
+    progs = _serve_population(70)
+    want = api.run_many(progs, device=card)
+    cuda_run.reset_launches()
+    got = api.run_many(progs, devices=devices, device=card)
+    assert cuda_run.launches["run"] == devices
+    assert (got.cycles == want.cycles).all() and got.trips == want.trips
+    for i in range(len(progs)):
+        assert got[i].schedule_tuple() == want[i].schedule_tuple()
+    cuda_run.reset_launches()
+    with hts.serve(max_batch=32, max_queue=128, deadline=99.0,
+                   devices=devices, slice_steps=slice_steps,
+                   clock=hts.ManualClock(), device=card) as srv:
+        futs = [srv.submit(p) for p in progs]
+        srv.drain()
+    for i, f in enumerate(futs):
+        r = f.result(timeout=0)
+        assert r.cycles == int(want.cycles[i])
+        assert r.schedule_tuple() == want[i].schedule_tuple()
+    (b,) = srv.report().per_bucket.values()
+    launches = b.slices if slice_steps else b.batches
+    assert cuda_run.launches["run"] == devices * launches

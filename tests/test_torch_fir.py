@@ -291,40 +291,71 @@ def test_real_fir_kernel_source_matches_plain_under_emulation(
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def emulated_lms(tmp_path_factory):
-    """K7's span (both kernels and the launcher) built for the CPU, with a
-    C entry that runs it as ``dsp_adaptive_fir`` does.  The flat kernel's
-    static ``__shared__`` arrays become function statics: one object
-    shared by the block's threads, as the emulated blocks run one at a
-    time."""
+    """K7's span (its kernels and the launcher) built for the CPU, with a
+    C entry that runs it as ``dsp_adaptive_fir`` does and one that runs
+    the flat kernel's generic instance at any K.  The flat kernel's static
+    ``__shared__`` arrays become function statics: one object shared by
+    the block's threads, as the emulated blocks run one at a time."""
     import ctypes
 
     import emu_build
     from repro_torch.kernels import common
     source = common.LIB.source.read_text()
     code = emu_build.span(source, "helpers") + emu_build.span(source, "K7")
-    code = code.replace("extern __shared__ __align__(16) unsigned char "
-                        "lms_raw[];", "unsigned char* lms_raw = emu_smem();")
+    for old, new in (("extern __shared__ __align__(16) unsigned char "
+                      "lms_raw[];", "unsigned char* lms_raw = emu_smem();"),
+                     ("extern __shared__ float lms_w[];",
+                      "float* lms_w = (float*)emu_smem();")):
+        assert code.count(old) == 1, old
+        code = code.replace(old, new)
     code = "#define __shared__ static\n" + code + r"""
 extern "C" int emu_adaptive_fir(int B, int N, int K, float mu, void* x,
                                 void* d, void* y) {
   return launch_adaptive_fir(B, N, K, mu, (const float*)x, (const float*)d,
                              (float*)y, nullptr);
 }
+extern "C" int emu_adaptive_fir_generic(int B, int N, int K, float mu,
+                                        void* x, void* d, void* y) {
+  const int Kw = K < N ? K : N, R = lms_rows(Kw);
+  auto* kern = &adaptive_fir_flat<0>;
+  KERNEL_LAUNCH(kern, dim3((B + R - 1) / R), SEQ_ROWS,
+                sizeof(float) * (2 * Kw - 1) * R, nullptr, B, N, Kw, R, mu,
+                (const float*)x, (const float*)d, (float*)y);
+  return 0;
+}
 """
     P, I = ctypes.c_void_p, ctypes.c_int
+    sig = [I] * 3 + [ctypes.c_float] + [P] * 3
     return emu_build.build(tmp_path_factory.mktemp("lms_emu"), code,
-                           {"emu_adaptive_fir": [I] * 3 + [ctypes.c_float]
-                            + [P] * 3})
+                           {"emu_adaptive_fir": sig,
+                            "emu_adaptive_fir_generic": sig})
+
+
+def _lms_frames(b, n, k, alias, offset):
+    """x, d (d is x where ``alias``) and a NaN-filled y, all ``offset``
+    floats past a 16-byte boundary."""
+    x = torch.from_numpy(frames(n * 7 + k, b * n + offset))[offset:]
+    x = x.view(b, n)
+    d = x if alias else torch.from_numpy(
+        frames(n * 7 + k + 1, b * n + offset))[offset:].view(b, n)
+    y = torch.full((b * n + offset,), float("nan"))[offset:].view(b, n)
+    return x, d, y
 
 
 @pytest.mark.parametrize("b,n,k,alias,offset", [
     (1, 40, 8, False, 0), (300, 40, 8, False, 0), (300, 40, 8, True, 0),
     (130, 64, 4, False, 0), (130, 64, 4, True, 0), (5, 136, 8, False, 0),
     (260, 200, 4, True, 0), (7, 42, 8, False, 0), (7, 42, 4, True, 0),
-    (6, 40, 8, False, 1), (6, 40, 8, True, 1)],
+    (6, 40, 8, False, 1), (6, 40, 8, True, 1),
+    (300, 40, 1, False, 0), (130, 64, 2, True, 0), (7, 42, 3, False, 0),
+    (33, 80, 5, True, 0), (300, 40, 12, False, 0), (6, 40, 12, True, 1),
+    (9, 100, 33, False, 0), (20, 100, 40, True, 0), (3, 20, 33, True, 0)],
     ids=["1x40", "300x40", "300x40-d-is-x", "130x64-k4", "130x64-k4-d-is-x",
          "row-of-3-tiles", "260x200-d-is-x", "flat-42", "flat-42-d-is-x",
-         "flat-misaligned", "flat-misaligned-d-is-x"])
+         "flat-misaligned", "flat-misaligned-d-is-x",
+         "k1", "k2-d-is-x", "k3-flat-42", "k5-three-chunks-d-is-x", "k12",
+         "k12-misaligned-d-is-x", "k33-four-chunks",
+         "k40-tail-past-a-chunk-d-is-x", "k33-past-the-row"])
 def test_adaptive_fir_kernel_source_matches_plain_under_emulation(
         emulated_lms, b, n, k, alias, offset):
     """The packed kernel's persistent walk (two emulated SMs: each block
@@ -332,16 +363,35 @@ def test_adaptive_fir_kernel_source_matches_plain_under_emulation(
     and rows longer than a tile (64 + 64 + 8 samples; 200 in four tiles,
     the weights carried across), d the same tensor as x and a distinct
     one; the flat path for N not a multiple of 4 and for x, d, y 4 bytes
-    off 16-byte alignment.  Against the plain version within the
-    reference tests' 1e-4."""
-    x = torch.from_numpy(frames(n * 7 + k, b * n + offset))[offset:]
-    x = x.view(b, n)
-    d = x if alias else torch.from_numpy(
-        frames(n * 7 + k + 1, b * n + offset))[offset:].view(b, n)
-    y = torch.full((b * n + offset,), float("nan"))[offset:].view(b, n)
+    off 16-byte alignment; the flat kernel's generic instance at K 1, 2,
+    3, 5, 12, 33 and 40, its window reaching back into earlier chunks (80
+    and 100 samples; 40 taps, past a whole chunk) and past the row's start
+    (33 taps on rows of 20), packed shapes and flat ones, d is x and
+    not.  Against the plain version
+    within the reference tests' 1e-4."""
+    x, d, y = _lms_frames(b, n, k, alias, offset)
     assert emulated_lms.emu_adaptive_fir(b, n, k, 0.01, x.data_ptr(),
                                          d.data_ptr(), y.data_ptr()) == 0
     close(y, dsp_fir.adaptive_fir(x, d, 0.01, k), TOL["adaptive_fir"])
+
+
+@pytest.mark.parametrize("b,n,k,alias,offset", [
+    (300, 40, 8, True, 0), (130, 64, 4, False, 0), (5, 136, 8, False, 0),
+    (7, 42, 8, True, 0), (6, 40, 4, False, 1)],
+    ids=["300x40-k8-d-is-x", "130x64-k4", "row-of-3-tiles-k8",
+         "flat-42-k8-d-is-x", "flat-misaligned-k4"])
+def test_adaptive_fir_generic_instance_equals_the_templated_ones(
+        emulated_lms, b, n, k, alias, offset):
+    """At K 4 and 8 the generic instance (weights in shared memory, the
+    window read back) rounds exactly as ``LmsFilter<K>`` does, so it
+    equals the packed and the flat templated kernels bit for bit."""
+    x, d, want = _lms_frames(b, n, k, alias, offset)
+    got = torch.full_like(want, float("nan"))
+    assert emulated_lms.emu_adaptive_fir(b, n, k, 0.01, x.data_ptr(),
+                                         d.data_ptr(), want.data_ptr()) == 0
+    assert emulated_lms.emu_adaptive_fir_generic(
+        b, n, k, 0.01, x.data_ptr(), d.data_ptr(), got.data_ptr()) == 0
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

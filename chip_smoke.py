@@ -15,7 +15,8 @@ synthetic schedules executed); Qwen2-1.5B at full width through
 ``prefill`` and the continuous-batching ``Server``; rwkv6-3b and zamba2-7b
 at full width through ``forward`` and the ``Server``; the scenario server
 ``hts.serve``, static and slice-and-refill, on 4096 requests through 1024
-lanes — then checks them:
+lanes; the MoE family (olmoe-1b-7b, qwen2-moe-a2.7b) and paligemma-3b's
+prefix-LM attention at full width — then checks them:
 
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
@@ -29,7 +30,8 @@ lanes — then checks them:
    (``wkv6_chunk_state``, ``wkv6_state_passing``, ``wkv6_chunk_scan``)
    and K18's (``ssd_chunk_state``, ``ssd_state_passing``,
    ``ssd_chunk_scan``), and the ``HGMMA`` (tensor-core) instructions in
-   K15's SASS: each bf16 instance must have them, each float32 one none;
+   K15's SASS: each bf16 instance (padded head dims 64, 128, 256) must
+   have them, each float32 one (32, 64, 112, 128, 256) none;
 2. kernels against plain: for the first 64 trips of the main-path
    population, and 64 trips from the middle of its run, every K1–K4 launch
    of the per-phase loop (``machine.step``) is checked against its plain
@@ -194,6 +196,32 @@ lanes — then checks them:
    slices and their ``"auto"`` budgets, the host ms a slice outside
    ``hts_run`` (harvest and refill) and a traced 11b drain's device busy
    share are printed;
+12. the MoE family and paligemma-3b, one model on the card at a time,
+   random weights from a seed: (a) K15 at head dim 256 against plain
+   (bf16 2e-2, float32 1e-5) at paligemma-3b's two calls a layer at B = 2
+   (the 256-position prefix bidirectional; 1792 text queries against
+   2048 keys, causal from q_offset 256), a causal square 2048 and ragged
+   lengths; the prefix, text and square calls timed in bf16 (device, call
+   and plain ms, bound, SDPA where one call computes the same function);
+   (b) olmoe-1b-7b (16 layers, d_model 2048, 64 experts of 1024, top-8):
+   prefill 4 x 2048 and 32 greedy decode steps in bf16 (16 K15 and 33 K16
+   launches a prefill, 33 K16 a step; tokens/s, peak memory, the
+   prefill's device time split into expert products, other products,
+   K15, K16 and the rest), ``aux`` finite, the ``Server`` (32 slots, 64
+   requests: ms a step, a traced window's busy share); (c)
+   qwen2-moe-a2.7b (24 layers, 60 experts padded to 64, top-4, 4 shared
+   experts): ``forward`` on 2 x 1024 in bf16 with ``moe_grouped`` off and
+   on (24 K15, 49 K16), no token routed to experts 60-63; (d) paligemma-3b
+   (18 layers, MQA, head dim 256): prefill of 2 x (256 prefix embeddings
+   + 1792 text tokens), 36 K15 launches, 16 decode steps.  Each model's
+   float32 gate: kernels against plain within ``FP32_LOGIT_TOL``
+   normwise, every position of the prefill (or forward) and each decode
+   step, the MoE routing forced to the plain run's (the routing
+   decisions that differ free-running are printed), and a control (K15
+   as the plain attention with its scores rounded to bf16) that must
+   fail it; olmoe at 1 x 2048, qwen2-moe at 4 of its layers, both with
+   their weight matrices drawn at 1/sqrt(input width) (their reading at
+   the reference's draw, chaotic in float32, printed beside);
 5b. kernel times: device, call, plain and library times of the DSP
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
    ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
@@ -203,9 +231,11 @@ lanes — then checks them:
    x 40, K12 and grouped ``conv1d`` also at the image path's call (262144
    x 64, y is x), K7 also with d is x and at 16 taps (``*_k16``: the
    generic instance), beside the bound (with the second
-   array x itself, x read once; the bound reading it twice beside it).
-   ``--only 5b`` times them
-   all on their own (launches are counted only on the paths that ran).
+   array x itself, x read once; the bound reading it twice beside it);
+   K15's row also carries 12a's head-dim-256 times (``*_d256_prefix``,
+   ``*_d256_text``, ``*_d256_square``, ``*_d256_ragged``).  ``--only
+   5b`` times them all on their own (launches are counted only on the
+   paths that ran).
 
 The last lines are the card (``nvidia-smi``), one JSON object
 ``{"kernels": [...]}`` (the eighteen kernels and ``hts_run``), and
@@ -216,11 +246,13 @@ build, the main path's set-up and the phases whose names start with a
 prefix (``--only 2c``: ``hts_run`` against the per-phase loop; ``--only
 3``: the main path; ``--only 9 "5b transformer"``: the dense model path;
 ``--only 10``: the ssm and hybrid families; ``--only 11``: the scenario
-server) and prints no kernels line.
+server; ``--only 12``: the MoE family and paligemma-3b) and prints no
+kernels line.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -485,7 +517,16 @@ RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
 #: recurrence with its state rounded to bfloat16 (10b); for Qwen2-1.5B K15
 #: swapped for the plain attention with its scaled scores rounded to
 #: bfloat16 (9b, prefill and every decode step)
-FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2}
+FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2,
+                  "olmoe-1b-7b": 1e-4, "qwen2-moe-a2.7b": 1e-4,
+                  "paligemma-3b": 1e-2}
+#: the archs whose float32 gate (12b, 12c) draws the layers' weight
+#: matrices at 1/sqrt(their input width) (``scale_to_width``): at the
+#: reference's draw (a stacked leaf's fan-in is its layer count) these MoE
+#: models are chaotic in float32 (the plain path on an embedding one ulp
+#: up parts from itself as far as the kernels do; PERF.md §6), so that
+#: reading is printed beside the witness, not gated
+WIDTH_DRAW_GATES = ("olmoe-1b-7b", "qwen2-moe-a2.7b")
 #: 10b's float32 reading on the kernels before K17 and K18 were chunked
 #: (a CTA a (sequence, head), PERF.md §6): printed beside this run's
 FP32_LOGIT_BEFORE = {"rwkv6-3b": 2.58e-5, "zamba2-7b": 0.0154}
@@ -493,6 +534,37 @@ FP32_LOGIT_BEFORE = {"rwkv6-3b": 2.58e-5, "zamba2-7b": 0.0154}
 #: largest plain magnitude; the sums run in another order), bfloat16
 #: rtol = atol (about one output ulp)
 REC_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+# the MoE family and paligemma-3b (phase 12): K15 (head dim 128, and 256 in
+# paligemma's prefix-LM attention) and K16 in their paths
+MOE_ARCHS = ("olmoe-1b-7b", "qwen2-moe-a2.7b")
+VLM_ARCH = "paligemma-3b"
+#: K15 at head dim 256, (BH, Tq, Tk, D, causal, q_offset): paligemma-3b's
+#: two calls a layer at B = 2 (8 query heads on 1 KV head, repeated), the
+#: prefix (bidirectional) and the text after it (causal from q_offset
+#: 256, SDPA's lower-right causal bias); a causal square shape; ragged
+#: lengths (no multiple of the 64-key stage) with and without q_offset
+ATTN_256_CASES = [(16, 256, 256, 256, False, 0),
+                  (16, 1792, 2048, 256, True, 256),
+                  (16, 2048, 2048, 256, True, 0),
+                  (16, 1000, 1000, 256, True, 0),
+                  (16, 100, 1300, 256, False, 0),
+                  (16, 300, 1300, 256, True, 1000)]
+#: which of them 12a times, by name
+ATTN_256_TIMED = {"prefix": 0, "text": 1, "square": 2, "ragged": 5}
+#: olmoe-1b-7b: prefill 4 x 2048 into a 2080-position cache, 32 greedy
+#: decode steps; the float32 gate at 1 x 2048 (its float32 weights alone
+#: are 27.6 GB), 8 decode steps
+MOE_PREFILL_B, MOE_PREFILL_T, MOE_MAX_LEN, MOE_DECODE_STEPS = 4, 2048, 2080, 32
+MOE_GATE_B, MOE_GATE_STEPS = 1, 8
+#: qwen2-moe-a2.7b: forward on 2 x 1024 with moe_grouped off and on; the
+#: float32 gate at 4 of its 24 layers (float32 at full depth would be
+#: ~60 GB of weights)
+QMOE_B, QMOE_T, QMOE_GATE_LAYERS = 2, 1024, 4
+#: paligemma-3b: prefill of 2 x (256 prefix embeddings + 1792 text tokens)
+#: into a 2064-position cache, then 16 decode steps; the float32 gate the
+#: same
+VLM_B, VLM_TEXT, VLM_MAX_LEN, VLM_DECODE_STEPS = 2, 1792, 2064, 16
 
 
 def log(*a):
@@ -717,18 +789,23 @@ def device_events(prof):
             and not e.name.startswith("ProfilerStep")]
 
 
-def trace_window(torch, warm, run):
+def trace_window(torch, warm, run, on_trace=None):
     """Device activities of ``run()`` and its host wall (µs), traced as the
     active step of a profiler schedule after ``warm()`` ran as its
     discarded warm-up step: a trace drops device activities at the start
     of its window (seen: a schedule's first task missing), so the window
-    that counts starts with the tracer already running."""
+    that counts starts with the tracer already running.  ``on_trace``, if
+    given, is also handed the profiler when the trace is ready."""
     from torch.profiler import ProfilerActivity, profile, schedule
     out: dict = {}
+
+    def ready(p):
+        out.update(events=device_events(p))
+        if on_trace is not None:
+            on_trace(p)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: out.update(
-                     events=device_events(p))) as prof:
+                 on_trace_ready=ready) as prof:
         warm()
         torch.cuda.synchronize()
         prof.step()
@@ -740,6 +817,38 @@ def trace_window(torch, warm, run):
     if "events" not in out:
         raise RuntimeError("the profiler delivered no trace")
     return out["events"], wall_us
+
+
+def time_split(torch, warm, run) -> dict:
+    """Where a model call's time goes, in ms: the host wall of ``run()``
+    traced after ``warm()`` (``trace_window``'s schedule), the device busy
+    time, and that split into the expert products (``aten::bmm``: the MoE
+    layer's batched products; a prefill or forward has no other), the
+    other matrix products (``aten::mm``, ``aten::addmm``: projections,
+    router, shared expert, unembedding), K15, K16 and the rest
+    (elementwise passes, the dispatch's copies and scans, the top-k
+    sort); with the device activities (``events``)."""
+    out: dict = {}
+    events, wall_us = trace_window(
+        torch, warm, run, on_trace=lambda p: out.update(ops=p.key_averages()))
+
+    def op_ms(names):
+        return sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+                   for e in out["ops"] if e.key in names) / 1e3
+
+    def kernel_ms(part):
+        return sum(us for k, us in events if part in k) / 1e3
+
+    split = dict(wall=wall_us / 1e3, events=events,
+                 busy=sum(us for _k, us in events) / 1e3,
+                 expert_products=op_ms({"aten::bmm"}),
+                 other_products=op_ms({"aten::mm", "aten::addmm"}),
+                 k15=kernel_ms("flash_attention"), k16=kernel_ms("rmsnorm"))
+    split["rest"] = split["busy"] - sum(
+        split[k] for k in ("expert_products", "other_products", "k15",
+                           "k16"))
+    return split
 
 
 def trip_profile(torch, machine, m, st, a, trips=32):
@@ -1218,6 +1327,74 @@ def capture_attention(attention, ref):
         attention.flash_attention = saved
 
 
+@contextlib.contextmanager
+def record_routing(transformer):
+    """While open, the MoE layer's top-k (``transformer.top_k``, once a
+    layer a call) records each call's expert indices in the list it
+    yields."""
+    calls = []
+    saved = transformer.top_k
+
+    def record(probs, k):
+        out = saved(probs, k)
+        calls.append(out[1])
+        return out
+
+    transformer.top_k = record
+    try:
+        yield calls
+    finally:
+        transformer.top_k = saved
+
+
+@contextlib.contextmanager
+def force_routing(transformer, routes):
+    """While open, the MoE layer's top-k takes the expert indices of
+    ``routes`` (a ``record_routing`` list: one array a call, in call
+    order) in place of its own, with its own probabilities at them; it
+    adds to the list it yields how many of its own decisions (a token's
+    top-k) differed, a tensor a call."""
+    it = iter(routes)
+    flips = []
+    saved = transformer.top_k
+
+    def forced(probs, k):
+        own = saved(probs, k)[1]
+        want = next(it).reshape(own.shape)
+        flips.append((own != want).any(-1).sum())
+        return probs.gather(-1, want), want
+
+    transformer.top_k = forced
+    try:
+        yield flips
+    finally:
+        transformer.top_k = saved
+
+
+def scale_to_width(layer_params, n_layers):
+    """Every weight matrix of ``layer_params`` (a model's per-layer list)
+    scaled in place by sqrt(n_layers / its input width): the reference's
+    draw of a stacked leaf, N(0, 1/n_layers), becomes N(0, 1/input
+    width)."""
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            elif v.dim() >= 2:
+                v.mul_(math.sqrt(n_layers / v.shape[-2]))
+    for lp in layer_params:
+        walk(lp)
+
+
+def routing_diff(got, want) -> tuple[int, int]:
+    """Routing decisions (a token's top-k in a layer) that differ between
+    two runs' ``record_routing`` lists, and the decisions compared."""
+    assert len(got) == len(want), (len(got), len(want))
+    diff = sum(int((a.reshape(b.shape) != b).any(-1).sum())
+               for a, b in zip(got, want))
+    return diff, sum(a[..., 0].numel() for a in want)
+
+
 def rec_bound(name, args):
     """Least time for K17 or K18 on these inputs: each input read once and
     the output written once at HBM bandwidth, against the fp32 operations
@@ -1281,7 +1458,8 @@ def main(argv=None) -> int:
                                          dsp_vector, mamba2, ops, ref,
                                          rmsnorm, rwkv6)
         from repro_torch.core.sched import serving, specdecode
-        from repro_torch.models import layers, registry
+        from repro_torch.models import layers, registry, transformer
+        from repro_torch.runtime import flags
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT / 'src'} "
               f"({e}); run from the root of a checkout", file=sys.stderr)
@@ -1392,9 +1570,9 @@ def main(argv=None) -> int:
         log(f"HGMMA instructions in the SASS of K15: {hgmma}")
         bf16 = {k: n for k, n in hgmma.items() if "wgmma" in k}
         fp32 = {k: n for k, n in hgmma.items() if "wgmma" not in k}
-        assert len(bf16) == 2 and all(bf16.values()), \
+        assert len(bf16) == 3 and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
-        assert len(fp32) == 4 and not any(fp32.values()), fp32
+        assert len(fp32) == 5 and not any(fp32.values()), fp32
     phase("1 ptxas of hts_run, K5, K7, K8, K12-K18, SASS of K15",
           build_facts)
 
@@ -2267,60 +2445,74 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t0:.2f} s)")
         ctx.update(model=model, params=params)
 
-    def drive(model, params, tok, feeds, on=False, **swap):
-        """``prefill`` of ``tok``, then DECODE_STEPS ``decode_step``s, on
-        the path ``on`` and ``swap`` select (``plain_path``'s arguments;
-        off: the kernels).  Greedy when ``feeds`` is empty (it is filled
-        with the tokens fed), else fed ``feeds`` (teacher-forced).
-        Returns the last-position prefill logits, each step's logits, the
-        launches, walls and peak memory of both."""
-        with plain_path(on, ref, **kernels, **swap):
+    def drive(model, params, tok, feeds, on=False, prefix=None,
+              max_len=PREFILL_MAX_LEN, steps=DECODE_STEPS, full=False,
+              **swap):
+        """``prefill`` of ``tok`` (after ``prefix``, the vlm's embeddings,
+        when given), then ``steps`` ``decode_step``s, on the path ``on``
+        and ``swap`` select (``plain_path``'s arguments; off: the
+        kernels).  Greedy when ``feeds`` is empty (it is filled with the
+        tokens fed), else fed ``feeds`` (teacher-forced).  Returns the
+        last-position prefill logits (``full``: every position's, as
+        ``seq``), each step's logits, the launches, walls and peak memory
+        of both, and the MoE layers' routing (``record_routing``)."""
+        with plain_path(on, ref, **kernels, **swap), \
+                record_routing(transformer) as routes:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             tlib.reset_launches()
             t0 = time.perf_counter()
-            logits, cache = model.prefill(params, tok, PREFILL_MAX_LEN)
+            logits, cache = model.prefill(params, tok, max_len, prefix)
             last = logits[:, -1].float()
+            seq = logits.float() if full else None
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = dict(tlib.launches)
             peak = torch.cuda.max_memory_allocated()
+            pos0 = logits.shape[1]
             del logits
             greedy = not feeds
             if greedy:
                 feeds.append(last.argmax(-1))
-            steps = []
+            outs = []
             tlib.reset_launches()
             torch.cuda.synchronize()
             d0 = time.perf_counter()
-            for i in range(DECODE_STEPS):
+            for i in range(steps):
                 lg, cache = model.decode_step(
                     params, cache, feeds[i][:, None].to(torch.int32),
-                    PREFILL_T + i)
-                steps.append(lg[:, -1].float())
+                    pos0 + i)
+                outs.append(lg[:, -1].float())
                 if greedy:
-                    feeds.append(steps[-1].argmax(-1))
+                    feeds.append(outs[-1].argmax(-1))
             torch.cuda.synchronize()
             dwall = time.perf_counter() - d0
             dcounts = dict(tlib.launches)
             del cache
         assert bool(torch.isfinite(last).all()) and all(
-            bool(torch.isfinite(x).all()) for x in steps), "not finite"
-        return dict(last=last, steps=steps, counts=counts, dcounts=dcounts,
-                    wall=wall, dwall=dwall, peak=peak)
+            bool(torch.isfinite(x).all()) for x in outs), "not finite"
+        return dict(last=last, seq=seq, steps=outs, counts=counts,
+                    dcounts=dcounts, wall=wall, dwall=dwall, peak=peak,
+                    routes=routes)
 
     def logit_errors(what, got, want, limit=None):
-        """Normwise errors of the last-position prefill logits and of each
-        decode step's, with argmax agreement, printed; the largest."""
-        err = normwise(got["last"], want["last"])
+        """Normwise errors of the prefill logits (the last position's, or
+        every position's where both runs kept them) and of each decode
+        step's, with argmax agreement, printed; the largest."""
+        key = "seq" if got["seq"] is not None and want["seq"] is not None \
+            else "last"
+        err = normwise(got[key], want[key])
         errs = [normwise(a, b) for a, b in zip(got["steps"], want["steps"])]
         agree = np.mean([float((a.argmax(-1) == b.argmax(-1)).float().mean())
-                         for a, b in zip([got["last"]] + got["steps"],
-                                         [want["last"]] + want["steps"])])
+                         for a, b in zip([got[key]] + got["steps"],
+                                         [want[key]] + want["steps"])])
         gate = "not gated" if limit is None else f"limit {limit}"
-        log(f"{what}: normwise, prefill {err:.3g}, {DECODE_STEPS} decode "
-            f"steps (teacher-forced) max {max(errs):.3g} mean "
-            f"{np.mean(errs):.3g} ({gate}); argmax agreement {agree:.3f}")
+        where = "every position" if key == "seq" else "the last position"
+        log(f"{what}: normwise, prefill ({where}) {err:.3g}, "
+            f"{len(errs)} decode steps (teacher-forced) max "
+            f"{max(errs, default=0.0):.3g} mean "
+            f"{np.mean(errs) if errs else 0.0:.3g} ({gate}); argmax "
+            f"agreement {agree:.3f}")
         return max([err] + errs)
 
     def prompt_tokens(model):
@@ -2453,9 +2645,9 @@ def main(argv=None) -> int:
             f"({max(reads['control']):.3g} > {tol})")
         del calls
 
-    def serve_requests():
+    def serve_requests(vocab=None):
         rng = np.random.default_rng(SERVE_SEED)
-        vocab = ctx["model"].cfg.vocab
+        vocab = vocab or ctx["model"].cfg.vocab
         out = []
         for _ in range(SERVE_REQUESTS):
             n = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
@@ -2956,6 +3148,393 @@ def main(argv=None) -> int:
         assert wall < SCEN_PHASE_S, f"phase 11 took {wall:.1f} s"
     phase("11 scenario server", scenario_server)
 
+    # 12. the MoE family and paligemma-3b's prefix-LM attention ------------
+    def attn_256():
+        """K15 at head dim 256 against plain (bf16 and float32) at
+        paligemma-3b's call shapes and ragged ones; then the prefix, text,
+        square and a ragged causal shape timed in bf16 beside their bound
+        and SDPA (every timed shape is one SDPA call)."""
+        F = torch.nn.functional
+        from torch.nn.attention.bias import causal_lower_right
+        for i, shape in enumerate(ATTN_256_CASES):
+            for dt in ("bfloat16", "float32"):
+                tf_check("flash_attention", shape, dt, 900 + i)
+        kname = TF_KERNEL["flash_attention"]
+        times: dict = {}
+        for label, i in ATTN_256_TIMED.items():
+            shape = ATTN_256_CASES[i]
+            q, k, v, causal, q_offset = tf_case(
+                torch, "flash_attention", shape, torch.bfloat16, 950 + i)
+            kw = dict(causal=causal, q_offset=q_offset)
+            calls = [functools.partial(attention.flash_attention, q, k, v,
+                                       **kw)] * 23
+            dev = profiled_ms(torch, calls, kname)
+            call = events_ms(torch, calls)
+            plain = events_ms(torch, [functools.partial(
+                plain_attention, ref, q, k, v, **kw)] * 8)
+            bound, by, _ = tf_bound("flash_attention",
+                                    (q, k, v, causal, q_offset))
+            lib = lib_dev = None
+            Tq, Tk = shape[1], shape[2]
+            if not causal or q_offset == Tk - Tq:
+                # SDPA on paligemma's layout, (B, H, T, D): the same
+                # function.  K15's causal mask from q_offset = Tk - Tq is
+                # SDPA's lower-right-aligned causal bias.
+                q4, k4, v4 = (t.view(VLM_B, t.shape[0] // VLM_B,
+                                     *t.shape[1:]) for t in (q, k, v))
+                mask = causal_lower_right(Tq, Tk) if causal else None
+                lc = [functools.partial(F.scaled_dot_product_attention, q4,
+                                        k4, v4, attn_mask=mask)] * 23
+                lib = events_ms(torch, lc)
+                lib_dev = profiled_call_ms(torch, lc)
+            times[label] = dict(shape=list(shape), ms=dev, call_ms=call,
+                                plain_ms=plain, bound_ms=bound, bound_by=by,
+                                library_ms=lib, library_device_ms=lib_dev)
+            ratio = "" if dev is None else f", {dev / bound:.2f}x it"
+            sdpa = ("none (no single call)" if lib is None else
+                    f"{lib:.4f} ms a call ({lib_dev} ms on the device)")
+            log(f"K15 D 256 {label:6s} {shape} bf16: kernel "
+                f"{'not measured' if dev is None else f'{dev:.4f} ms'} on "
+                f"the device, {call:.4f} ms a call, plain {plain:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}{ratio}), SDPA {sdpa}  on "
+                f"{card}")
+        ctx["d256"] = times
+
+    def build12(arch, n_layers=None):
+        """``arch`` at its published widths (``n_layers`` cuts its depth)
+        on the card."""
+        cfg = registry.get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        return registry.build(cfg, device=DEVICE)
+
+    def model12(arch):
+        """``arch`` at its published widths and depth with random bf16
+        weights from MODEL_SEED on the card, whose memory is emptied
+        first."""
+        model = build12(arch)
+        cfg = model.cfg
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(MODEL_SEED)
+        torch.cuda.synchronize()
+        m = cfg.moe
+        ffn = (f"{m.num_experts} experts (padded to "
+               f"{transformer.padded_experts(m.num_experts)}) of width "
+               f"{m.d_expert}, top-{m.top_k}, {m.num_shared} shared"
+               if m else f"d_ff {cfg.d_ff}, a prefix of {cfg.prefix_len}")
+        log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
+            f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}: "
+            f"{model.param_count() / 1e9:.4f} B parameters "
+            f"({model.active_param_count() / 1e9:.4f} B active), "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card "
+            f"(seed {MODEL_SEED}, {time.perf_counter() - t0:.2f} s)")
+        return model, params
+
+    def tf_counts(cfg):
+        """K15 and K16 launches of one prefill or forward (K15 twice a
+        layer with a prefix) and of one decode step (K16 alone)."""
+        L = cfg.n_layers
+        attn = L * (2 if cfg.prefix_len else 1)
+        return ({**zero, "flash_attention": attn, "rmsnorm": 2 * L + 1},
+                {**zero, "rmsnorm": 2 * L + 1})
+
+    def tokens12(vocab, B, T):
+        rng = np.random.default_rng(MODEL_SEED)
+        return torch.from_numpy(rng.integers(0, vocab, (B, T)).astype(
+            np.int32)).to(DEVICE)
+
+    def forward_run(model, params, tok, on=False, **swap):
+        """``forward`` of ``tok`` on the path ``on`` and ``swap`` select,
+        in ``drive``'s result's form (no decode steps)."""
+        with plain_path(on, ref, **kernels, **swap), \
+                record_routing(transformer) as routes:
+            torch.cuda.synchronize()
+            tlib.reset_launches()
+            t0 = time.perf_counter()
+            logits, aux = transformer.forward(params, model.cfg, tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        seq = logits.float()
+        assert bool(torch.isfinite(seq).all()) and bool(
+            torch.isfinite(aux)), "not finite"
+        return dict(seq=seq, last=seq[:, -1], steps=[], wall=wall,
+                    counts=dict(tlib.launches), routes=routes,
+                    aux=float(aux))
+
+    def fp32_gate(model, run):
+        """The float32 gate: the model drawn again in float32 (the same
+        seed's draws, unrounded; for WIDTH_DRAW_GATES, after the kernels,
+        and plain on the embedding one ulp up, are compared with plain at
+        the reference's draw and printed, scaled to 1/sqrt(input width)); ``run(params, on, **swap)`` on the plain
+        ops, then on the kernels and on the control (K15 as the plain
+        attention with its scores rounded to bf16) with the MoE routing
+        forced to the plain run's (``force_routing``: a routing decision
+        is discrete, and one flipped expert moves a token by its gate; the
+        kernels' free-running routing and logits are printed beside, not
+        gated).  The kernels within FP32_LOGIT_TOL of plain, the control
+        past it."""
+        arch = model.cfg.name
+        tol = FP32_LOGIT_TOL[arch]
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            torch.cuda.empty_cache()
+            p32 = model.init(MODEL_SEED)
+            if arch in WIDTH_DRAW_GATES:
+                rp, rk = run(p32, True), run(p32, False)
+                d, n = routing_diff(rk["routes"], rp["routes"])
+                logit_errors(f"{arch} fp32 logits at the reference's draw, "
+                             f"kernels vs plain ({d} of {n} routing "
+                             "decisions differ; not gated)", rk, rp)
+                # the witness: plain again on the embedding one ulp up, a
+                # perturbation of K16's size on no kernel at all
+                emb = p32["embed"]
+                p32["embed"] = torch.nextafter(emb, emb.new_tensor(math.inf))
+                rn = run(p32, True)
+                with force_routing(transformer, rp["routes"]) as n_flips:
+                    rnf = run(p32, True)
+                p32["embed"] = emb
+                d, n = routing_diff(rn["routes"], rp["routes"])
+                logit_errors(f"{arch} fp32 logits at the reference's draw, "
+                             "plain on the embedding one ulp up vs plain "
+                             f"({d} of {n} routing decisions differ; not "
+                             "gated)", rn, rp)
+                logit_errors(f"{arch} fp32 logits at the reference's draw, "
+                             "plain on the embedding one ulp up, routing "
+                             f"forced to plain's ({int(sum(n_flips))} own "
+                             "decisions differ) vs plain (not gated)",
+                             rnf, rp)
+                del rp, rk, rn, rnf
+                scale_to_width(p32["layers"], model.cfg.n_layers)
+            pl = run(p32, True)
+            free = run(p32, False) if model.cfg.moe else None
+            with force_routing(transformer, pl["routes"]) as flips:
+                k = run(p32, False)
+            with force_routing(transformer, pl["routes"]) as c_flips:
+                ctl = run(p32, True, only=("flash_attention",),
+                          attn=attention_bf16_scores)
+            del p32
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        want = tf_counts(model.cfg)[0]
+        assert k["counts"] == want, k["counts"]
+        assert ctl["counts"] == {**want, "flash_attention": 0}, ctl["counts"]
+        log(f"{arch} float32 (kernels): {k['wall'] * 1e3:.1f} ms  on {card}")
+        if free is not None:
+            d, n = routing_diff(free["routes"], pl["routes"])
+            log(f"{arch} float32, free-running routing: {d} of {n} routing "
+                "decisions (a token's top-k in a layer) differ between the "
+                "kernels and plain (not gated)")
+            logit_errors(f"{arch} fp32 logits, kernels with their own "
+                         "routing vs plain (not gated)", free, pl)
+            log(f"{arch} float32, routing forced to plain's: the kernels' "
+                f"own top-k differs on {int(sum(flips))} of {n} decisions, "
+                f"the control's on {int(sum(c_flips))}")
+        err = logit_errors(f"{arch} fp32 logits, kernels vs plain", k, pl,
+                           tol)
+        c_err = logit_errors(f"{arch} fp32 logits, control (K15 plain, "
+                             "scores rounded to bf16) vs plain", ctl, pl,
+                             tol)
+        assert err <= tol, f"{arch} fp32 logits differ ({err:.3g} > {tol})"
+        if c_err <= tol:
+            raise AssertionError(f"{arch}: the control passes the fp32 gate "
+                                 f"at {tol} ({c_err:.3g})")
+        log(f"{arch}: the control fails the fp32 gate, as it must "
+            f"({c_err:.3g} > {tol})")
+
+    def split12(what, call):
+        """``time_split`` of one ``call()`` (warmed by one), printed."""
+        try:
+            t = time_split(torch, call, call)
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"{what}: time split not measured (profiler: {e})")
+            return
+        log(f"{what}, traced: wall {t['wall']:.3f} ms, device busy "
+            f"{t['busy']:.3f} ms ({100 * t['busy'] / t['wall']:.1f} %): "
+            f"expert products (bmm) {t['expert_products']:.3f}, other "
+            f"matrix products {t['other_products']:.3f}, K15 "
+            f"{t['k15']:.3f}, K16 {t['k16']:.3f}, the rest {t['rest']:.3f} "
+            f"ms, {len(t['events'])} device activities  on {card}")
+        for key, us, cnt in costliest(t["events"], 1, 10):
+            log(f"    {us / 1e3:9.3f} ms  x{cnt:<5d} {key}")
+
+    def prefill12(model, params, tok, max_len, steps, prefix=None):
+        """bf16 ``prefill`` and greedy decode on the kernels after an
+        untimed warm-up of each, their launches checked and recorded, the
+        prefill's time split traced."""
+        arch = model.cfg.name
+        logits, cache = model.prefill(params, tok, max_len, prefix)
+        model.decode_step(params, cache, tok[:, :1], logits.shape[1])
+        del logits, cache
+        r = drive(model, params, tok, [], prefix=prefix, max_len=max_len,
+                  steps=steps)
+        pre, step = tf_counts(model.cfg)
+        assert r["counts"] == pre, r["counts"]
+        assert r["dcounts"] == {k: v * steps for k, v in step.items()}, \
+            r["dcounts"]
+        tf_launches[f"{arch}/prefill"] = r["counts"]
+        tf_launches[f"{arch}/decode"] = r["dcounts"]
+        B, T = tok.shape[0], tok.shape[1] + (0 if prefix is None
+                                             else prefix.shape[1])
+        split12(f"{arch} prefill bf16 B={B} T={T}", lambda: model.prefill(
+            params, tok, max_len, prefix))
+        log(f"{arch} prefill bf16 B={B} T={T}: {r['wall'] * 1e3:.1f} ms, "
+            f"{B * T / r['wall']:.0f} tokens/s, launches {r['counts']}, "
+            f"peak device memory {r['peak'] / 1e9:.3f} GB; {steps} decode "
+            f"steps at B={B}: {r['dwall'] / steps * 1e3:.2f} ms a step, "
+            f"{B * steps / r['dwall']:.1f} tokens/s, launches "
+            f"{r['dcounts']}  on {card}")
+
+    def server12(model, params):
+        """The Server (SERVE_SLOTS slots, SERVE_REQUESTS requests, ooo):
+        every request completes, K16 only; tokens/s, ms a step and a
+        traced window's busy share."""
+        arch = model.cfg.name
+        reqs = serve_requests(model.cfg.vocab)
+        srv = serving.Server(model, params, n_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN)
+        objs = [serving.Request(i, list(p), m)
+                for i, (p, m) in enumerate(reqs)]
+        for r in objs:
+            srv.submit(r)
+        srv.step()                          # warm-up: admits, one step
+        busy0 = srv.stats.slot_busy_steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tlib.reset_launches()
+        t0 = time.perf_counter()
+        st = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(tlib.launches)
+        tf_launches[f"{arch}/server"] = counts
+        assert st.completed == SERVE_REQUESTS and all(
+            r.done and len(r.out) == r.max_new for r in objs), \
+            f"{st.completed} of {SERVE_REQUESTS} completed"
+        steps = st.steps - 1
+        assert counts == {k: v * steps
+                          for k, v in tf_counts(model.cfg)[1].items()}, counts
+        log(f"{arch} Server: {SERVE_REQUESTS} requests, {st.steps} steps, "
+            f"utilization {st.utilization(SERVE_SLOTS):.4f}, {steps} steps "
+            f"timed in {wall:.3f} s: {wall / steps * 1e3:.2f} ms a step, "
+            f"{(st.slot_busy_steps - busy0) / wall:.1f} tokens/s (slot-steps"
+            f"), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  on {card}")
+        srv = serving.Server(model, params, n_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN)
+        for i, (p_, m) in enumerate(reqs):
+            srv.submit(serving.Request(i, list(p_), m))
+        for _ in range(48):
+            srv.step()
+
+        def run_steps(n):
+            for _ in range(n):
+                srv.step()
+        try:
+            events, wall_us = trace_window(torch, lambda: run_steps(1),
+                                           lambda: run_steps(TRACE_STEPS))
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"{arch} server step profile not measured (profiler: {e})")
+            return
+        busy = sum(us for _k, us in events)
+        log(f"{arch} Server step profile ({TRACE_STEPS} steps from step 49, "
+            f"{sum(srv.busy)} busy slots): {wall_us / TRACE_STEPS / 1e3:.3f}"
+            f" ms wall a step, device busy {busy / TRACE_STEPS / 1e3:.3f} ms "
+            f"a step ({100 * busy / wall_us:.1f} %), "
+            f"{len(events) / TRACE_STEPS:.0f} device activities a step  on "
+            f"{card}")
+        for key, us, cnt in costliest(events, TRACE_STEPS):
+            log(f"    {us:9.1f} us/step  x{cnt:<4d} {key}")
+
+    def olmoe():
+        """olmoe-1b-7b at full width and depth: prefill 4 x 2048 and 32
+        decode steps in bf16, aux finite, the Server; then the float32
+        gate at 1 x 2048 (the bf16 weights freed first)."""
+        model, params = model12(MOE_ARCHS[0])
+        tok = tokens12(model.cfg.vocab, MOE_PREFILL_B, MOE_PREFILL_T)
+        prefill12(model, params, tok, MOE_MAX_LEN, MOE_DECODE_STEPS)
+        r = forward_run(model, params, tok[:1])
+        log(f"{model.cfg.name} forward bf16 1 x {MOE_PREFILL_T}: aux "
+            f"{r['aux']:.6f} (finite), {r['wall'] * 1e3:.1f} ms")
+        del r
+        server12(model, params)
+        del params
+        gtok = tok[:MOE_GATE_B]
+        feeds: list = []
+        fp32_gate(model, lambda p, on, **swap: drive(
+            model, p, gtok, feeds, on=on, max_len=MOE_MAX_LEN,
+            steps=MOE_GATE_STEPS, full=True, **swap))
+
+    def qwen2_moe():
+        """qwen2-moe-a2.7b at full width and depth: forward on 2 x 1024 in
+        bf16 with moe_grouped off and on (the padded experts 60-63 take no
+        token); then the float32 gate at 4 layers."""
+        arch = MOE_ARCHS[1]
+        model, params = model12(arch)
+        cfg = model.cfg
+        tok = tokens12(cfg.vocab, QMOE_B, QMOE_T)
+        runs = {}
+        for grouped in (False, True):
+            with flags.use_flags(moe_grouped=grouped):
+                forward_run(model, params, tok)                # warm-up
+                r = forward_run(model, params, tok)
+            key = "forward_grouped" if grouped else "forward"
+            assert r["counts"] == tf_counts(cfg)[0], r["counts"]
+            tf_launches[f"{arch}/{key}"] = r["counts"]
+            top = max(int(t.max()) for t in r["routes"])
+            assert len(r["routes"]) == cfg.n_layers and \
+                top < cfg.moe.num_experts, top
+            runs[key] = r
+            with flags.use_flags(moe_grouped=grouped):
+                split12(f"{arch} forward bf16 moe_grouped={grouped}",
+                        lambda: transformer.forward(params, cfg, tok))
+            log(f"{arch} forward bf16 B={QMOE_B} T={QMOE_T} moe_grouped="
+                f"{grouped}: {r['wall'] * 1e3:.1f} ms, "
+                f"{QMOE_B * QMOE_T / r['wall']:.0f} tokens/s, launches "
+                f"{r['counts']}, aux {r['aux']:.6f}, the highest expert "
+                f"chosen {top} (experts {cfg.moe.num_experts}-"
+                f"{transformer.padded_experts(cfg.moe.num_experts) - 1} are "
+                f"padding)  on {card}")
+        d, n = routing_diff(runs["forward_grouped"]["routes"],
+                            runs["forward"]["routes"])
+        log(f"{arch} grouped against global dispatch (capacity per "
+            f"sequence, not gated): logits normwise "
+            f"{normwise(runs['forward_grouped']['seq'], runs['forward']['seq']):.3g}"
+            f", routing decisions that differ {d} of {n}")
+        del runs, r, params
+        model = build12(arch, QMOE_GATE_LAYERS)
+        fp32_gate(model, lambda p, on, **swap: forward_run(
+            model, p, tok, on=on, **swap))
+
+    def paligemma():
+        """paligemma-3b at full width and depth: prefill of 2 x (256
+        prefix embeddings + 1792 text tokens), 36 K15 launches, 16 decode
+        steps, in bf16; then the float32 gate on the same input."""
+        model, params = model12(VLM_ARCH)
+        cfg = model.cfg
+        tok = tokens12(cfg.vocab, VLM_B, VLM_TEXT)
+        rng = np.random.default_rng(MODEL_SEED + 1)
+        prefix = torch.from_numpy(rng.standard_normal(
+            (VLM_B, cfg.prefix_len, cfg.d_model)).astype(np.float32)).to(
+                DEVICE)
+        prefill12(model, params, tok, VLM_MAX_LEN, VLM_DECODE_STEPS, prefix)
+        del params
+        feeds: list = []
+        fp32_gate(model, lambda p, on, **swap: drive(
+            model, p, tok, feeds, on=on, prefix=prefix, max_len=VLM_MAX_LEN,
+            steps=VLM_DECODE_STEPS, full=True, **swap))
+
+    phase("12a K15 at head dim 256 vs plain", attn_256)
+    for name, fn in (("12b olmoe-1b-7b at full width", olmoe),
+                     ("12c qwen2-moe-a2.7b at full width", qwen2_moe),
+                     ("12d paligemma-3b at full width", paligemma)):
+        phase(name, fn)
+        torch.cuda.empty_cache()            # one model on the card at a time
+
     # 5b. DSP kernel times at each path's shape -----------------------------
     def extra_times(row, name, wrapper, plain, i):
         """The kernel at its ``DSP_EXTRA`` shapes too: device, call, plain
@@ -3201,6 +3780,16 @@ def main(argv=None) -> int:
                           f"{row['call_ms_d112']:.4f} ms per call, library "
                           f"{row['library_ms_d112']:.4f} ms ({lib_name}), "
                           f"bound {row['bound_ms_d112']:.4f} ms")
+            if name == "flash_attention" and "d256" in ctx:
+                # paligemma-3b's calls at head dim 256 (12a), by label
+                for label, t in ctx["d256"].items():
+                    row.update({f"{k}_d256_{label}": v for k, v in t.items()})
+                    sdpa = (None if t["library_ms"] is None
+                            else round(t["library_ms"], 4))
+                    extra += (f"; D 256 {label} {t['shape']}: kernel "
+                              f"{t['ms']} ms on the device, {t['call_ms']:.4f}"
+                              f" ms a call, bound {t['bound_ms']:.4f} ms, "
+                              f"SDPA {sdpa} ms")
             rows.append(row)
             log(f"{name:15s} {shapes[name]} bf16  kernel {dev} on the "
                 f"device, {k_call:.4f} ms per call  plain {p_call:.4f} ms  "

@@ -241,7 +241,10 @@ int launch_rmsnorm(int R, int D, float eps, const void* x, const void* w,
 // NaN in interpret mode), keys at index >= Tk are never read: their K and
 // V rows are zero in shared memory and their scores masked.
 // Bound: at the model's prefill shape (BH = 48, T = 2048, D = 128, causal)
-// 51.6 GFLOP against 100.7 MB: operations.  Two kernels, by dtype:
+// 51.6 GFLOP against 100.7 MB: operations; at paligemma-3b's text call
+// (BH = 16, Tq = 1792 after a 256-position prefix, Tk = 2048, D = 256,
+// causal) 33.8 GFLOP against 58.7 MB.  Head dims 32, 64, 112, 128 and 256.
+// Two kernels, by dtype:
 // bfloat16 runs flash_attention_wgmma on the tensor cores (below);
 // float32 runs flash_attention_kernel on the CUDA cores (67 TFLOP/s),
 // since TF32 tensor cores keep about three digits and the float32
@@ -439,6 +442,9 @@ int attention_f32(int BH, int Tq, int Tk, int D, int causal, int q_offset,
     case 128:
       return launch_attention<128>(BH, Tq, Tk, causal, q_offset, scale, q, k,
                                    v, o, stream);
+    case 256:   // paligemma-3b: 140672 bytes of shared memory, a CTA an SM
+      return launch_attention<256>(BH, Tq, Tk, causal, q_offset, scale, q, k,
+                                   v, o, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -446,46 +452,66 @@ int attention_f32(int BH, int Tq, int Tk, int D, int causal, int q_offset,
 
 // ---------------------------------------------------------------------------
 // flash_attention_wgmma (bfloat16): the same online softmax on Hopper's
-// tensor cores.  One CTA a (head-batch, block of FW_BQ = 128 query rows):
-// two consumer warpgroups of 64 rows each and one producer warp.
+// tensor cores.  One CTA a (head-batch, block of BQ query rows): NWG
+// consumer warpgroups of 64 rows each and one producer warp (FwShape: at
+// padded head dims DP 64 and 128 two warpgroups, BQ = 128, K/V stages of
+// BK = 128 keys, three stages; at DP 256 below).
 //  - The producer's lane 0 issues TMA loads (tensor maps over (D, T, BH),
 //    so rows past T and columns past D arrive as zeros and nothing past an
-//    input is read) of Q once and of K and V blocks of FW_BK = 128 keys
-//    into a FW_STAGES-deep ring, each stage with a full and a free
-//    mbarrier for K and for V.  Tiles are stored as 64-column sub-tiles in
-//    the 128-byte swizzle that wgmma reads; head dims 32 and 112 are
-//    zero-padded to DP = 64 and 128 by the TMA box.
-//  - S = Q K^T: wgmma m64n128k16 with both operands in shared memory
-//    (K-major), float32 accumulators (64 a thread).
+//    input is read) of Q once and of K and V blocks of BK keys into a
+//    STAGES-deep ring, each stage with a full and a free mbarrier for K
+//    and for V.  Tiles are stored as 64-column sub-tiles in the 128-byte
+//    swizzle that wgmma reads; head dims 32 and 112 are zero-padded to DP
+//    = 64 and 128 by the TMA box.
+//  - S = Q K^T: wgmma m64n{BK}k16 with both operands in shared memory
+//    (K-major), float32 accumulators (BK / 2 a thread).
 //  - The softmax runs on those registers in the log2 domain (scale folded
 //    with log2 e, ex2.approx); p is rounded once to bfloat16 and packed in
 //    place: the accumulator layout of S is the register A-fragment layout
 //    of the next wgmma, so P never touches shared memory.  The
 //    normaliser sums the float32 p (as FlashAttention and SDPA do).
-//  - O += P V: wgmma m64n{DP}k16, A from registers, V read MN-major from
-//    its [key][d] tile (no transpose pass).
-//  - The two warpgroups take turns issuing S = Q K^T (named barriers 1
-//    and 2), so one's softmax overlaps the other's products.
+//  - O += P V: wgmma m64n{DP}k16 (at DP 256 two m64n128k16 halves), A
+//    from registers, V read MN-major from its [key][d] tile (no transpose
+//    pass).
+//  - With two warpgroups they take turns issuing S = Q K^T (named
+//    barriers 1 and 2), so one's softmax overlaps the other's products.
+// DP 256 (paligemma-3b): the DP 128 shape does not fit the SM.  Q would
+// take 64 KB and each 128-key K or V stage 64 KB (448 KB for three
+// stages), and O 128 float32 accumulators a thread against the 227
+// registers a thread of 288 may hold.  So one consumer warpgroup of 64
+// query rows (160 threads, so up to 255 registers a thread: O's 128, S's
+// 32, P's 16 packed), stages of BK = 64 keys (S = Q K^T on m64n64k16, K's
+// 256 columns as 16 k-steps over four swizzled sub-tiles), three stages:
+// 32 KB of Q and 192 KB of K and V, 225 KB with the barriers and the
+// alignment pad, one CTA an SM.  The warpgroup's softmax does not overlap
+// its own products (a redesign's lever: a second warpgroup, setmaxnreg).
 // Rounding P to bfloat16 moves each weight by at most 2^-9 relative, so
 // the output by at most 2^-9 max |v| (PERF.md, the tier-1 test of it).
 // ---------------------------------------------------------------------------
-constexpr int FW_BQ = 128;               // query rows a CTA
-constexpr int FW_BK = 128;               // keys a ring stage
-constexpr int FW_STAGES = 3;
-constexpr int FW_THREADS = 2 * 128 + 32; // two warpgroups, a producer warp
 constexpr int FW_SUB = 64 * 2;           // bytes a swizzled sub-tile row
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DP>                        // padded head dim: 64 or 128
-struct FwLayout {
-  static constexpr uint32_t Q_BYTES = FW_BQ * DP * 2;
-  static constexpr uint32_t KV_BYTES = FW_BK * DP * 2;
-  static constexpr size_t K_OFF = Q_BYTES;
-  static constexpr size_t V_OFF = K_OFF + (size_t)FW_STAGES * KV_BYTES;
-  static constexpr size_t BAR_OFF = V_OFF + (size_t)FW_STAGES * KV_BYTES;
-  // q_full, then k_full, v_full, k_free, v_free a stage; + 1024 to align
-  static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 4 * FW_STAGES) + 1024;
+template <int DP>                        // padded head dim: 64, 128 or 256
+struct FwShape {
+  static constexpr int NWG = DP <= 128 ? 2 : 1;   // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;             // query rows a CTA
+  static constexpr int BK = DP <= 128 ? 128 : 64; // keys a ring stage
+  static constexpr int STAGES = 3;
+  static constexpr int THREADS = 128 * NWG + 32;  // and a producer warp
 };
+
+template <int DP>
+struct FwLayout {
+  using S = FwShape<DP>;
+  static constexpr uint32_t Q_BYTES = S::BQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = S::BK * DP * 2;
+  static constexpr size_t K_OFF = Q_BYTES;
+  static constexpr size_t V_OFF = K_OFF + (size_t)S::STAGES * KV_BYTES;
+  static constexpr size_t BAR_OFF = V_OFF + (size_t)S::STAGES * KV_BYTES;
+  // q_full, then k_full, v_full, k_free, v_free a stage; + 1024 to align
+  static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 4 * S::STAGES) + 1024;
+};
+static_assert(FwLayout<256>::BYTES <= 232448, "K15 DP 256 past 227 KB");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -576,9 +602,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the three wgmma shapes K15 issues: S = Q K^T (both operands in shared
-// memory, K-major; accumulate = 0 overwrites d) and O += P V (P from
-// registers, V MN-major), float32 accumulators in the fragment layout
+// the wgmma shapes K15 issues: S = Q K^T (both operands in shared memory,
+// K-major; accumulate = 0 overwrites d; n128, or n64 at DP 256) and O +=
+// P V (P from registers, V MN-major; n64 or n128), float32 accumulators
+// in the fragment layout
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -611,6 +638,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -673,21 +723,41 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 }
 
 
-template <int DP>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (DP == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n64(d, a, db);
+// S = Q K^T for one k-step over a K stage of BK keys
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (BK == 128) wgmma_ss_n128(d, da, db, accumulate);
+  else wgmma_ss_n64(d, da, db, accumulate);
+}
+
+// O += P V for one k-step of 16 keys; v points at the step's first key
+// row of sub-tile 0, the sub-tiles (64 columns each) BK * FW_SUB bytes
+// apart
+template <int DP, int BK>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
+                                         const uint8_t* v) {
+  constexpr uint32_t LBO = BK * FW_SUB;
+  if constexpr (DP == 256) {
+    wgmma_rs_n128(d, a, gmma_desc(v, LBO, 1024));
+    wgmma_rs_n128(d + 64, a, gmma_desc(v + 2 * LBO, LBO, 1024));
+  } else if constexpr (DP == 128) {
+    wgmma_rs_n128(d, a, gmma_desc(v, LBO, 1024));
+  } else {
+    wgmma_rs_n64(d, a, gmma_desc(v, LBO, 1024));
+  }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(FW_THREADS, 1)
+__global__ void __launch_bounds__(FwShape<DP>::THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
                       const __grid_constant__ CUtensorMap tmk,
                       const __grid_constant__ CUtensorMap tmv, int BH, int Tq,
                       int Tk, int D, int nqb, int causal, int q_offset,
                       float scale_log2, __nv_bfloat16* __restrict__ o) {
   using L = FwLayout<DP>;
+  using S = FwShape<DP>;
+  constexpr int BQ = S::BQ, BK = S::BK, STAGES = S::STAGES, NWG = S::NWG;
   constexpr int NSUB = DP / 64;          // 64-column sub-tiles
   extern __shared__ uint8_t fw_raw[];
   uint8_t* sm = fw_raw + ((1024u - (smem_u32(fw_raw) & 1023u)) & 1023u);
@@ -696,50 +766,50 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
   uint8_t* sv = sm + L::V_OFF;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
   uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + FW_STAGES;
-  uint64_t* k_free = v_full + FW_STAGES;
-  uint64_t* v_free = k_free + FW_STAGES;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_free = v_full + STAGES;
+  uint64_t* v_free = k_free + STAGES;
 
   const int qb = nqb - 1 - (int)(blockIdx.x / BH);   // heavy blocks first
   const int bh = (int)(blockIdx.x % BH);
-  const int q0 = qb * FW_BQ;
+  const int q0 = qb * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   long long kend = Tk;
   if (causal) {
-    const long long last = (long long)q0 + q_offset + FW_BQ;
+    const long long last = (long long)q0 + q_offset + BQ;
     if (last < kend) kend = last;
   }
-  const int nkb = (int)((kend + FW_BK - 1) / FW_BK);
+  const int nkb = (int)((kend + BK - 1) / BK);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < FW_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + s, 1);
       mbar_init(v_full + s, 1);
-      mbar_init(k_free + s, 8);          // lane 0 of each consumer warp
-      mbar_init(v_free + s, 8);
+      mbar_init(k_free + s, 4 * NWG);    // lane 0 of each consumer warp
+      mbar_init(v_free + s, 4 * NWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 8) {                       // the producer
+  if (warp == 4 * NWG) {                 // the producer
     if (lane == 0) {
       mbar_expect_tx(q_full, L::Q_BYTES);
       for (int c = 0; c < NSUB; ++c)
-        tma_load3(sq + c * FW_BQ * FW_SUB, &tmq, q_full, 64 * c, q0, bh);
+        tma_load3(sq + c * BQ * FW_SUB, &tmq, q_full, 64 * c, q0, bh);
       for (int n = 0; n < nkb; ++n) {
-        const int s = n % FW_STAGES, par = ((n / FW_STAGES) & 1) ^ 1;
+        const int s = n % STAGES, par = ((n / STAGES) & 1) ^ 1;
         mbar_wait(k_free + s, par);
         mbar_expect_tx(k_full + s, L::KV_BYTES);
         for (int c = 0; c < NSUB; ++c)
-          tma_load3(sk + s * L::KV_BYTES + c * FW_BK * FW_SUB, &tmk,
-                    k_full + s, 64 * c, n * FW_BK, bh);
+          tma_load3(sk + s * L::KV_BYTES + c * BK * FW_SUB, &tmk,
+                    k_full + s, 64 * c, n * BK, bh);
         mbar_wait(v_free + s, par);
         mbar_expect_tx(v_full + s, L::KV_BYTES);
         for (int c = 0; c < NSUB; ++c)
-          tma_load3(sv + s * L::KV_BYTES + c * FW_BK * FW_SUB, &tmv,
-                    v_full + s, 64 * c, n * FW_BK, bh);
+          tma_load3(sv + s * L::KV_BYTES + c * BK * FW_SUB, &tmv,
+                    v_full + s, 64 * c, n * BK, bh);
       }
     }
     return;
@@ -756,41 +826,45 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
   float m_run[2] = {FA_NEG, FA_NEG}, l_run[2] = {0.f, 0.f};
-  if (wg == 1) bar_arrive(1, 256);      // warpgroup 0 issues first
+  if constexpr (NWG == 2) {
+    if (wg == 1) bar_arrive(1, 256);    // warpgroup 0 issues first
+  }
   mbar_wait(q_full, 0);
 
   for (int n = 0; n < nkb; ++n) {
-    const int s = n % FW_STAGES, par = (n / FW_STAGES) & 1;
+    const int s = n % STAGES, par = (n / STAGES) & 1;
     const uint8_t* ks = sk + s * L::KV_BYTES;
     const uint8_t* vs = sv + s * L::KV_BYTES;
-    float sc[FW_BK / 2];
+    float sc[BK / 2];
     mbar_wait(k_full + s, par);
-    bar_sync(1 + wg, 256);               // this group's turn
+    if constexpr (NWG == 2) bar_sync(1 + wg, 256);   // this group's turn
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const int sub = kk >> 2, off = (kk & 3) * 32;
-      wgmma_ss_n128(sc,
-                    gmma_desc(sq + sub * FW_BQ * FW_SUB + wg * 64 * FW_SUB +
-                              off, 16, 1024),
-                    gmma_desc(ks + sub * FW_BK * FW_SUB + off, 16, 1024),
-                    kk > 0);
+      wgmma_qk<BK>(sc,
+                   gmma_desc(sq + sub * BQ * FW_SUB + wg * 64 * FW_SUB + off,
+                             16, 1024),
+                   gmma_desc(ks + sub * BK * FW_SUB + off, 16, 1024),
+                   kk > 0);
     }
     wg_commit();
-    if (wg == 0 || n + 1 < nkb) bar_arrive(2 - wg, 256);  // the other's turn
+    if constexpr (NWG == 2) {            // the other group's turn
+      if (wg == 0 || n + 1 < nkb) bar_arrive(2 - wg, 256);
+    }
     wg_wait_all();
-    fence_regs<FW_BK / 2>(sc);
+    fence_regs<BK / 2>(sc);
     __syncwarp();
     if (lane == 0) mbar_arrive(k_free + s);
 
-    // scale, mask, running max (a row's 32 scores in a thread, its four
-    // threads neighbouring lanes)
-    const int key0 = n * FW_BK;
-    const bool edge = key0 + FW_BK > Tk ||
-                      (causal && (long long)key0 + FW_BK - 1 > first_row);
+    // scale, mask, running max (a row's BK / 4 scores in a thread, its
+    // four threads neighbouring lanes)
+    const int key0 = n * BK;
+    const bool edge = key0 + BK > Tk ||
+                      (causal && (long long)key0 + BK - 1 > first_row);
     float mx[2] = {FA_NEG, FA_NEG};
 #pragma unroll
-    for (int j = 0; j < FW_BK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float val = sc[4 * j + e] * scale_log2;
@@ -814,10 +888,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
     // p rounded to bf16, packed as the A fragments of P V: k-step kk's
     // registers are (row r, keys 16 kk + cq..), (r + 8, same), (r, keys
     // 16 kk + 8 + cq..), (r + 8, same) = accumulators 8 kk .. 8 kk + 7
-    uint32_t pa[FW_BK / 16][4];
+    uint32_t pa[BK / 16][4];
     float ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < FW_BK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float p0 = exp2_approx(sc[4 * j + 2 * i] - m_run[i]);
@@ -836,9 +910,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
     fence_regs<DP / 2>(oacc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < FW_BK / 16; ++kk)
-      wgmma_rs<DP>(oacc, pa[kk],
-                   gmma_desc(vs + kk * 16 * FW_SUB, FW_BK * FW_SUB, 1024));
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<DP, BK>(oacc, pa[kk], vs + kk * 16 * FW_SUB);
     wg_commit();
     wg_wait_all();
     fence_regs<DP / 2>(oacc);
@@ -914,6 +987,7 @@ int launch_attention_wgmma(int BH, int Tq, int Tk, int D, int causal,
                            int q_offset, float scale, const void* q,
                            const void* k, const void* v, void* o,
                            cudaStream_t stream) {
+  using S = FwShape<DP>;
   constexpr size_t smem = FwLayout<DP>::BYTES;
   static bool configured = false;
   if (!configured) {
@@ -924,14 +998,14 @@ int launch_attention_wgmma(int BH, int Tq, int Tk, int D, int causal,
     configured = true;
   }
   CUtensorMap mq, mk, mv;
-  int err = head_map(&mq, q, D, Tq, BH, FW_BQ);
-  if (!err) err = head_map(&mk, k, D, Tk, BH, FW_BK);
-  if (!err) err = head_map(&mv, v, D, Tk, BH, FW_BK);
+  int err = head_map(&mq, q, D, Tq, BH, S::BQ);
+  if (!err) err = head_map(&mk, k, D, Tk, BH, S::BK);
+  if (!err) err = head_map(&mv, v, D, Tk, BH, S::BK);
   if (err) return err;
-  const int nqb = (Tq + FW_BQ - 1) / FW_BQ;
+  const int nqb = (Tq + S::BQ - 1) / S::BQ;
   const long long blocks = (long long)BH * nqb;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  flash_attention_wgmma<DP><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
+  flash_attention_wgmma<DP><<<(unsigned)blocks, S::THREADS, smem, stream>>>(
       mq, mk, mv, BH, Tq, Tk, D, nqb, causal, q_offset, scale * LOG2E,
       (__nv_bfloat16*)o);
   return (int)cudaGetLastError();
@@ -948,6 +1022,9 @@ int attention_bf16(int BH, int Tq, int Tk, int D, int causal, int q_offset,
     case 112:   // zamba2-7b: d_model 3584 over 32 heads
     case 128:
       return launch_attention_wgmma<128>(BH, Tq, Tk, D, causal, q_offset,
+                                         scale, q, k, v, o, stream);
+    case 256:   // paligemma-3b
+      return launch_attention_wgmma<256>(BH, Tq, Tk, D, causal, q_offset,
                                          scale, q, k, v, o, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -3,10 +3,10 @@
 
 Counterpart of the reference's ``kernels/attention.py``.  The kernels take
 heads already flattened and GQA already repeated (``ops.flash_attention``
-does both), head dims 32, 64, 112 (zamba2-7b's shared attention) and
-128.  bfloat16 runs on the tensor cores (``wgmma``, fed by TMA, so q, k
-and v start on 16-byte boundaries: the wrapper copies one that does not);
-float32 runs on the CUDA cores.  Both mask keys at index ``>= Tk``
+does both), head dims 32, 64, 112 (zamba2-7b's shared attention), 128
+and 256 (paligemma-3b).  bfloat16 runs on the tensor cores (``wgmma``,
+fed by TMA, so q, k and v start on 16-byte boundaries: the wrapper copies
+one that does not); float32 runs on the CUDA cores.  Both mask keys at index ``>= Tk``
 themselves: the reference kernel's last key block reads past ``Tk`` and
 returns NaN when ``Tk`` is above its block of 128 and not a multiple of
 it.
@@ -19,7 +19,7 @@ from . import ref
 from .common import DTYPE_CODES, TRANSFORMER_LIB, check, on_card
 
 #: head dims the kernel is built for (a template parameter each)
-HEAD_DIMS = (32, 64, 112, 128)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

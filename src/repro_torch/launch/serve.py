@@ -1,6 +1,6 @@
 """Serving launcher: the continuous-batching server over a ported
-``--arch`` (the dense, ssm and hybrid families; smoke-sized with
-``--smoke``), on the CUDA card unless ``--device cpu``.
+``--arch`` (the dense, moe, vlm (text alone), ssm and hybrid families;
+smoke-sized with ``--smoke``), on the CUDA card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu --requests 16 --slots 4

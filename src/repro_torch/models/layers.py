@@ -231,12 +231,6 @@ def attn_out(p, x_attn):
     return linear(y, p["wo"])
 
 
-def self_attention(p, cfg, x, positions):
-    """Causal self-attention over x: (B, T, D), on K15."""
-    q, k, v = attn_qkv(p, cfg, x, positions)
-    return attn_out(p, ops.flash_attention(q, k, v, causal=True))
-
-
 def _write_lanes(cache, new, pos):
     """``cache[b, :, pos[b]] = new[b]`` for every lane, in place.  The
     reference's ``.at[b, h, pos].set`` counts a negative index from the

@@ -2,14 +2,15 @@
 
 Port of the reference's ``models/registry.py``.  ``build(cfg)`` returns a
 :class:`Model` bound to a device (``None`` = the CUDA card; without one it
-raises unless the caller passes ``device="cpu"``).  The families ``dense``
-(:mod:`.transformer`), ``ssm`` (:mod:`.rwkv6`) and ``hybrid``
-(:mod:`.zamba2`) are ported; every other family raises
-``NotImplementedError`` naming the slice that ports it.
+raises unless the caller passes ``device="cpu"``).  The transformer
+families ``dense``, ``moe`` and ``vlm`` (:mod:`.transformer`), ``ssm``
+(:mod:`.rwkv6`) and ``hybrid`` (:mod:`.zamba2`) are ported; ``audio``
+raises ``NotImplementedError`` naming the slice that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from types import ModuleType
 from typing import Any
 
@@ -24,11 +25,9 @@ from . import transformer as T
 from . import zamba2 as Z
 
 #: the module that implements each ported family
-FAMILIES = {"dense": T, "ssm": R, "hybrid": Z}
+FAMILIES = {"dense": T, "moe": T, "vlm": T, "ssm": R, "hybrid": Z}
 #: the ROADMAP item (Queue 1) that ports each family not ported yet
-LATER = {"moe": "5c (MoE and the VLM prefix)",
-         "vlm": "5c (MoE and the VLM prefix)",
-         "audio": "5d (whisper)"}
+LATER = {"audio": "5d (whisper)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,25 +48,55 @@ class Model:
     def param_count(self) -> int:
         return L.param_count(self.template)
 
-    def forward(self, params, tokens):
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: routed experts scaled k/E)."""
+        total = 0
+        m = self.cfg.moe
+
+        def walk(node, keys):
+            nonlocal total
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, keys + (k,))
+                return
+            n = math.prod(node.shape)
+            if m and "moe" in keys and "shared" not in keys \
+                    and "router" not in keys:
+                n = int(n * m.top_k / max(m.num_experts, 1))
+            total += n
+        walk(self.template, ())
+        return total
+
+    def _prefix(self, prefix_embeds) -> dict:
+        if prefix_embeds is None:
+            return {}
+        if self.cfg.family != "vlm":
+            raise ValueError(f"{self.cfg.name}: prefix_embeds are the vlm "
+                             f"family's; this is {self.cfg.family!r}")
+        return {"prefix_embeds": prefix_embeds}
+
+    def forward(self, params, tokens, prefix_embeds=None):
         """The sequence path of every family (the reference's
         family-uniform prefill, ``launch/dryrun.py`` ``_prefill_logits``):
-        tokens (B, T) → logits (B, T, V)."""
-        return self.impl.forward(params, self.cfg, tokens)[0]
+        tokens (B, T) → logits (B, T, V); the vlm takes ``prefix_embeds``
+        (B, P, D) before the tokens (then T' = P + T logits)."""
+        return self.impl.forward(params, self.cfg, tokens,
+                                 **self._prefix(prefix_embeds))[0]
 
-    def _dense_only(self, what: str):
-        if self.cfg.family != "dense":
+    def _transformer_only(self, what: str):
+        if self.impl is not T:
             raise NotImplementedError(
-                f"{self.cfg.name}: {what} is the dense family's (as in the "
-                f"reference); the {self.cfg.family!r} family has forward "
-                "and decode_step")
+                f"{self.cfg.name}: {what} is the transformer families' (as "
+                f"in the reference); the {self.cfg.family!r} family has "
+                "forward and decode_step")
 
-    def prefill(self, params, tokens, max_len: int):
-        self._dense_only("prefill")
-        return T.prefill(params, self.cfg, tokens, max_len)
+    def prefill(self, params, tokens, max_len: int, prefix_embeds=None):
+        self._transformer_only("prefill")
+        return T.prefill(params, self.cfg, tokens, max_len,
+                         **self._prefix(prefix_embeds))
 
     def chunk_step(self, params, cache, tokens, pos: int):
-        self._dense_only("chunk_step")
+        self._transformer_only("chunk_step")
         return T.chunk_step(params, self.cfg, cache, tokens, pos)
 
     def decode_step(self, params, cache, tokens, pos):

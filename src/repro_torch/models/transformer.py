@@ -1,16 +1,22 @@
-"""Decoder-only transformer, dense family (yi / command-r / phi3 / qwen2).
+"""Decoder-only transformer family: dense (yi / command-r / phi3 / qwen2),
+MoE (olmoe / qwen2-moe) and prefix-LM VLM (paligemma).
 
-Port of the reference's ``models/transformer.py`` for ``family ==
-"dense"``.  The reference stacks the layers on a scanned axis; here
-``params["layers"]`` is a list of per-layer dicts (views of the stacked
-tensors the template draws), walked by a Python loop.  The KV cache keeps
-the reference's layout, ``{"k", "v"}`` of (L, B, Hkv, Tmax, Dh), and is
-written in place: ``decode_step`` and ``chunk_step`` return the cache they
-were given.  The MoE layer (``moe_apply``) and the VLM prefix raise
-``NotImplementedError`` naming their ROADMAP item (Queue 1 item 5c).
+Port of the reference's ``models/transformer.py``.  The reference stacks
+the layers on a scanned axis; here ``params["layers"]`` is a list of
+per-layer dicts (views of the stacked tensors the template draws), walked
+by a Python loop.  The KV cache keeps the reference's layout, ``{"k",
+"v"}`` of (L, B, Hkv, Tmax, Dh), and is written in place: ``decode_step``
+and ``chunk_step`` return the cache they were given.
+
+The MoE layer (:func:`moe_apply`) keeps the reference's scatter dispatch
+and its two forms, global and ``FLAGS.moe_grouped``; the expert products
+are plain batched matrix products (``torch.bmm``/``einsum``), as the
+reference leaves them to XLA.  The VLM's prefix-LM attention is two K15
+calls a layer (:func:`prefix_attention`).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -20,13 +26,34 @@ from ..runtime import flags
 from . import layers as L
 from .layers import Spec, cast
 
-_MOE = "the MoE layer is not ported yet (ROADMAP Queue 1 item 5c)"
-_PREFIX = "the VLM prefix is not ported yet (ROADMAP Queue 1 item 5c)"
-
 
 # ---------------------------------------------------------------------------
 # templates
 # ---------------------------------------------------------------------------
+def padded_experts(n: int, mult: int = 16) -> int:
+    return -(-n // mult) * mult
+
+
+def moe_template(cfg) -> dict:
+    m = cfg.moe
+    E = padded_experts(m.num_experts)
+    D, F = cfg.d_model, m.d_expert
+    t = {
+        "router": Spec((D, E), (None, "expert")),
+        "w_gate": Spec((E, D, F), ("expert", "embed_fsdp", None)),
+        "w_up": Spec((E, D, F), ("expert", "embed_fsdp", None)),
+        "w_down": Spec((E, F, D), ("expert", None, "embed_fsdp")),
+    }
+    if m.num_shared:
+        t["shared"] = {
+            "w_gate": Spec((D, m.d_shared), ("embed_fsdp", "mlp")),
+            "w_up": Spec((D, m.d_shared), ("embed_fsdp", "mlp")),
+            "w_down": Spec((m.d_shared, D), ("mlp", "embed_fsdp")),
+            "gate_proj": Spec((D, 1), (None, None)),
+        }
+    return t
+
+
 def mlp_template(cfg) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     return {
@@ -37,14 +64,14 @@ def mlp_template(cfg) -> dict:
 
 
 def block_template(cfg) -> dict:
-    if cfg.moe:
-        raise NotImplementedError(_MOE)
-    return {
+    t = {
         "ln1": Spec((cfg.d_model,), (None,), init="ones"),
         "attn": L.attn_template(cfg),
         "ln2": Spec((cfg.d_model,), (None,), init="ones"),
-        "mlp": mlp_template(cfg),
     }
+    t["moe" if cfg.moe else "mlp"] = (moe_template(cfg) if cfg.moe
+                                      else mlp_template(cfg))
+    return t
 
 
 #: the leaves the reference reads without ``cast`` (none here), and the
@@ -66,29 +93,165 @@ def template(cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# MoE forward (scatter-based dispatch)
+# ---------------------------------------------------------------------------
+def top_k(probs, k: int):
+    """``jax.lax.top_k`` on the last axis: the k largest values and their
+    indices, equal values in index order (the lower index first).
+    ``torch.topk`` promises no order among ties, and ties are common here:
+    bfloat16 router scores, and probabilities that underflow to exactly
+    0 (unchosen experts still take capacity slots by their order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(p, cfg, x):
+    """Router probabilities in float32 (padded experts masked to -1e30
+    before the softmax) and the renormalised top-k gates and indices, over
+    x's leading axes."""
+    m = cfg.moe
+    E = padded_experts(m.num_experts)
+    scores = (x @ cast(p["router"])).float()
+    if E != m.num_experts:
+        pad = torch.arange(E, device=x.device) >= m.num_experts
+        scores = torch.where(pad, L.NEG_INF, scores)
+    probs = torch.softmax(scores, dim=-1)
+    gates, topi = top_k(probs, m.top_k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates, topi
+
+
+def _slots(flat_e, E: int, C: int):
+    """Each assignment's row in the (E·C + 1)-row dispatch buffer: its
+    expert's block, at its rank among the assignments to that expert in
+    ``flat_e``'s order along the last axis (a one-hot cumsum); an
+    assignment past the capacity C goes to the drop row E·C.  Returns
+    (dst, keep).  The one-hot is built by a comparison and laid out (...,
+    E, n), the assignments on the last axis: ``F.one_hot`` reads its
+    input's range back to the host, and a cumsum along the outer axis of
+    (n, E) runs one thread a column on the card."""
+    experts = torch.arange(E, device=flat_e.device)[:, None]
+    onehot = (flat_e[..., None, :] == experts).to(torch.int32)   # (.., E, n)
+    pos = torch.cumsum(onehot, dim=-1, dtype=torch.int32) - 1
+    my_pos = torch.gather(pos, -2, flat_e[..., None, :])[..., 0, :]
+    keep = my_pos < C
+    dst = torch.where(keep, flat_e * C + my_pos, E * C)
+    return dst, keep
+
+
+def moe_apply(p, cfg, x, *, need_aux: bool = True):
+    """x: (B, T, D) → (y, aux), aux a float32 scalar tensor (0.0 with
+    ``need_aux=False``: the callers that drop it skip its dozen launches,
+    as XLA drops the reference's unused aux).
+
+    Baseline: one global scatter dispatch (position cumsum over all B·T·k
+    assignment rows).  With ``FLAGS.moe_grouped``: GShard-style grouped
+    dispatch — per-sequence capacity and position cumsum.  The dispatch
+    buffer's rows are written by ``index_copy_``: kept assignments have
+    rows of their own, so the copy is the reference's scatter-add onto
+    zeros; the drop row (many writers) is discarded, as in the reference.
+    """
+    m = cfg.moe
+    E = padded_experts(m.num_experts)
+    k = m.top_k
+    B, T, D = x.shape
+    N = B * T
+    # the global dispatch is the grouped one over a single group of all
+    # N tokens
+    G, n = (B, T) if flags.FLAGS.moe_grouped else (1, N)
+    xg = x.reshape(G, n, D)
+    probs, gates, topi = _route(p, cfg, xg)                      # (G, n, k)
+    C = max(int(math.ceil(n * k / E * m.capacity_factor)), 1)
+    dst, keep = _slots(topi.reshape(G, n * k), E, C)             # (G, n·k)
+    rows = E * C + 1
+    x_rep = xg.repeat_interleave(k, dim=1)                       # (G, n·k, D)
+    base = torch.arange(G, device=x.device)[:, None] * rows
+    xe = x.new_zeros(G * rows, D).index_copy_(
+        0, (dst + base).reshape(-1), x_rep.reshape(-1, D))
+    xe = xe.view(G, rows, D)[:, :-1].reshape(G, E, C, D)
+    h = L.silu(torch.einsum("gecd,edf->gecf", xe, cast(p["w_gate"]))) \
+        * torch.einsum("gecd,edf->gecf", xe, cast(p["w_up"]))
+    ye = torch.einsum("gecf,efd->gecd", h, cast(p["w_down"]))
+    ye_flat = torch.cat([ye.reshape(G, E * C, D), x.new_zeros(G, 1, D)],
+                        dim=1)
+    y_tok = torch.gather(ye_flat, 1, dst[..., None].expand(-1, -1, D)) \
+        * keep[..., None].to(x.dtype)
+    y = (y_tok.reshape(G, n, k, D)
+         * gates[..., None].to(x.dtype)).sum(dim=2).reshape(B, T, D)
+
+    if m.num_shared:
+        s = p["shared"]
+        shared_out = L.swiglu(x, s["w_gate"], s["w_up"], s["w_down"])
+        g = L.sigmoid(L.linear(x, s["gate_proj"]))
+        y = y + g * shared_out
+
+    if not need_aux:
+        return y, 0.0
+    # Switch-style load-balance loss over the true (unpadded) experts; the
+    # reference's mean over tokens of the one-hot rows is each expert's
+    # count (exact in float32) over N
+    me = probs.reshape(N, E)[:, :m.num_experts].mean(dim=0)
+    counts = torch.zeros(E, device=x.device).scatter_add_(
+        0, topi.reshape(-1), torch.ones(topi.numel(), device=x.device))
+    ce = (counts / N)[:m.num_experts] / k
+    aux = m.num_experts * torch.sum(me * ce)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _mlp(lp, h):
-    m = lp["mlp"]
-    return L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+def _ffn(lp, cfg, h, need_aux: bool = False):
+    """The block's feed-forward half: (y, aux), aux 0.0 for the dense MLP
+    and unless ``need_aux``."""
+    if cfg.moe:
+        return moe_apply(lp["moe"], cfg, h, need_aux=need_aux)
+    mp = lp["mlp"]
+    return L.swiglu(h, mp["w_gate"], mp["w_up"], mp["w_down"]), 0.0
 
 
-def block_apply(lp, cfg, x, positions):
+def prefix_attention(q, k, v, prefix_len: int):
+    """Prefix-LM attention (paligemma): bidirectional over the first
+    ``prefix_len`` positions, causal after them.  q: (B, H, T, Dh); k, v:
+    (B, Hkv, T, Dh).  Two K15 calls: the prefix's queries against the
+    prefix's keys, unmasked; the rest against every key, causal from
+    ``q_offset = prefix_len``."""
+    P = prefix_len
+    o_pre = ops.flash_attention(q[:, :, :P], k[:, :, :P], v[:, :, :P],
+                                causal=False)
+    o_suf = ops.flash_attention(q[:, :, P:], k, v, causal=True, q_offset=P)
+    return torch.cat([o_pre, o_suf], dim=2)
+
+
+def _attention(lp, cfg, h, positions, prefix_len: int):
+    """The block's attention over the whole sequence on K15 (prefix-LM
+    when ``prefix_len > 0``); returns (its output (B, T, D), k, v)."""
+    q, k, v = L.attn_qkv(lp["attn"], cfg, h, positions)
+    if prefix_len > 0:
+        o = prefix_attention(q, k, v, prefix_len)
+    else:
+        o = ops.flash_attention(q, k, v, causal=True)
+    return L.attn_out(lp["attn"], o), k, v
+
+
+def block_apply(lp, cfg, x, positions, *, prefix_len: int = 0):
     """One decoder block, train/prefill path.  x: (B, T, D) → (x, aux)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    x = x + L.self_attention(lp["attn"], cfg, h, positions)
+    x = x + _attention(lp, cfg, h, positions, prefix_len)[0]
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(lp, h), 0.0
+    y, aux = _ffn(lp, cfg, h, need_aux=True)
+    return x + y, aux
 
 
 def block_decode(lp, cfg, x, ck, cv, pos):
     """One-token decode. x: (B, 1, D); ck/cv: (B, Hkv, Tmax, Dh), written
-    in place."""
+    in place.  The MoE layer routes every lane of the batch together, as
+    the reference does (idle lanes compete for capacity)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     attn, ck, cv = L.decode_attention(lp["attn"], cfg, h, ck, cv, pos)
     x = x + attn
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(lp, h), ck, cv
+    return x + _ffn(lp, cfg, h)[0], ck, cv
 
 
 # ---------------------------------------------------------------------------
@@ -104,15 +267,25 @@ def unembed(params, cfg, x):
     return x @ w
 
 
-def forward(params, cfg, tokens, prefix_embeds: Optional[torch.Tensor] = None):
-    """tokens: (B, T) → logits (B, T, V), aux (0.0 for the dense family)."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(_PREFIX)
+def _embed(params, tokens, prefix_embeds):
+    """Token embeddings, after ``prefix_embeds`` (B, P, D) cast to the
+    compute dtype when given; and P (0 without a prefix)."""
     x = embed_tokens(params, tokens)
+    if prefix_embeds is None:
+        return x, 0
+    return torch.cat([cast(prefix_embeds), x], dim=1), prefix_embeds.shape[1]
+
+
+def forward(params, cfg, tokens, prefix_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B, T) → logits (B, T', V), aux (0.0 for the dense family;
+    the MoE load-balance loss averaged over the layers).  With
+    ``prefix_embeds`` (B, P, D) the sequence is [prefix; tokens], T' = P +
+    T, and attention is prefix-LM."""
+    x, prefix_len = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
     for lp in params["layers"]:
-        x, a = block_apply(lp, cfg, x, positions)
+        x, a = block_apply(lp, cfg, x, positions, prefix_len=prefix_len)
         aux += a
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), aux / max(cfg.n_layers, 1)
@@ -182,7 +355,7 @@ def chunk_step(params, cfg, cache, tokens, pos: int):
         o = torch.einsum("bhqk,bhkd->bhqd", w, vr.float()).to(x.dtype)
         x = x + L.attn_out(lp["attn"], o)
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(lp, h)
+        x = x + _ffn(lp, cfg, h)[0]
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), cache
 
@@ -190,10 +363,11 @@ def chunk_step(params, cfg, cache, tokens, pos: int):
 def prefill(params, cfg, tokens, max_len: int,
             prefix_embeds: Optional[torch.Tensor] = None):
     """Run the whole prompt, returning logits (B, T, V) and a KV cache of
-    ``max_len`` positions holding the prompt's K/V (zeros after it)."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(_PREFIX)
-    x = embed_tokens(params, tokens)
+    ``max_len`` positions holding the prompt's K/V (zeros after it).  With
+    ``prefix_embeds`` (B, P, D) the prompt is [prefix; tokens] (T counts
+    both), attention is prefix-LM, and the cache holds the prefix's K/V at
+    positions [0, P)."""
+    x, prefix_len = _embed(params, tokens, prefix_embeds)
     B, T, _ = x.shape
     if T > max_len:
         raise ValueError(f"prompt of {T} tokens exceeds max_len {max_len}")
@@ -202,11 +376,10 @@ def prefill(params, cfg, tokens, max_len: int,
     cache = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
     for i, lp in enumerate(params["layers"]):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["attn"], cfg, h, positions)
-        o = ops.flash_attention(q, k, v, causal=True)
-        x = x + L.attn_out(lp["attn"], o)
+        attn, k, v = _attention(lp, cfg, h, positions, prefix_len)
+        x = x + attn
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(lp, h)
+        x = x + _ffn(lp, cfg, h)[0]
         cache["k"][i, :, :, :T] = k
         cache["v"][i, :, :, :T] = v
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

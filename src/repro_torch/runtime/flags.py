@@ -6,12 +6,13 @@ before/after roofline terms (hypothesis → change → measure → validate).
 
 The port's copy of the reference's ``runtime/flags.py``.  The port runs the
 default path, all flags False, and keeps only the flags its model reads:
-``decode_gqa_packed`` and ``decode_kv_int8``, each of which raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 5e where it is read,
-until a slice ports it.  The reference's other two are not here, so
-``use_flags`` refuses them with a ``TypeError``: ``moe_grouped`` comes with
-the MoE layer (item 5c), and ``decode_kv_seq_shard`` only changes sharding
-rules, which one card does not have.
+``moe_grouped`` (``models/transformer.py`` ``moe_apply``: the grouped
+dispatch), and ``decode_gqa_packed`` and ``decode_kv_int8``, each of which
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 5e where it is
+read, until a slice ports it.  The reference's fourth,
+``decode_kv_seq_shard``, is not here, so ``use_flags`` refuses it with a
+``TypeError``: it only changes sharding rules, which one card does not
+have.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ import dataclasses
 
 @dataclasses.dataclass
 class PerfFlags:
+    #: MoE: GShard-style grouped dispatch — per-sequence position cumsum
+    #: (data-sharded, short) instead of one global replicated cumsum.
+    moe_grouped: bool = False
     #: decode attention: grouped-query einsum without materializing the
     #: GQA-repeated (and fp32-cast) K/V cache.
     decode_gqa_packed: bool = False

@@ -16,12 +16,14 @@ frames of 256, 8 frames a block).  K15 and K16 take float32 and
 bfloat16: K16 within 1e-5 in float32 and 2e-2 in bfloat16, K15 within
 1e-5 and 2e-2, at ragged lengths and every head dim (112 included), and
 in bfloat16 at the models' block-aligned lengths (2048, 1024) and a chunk
-of 100 queries at q_offset 512.  K17
+of 100 queries at q_offset 512; head dim 256 (paligemma-3b's, also at its
+two calls a layer and in its smoke model at that head dim).  K17
 and K18 in float32 within 1e-5 normwise (largest difference over the
 largest plain magnitude: their sums run in another order than the plain
 version's), in bfloat16 at rtol = atol = 2e-2 (about one output ulp), at
 ragged T.  Each smoke model's kernel path (Qwen2, rwkv6, zamba2) within
-1e-1 normwise of its plain path.
+1e-1 normwise of its plain path; in float32 every smoke model's (the MoE
+and VLM families too) within 1e-3, a control failing it.
 """
 import dataclasses
 import sys
@@ -767,7 +769,7 @@ def test_rmsnorm_kernel_on_rows_off_16_byte_alignment(card, dtype):
 @pytest.mark.parametrize("tq,tk,q_offset", [(1, 77, 76), (5, 9, 4),
                                             (200, 200, 0), (64, 300, 236),
                                             (1000, 1000, 0)])
-@pytest.mark.parametrize("d", [32, 64, 112, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, tq, tk, q_offset, d,
@@ -792,7 +794,8 @@ def test_flash_attention_kernel_matches_plain(card, tq, tk, q_offset, d,
 @pytest.mark.parametrize("bh,tq,tk,d,q_offset", [
     (4, 2048, 2048, 128, 0), (4, 1024, 1024, 128, 0),
     (4, 2048, 2048, 112, 0), (4, 1024, 1024, 112, 0),
-    (3, 100, 612, 128, 512)])
+    (3, 100, 612, 128, 512), (4, 2048, 2048, 256, 0),
+    (16, 1792, 2048, 256, 256)])
 def test_flash_attention_bf16_kernel_matches_plain_at_full_blocks(
         card, bh, tq, tk, d, q_offset):
     """The bfloat16 kernel at block-aligned model lengths (the prefill's
@@ -814,12 +817,13 @@ def test_flash_attention_bf16_kernel_matches_plain_at_full_blocks(
 @pytest.mark.parametrize("bh,tq,tk,q_offset", [
     (13, 1, 77, 76), (13, 7, 300, 293), (13, 7, 7, 0), (13, 200, 200, 0),
     (1, 129, 129, 0)])
-@pytest.mark.parametrize("d", [112, 128])
+@pytest.mark.parametrize("d", [112, 128, 256])
 def test_flash_attention_bf16_kernel_at_short_and_odd_shapes(
         card, bh, tq, tk, q_offset, d):
-    """The tensor-core kernel (a CTA of 128 query rows, 64 a warpgroup)
-    at decode-like Tq = 1 and Tq = 7, at an odd BH and at query lengths
-    one row past a CTA (129) or inside a warpgroup's rows (200), at the
+    """The tensor-core kernel (a CTA of 128 query rows, 64 a warpgroup;
+    at head dim 256 one warpgroup of 64 rows and 64-key stages) at
+    decode-like Tq = 1 and Tq = 7, at an odd BH and at query lengths one
+    row past a CTA (129) or inside a warpgroup's rows (200), at the
     models' head dims (112 zero-padded to 128)."""
     q = _frames(card, tq + d + 3, bh, tq, d).to(torch.bfloat16)
     k = _frames(card, tk + d + 4, bh, tk, d).to(torch.bfloat16)
@@ -831,6 +835,30 @@ def test_flash_attention_bf16_kernel_at_short_and_odd_shapes(
     assert bool(torch.isfinite(got).all())
     tol = TF_TOL[torch.bfloat16][1]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(TF_TOL))
+def test_flash_attention_kernel_at_paligemmas_two_calls(card, dtype):
+    """paligemma-3b's prefix-LM layer at B = 2 (8 query heads on one KV
+    head, repeated): the prefix's 256 queries against its 256 keys,
+    bidirectional, and the 1792 text queries against all 2048 keys,
+    causal from q_offset 256; one launch each, at head dim 256."""
+    q = _frames(card, 31, 16, 2048, 256).to(dtype)
+    k = _frames(card, 32, 16, 2048, 256).to(dtype)
+    v = _frames(card, 33, 16, 2048, 256).to(dtype)
+    P = 256
+    for qq, kk, vv, kw in (
+            (q[:, :P], k[:, :P], v[:, :P], dict(causal=False)),
+            (q[:, P:], k, v, dict(causal=True, q_offset=P))):
+        qq, kk, vv = (t.contiguous() for t in (qq, kk, vv))
+        got = _tf_counted("flash_attention", attention.flash_attention, qq,
+                          kk, vv, **kw)
+        want = ref.flash_attention(qq[:, None], kk[:, None], vv[:, None],
+                                   **kw)[:, 0]
+        assert bool(torch.isfinite(got).all())
+        tol = TF_TOL[dtype][1]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 def test_transformer_kernels_refuse_what_they_do_not_take(card):
@@ -895,28 +923,38 @@ def test_smoke_model_kernel_path_matches_plain_path(card, monkeypatch):
         assert err <= 1e-1, err
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b", "zamba2-7b",
+                                  "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                  "paligemma-3b"])
 def test_smoke_model_float32_kernel_path_matches_plain_path(card, arch,
                                                             monkeypatch):
-    """The smoke models in float32: the logits on the kernels (Qwen2:
-    prefill and a decode step; rwkv6, zamba2: forward at a ragged T)
+    """The smoke models in float32: the logits on the kernels (the
+    transformer families: prefill, paligemma's after its 8-position
+    prefix, and a decode step; rwkv6, zamba2: forward at a ragged T)
     within FP32_SMOKE_TOL normwise of the plain ops', and a control that
     must fail the same limit: the plain attention with its scores rounded
-    to bfloat16 in place of K15 (Qwen2), the plain recurrence with a
-    bfloat16 state in place of K17/K18 (rwkv6, zamba2)."""
+    to bfloat16 in place of K15 (the transformer families), the plain
+    recurrence with a bfloat16 state in place of K17/K18 (rwkv6,
+    zamba2)."""
     monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
     m = registry.build_smoke(arch)
     p = m.init(0)
     # a generator of its own: the card's default one stays as the bf16
     # smoke tests after this one found it
-    tok = torch.randint(0, m.cfg.vocab, (2, 100),
-                        generator=torch.Generator().manual_seed(0)).to(card)
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, m.cfg.vocab, (2, 100), generator=gen).to(card)
+    transformer_family = m.cfg.family in ("dense", "moe", "vlm")
+    prefix = None
+    if m.cfg.prefix_len:
+        prefix = torch.randn(2, m.cfg.prefix_len, m.cfg.d_model,
+                             generator=gen).to(card)
 
     def logits():
-        if arch != "qwen2-1.5b":
+        if not transformer_family:
             return [m.forward(p, tok)]
-        out, cache = m.prefill(p, tok, 128)
-        return [out, m.decode_step(p, cache, tok[:, :1], 100)[0]]
+        out, cache = m.prefill(p, tok, 128, prefix)
+        pos = out.shape[1]
+        return [out, m.decode_step(p, cache, tok[:, :1], pos)[0]]
 
     lib = dsp.TRANSFORMER_LIB
     lib.reset_launches()
@@ -928,7 +966,7 @@ def test_smoke_model_float32_kernel_path_matches_plain_path(card, arch,
         _swap_plain(mp)
         plain = logits()
     with monkeypatch.context() as mp:
-        if arch == "qwen2-1.5b":
+        if transformer_family:
             _swap_plain(mp, attn=chip_smoke.attention_bf16_scores)
         else:
             _swap_plain(mp, rec=chip_smoke.rec_bf16_state)
@@ -936,6 +974,50 @@ def test_smoke_model_float32_kernel_path_matches_plain_path(card, arch,
     err = max(_normwise(a, b) for a, b in zip(kern, plain))
     c_err = max(_normwise(a, b) for a, b in zip(control, plain))
     assert err <= FP32_SMOKE_TOL < c_err, (err, c_err)
+
+
+@pytest.mark.parametrize("dtype", list(TF_TOL))
+def test_vlm_at_head_dim_256_runs_its_prefix_lm_attention_on_k15(
+        card, dtype, monkeypatch):
+    """paligemma-3b's smoke config at its own head dim, 256: a prefill
+    after the 8-position prefix makes two K15 launches a layer at head dim
+    256 (the prefix bidirectional, the text causal from q_offset 8), a
+    decode step none, and the logits agree with the plain path's (float32
+    within FP32_SMOKE_TOL, bf16 within 1e-1, normwise)."""
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", dtype)
+    cfg = dataclasses.replace(registry.get_config("paligemma-3b").smoke(),
+                              d_head=256)
+    m = registry.build(cfg)
+    p = m.init(0)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 100), generator=gen).to(card)
+    prefix = torch.randn(2, cfg.prefix_len, cfg.d_model,
+                         generator=gen).to(card)
+    calls = []
+    wrapper = attention.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[-1], kw.get("causal"), kw.get("q_offset")))
+        return wrapper(q, k, v, **kw)
+
+    lib = dsp.TRANSFORMER_LIB
+    lib.reset_launches()
+    with monkeypatch.context() as mp:
+        mp.setattr(attention, "flash_attention", spy)
+        out, cache = m.prefill(p, tok, 128, prefix)
+        step, _ = m.decode_step(p, cache, tok[:, :1], out.shape[1])
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert lib.launches["flash_attention"] == 2 * L
+    assert calls == [(256, False, 0), (256, True, cfg.prefix_len)] * L
+    with monkeypatch.context() as mp:
+        _swap_plain(mp)
+        plain, pcache = m.prefill(p, tok, 128, prefix)
+        pstep, _ = m.decode_step(p, pcache, tok[:, :1], plain.shape[1])
+    tol = FP32_SMOKE_TOL if dtype == torch.float32 else 1e-1
+    for got, want in ((out, plain), (step, pstep)):
+        err = _normwise(got, want)
+        assert err <= tol, err
 
 
 # ---------------------------------------------------------------------------

@@ -235,10 +235,13 @@ def test_random_init_follows_the_reference_distribution():
 
 
 def test_unported_families_and_flags_raise():
-    for arch, item in (("qwen2-moe-a2.7b", "5c"), ("paligemma-3b", "5c"),
-                       ("whisper-base", "5d")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tregistry.build_arch(arch, device="cpu")
+    """Whisper (ROADMAP Queue 1 item 5d) and the decode flags (5e) still
+    raise; the MoE and VLM families (5c) build, and ``moe_grouped`` is a
+    flag; ``decode_kv_seq_shard`` is not one."""
+    with pytest.raises(NotImplementedError, match="item 5d"):
+        tregistry.build_arch("whisper-base", device="cpu")
+    for arch in ("olmoe-1b-7b", "qwen2-moe-a2.7b", "paligemma-3b"):
+        assert tregistry.build_arch(arch, device="cpu").cfg.name == arch
     m = tregistry.build_smoke(ARCH, device="cpu")
     p = m.init(0)
     with tflags.use_flags(decode_kv_int8=True):
@@ -248,13 +251,15 @@ def test_unported_families_and_flags_raise():
     with tflags.use_flags(decode_gqa_packed=True):
         with pytest.raises(NotImplementedError, match="5e"):
             m.decode_step(p, c, torch.zeros(1, 1, dtype=torch.int32), 0)
-    for name in ("moe_grouped", "decode_kv_seq_shard"):
-        with pytest.raises(TypeError, match=name):
-            with tflags.use_flags(**{name: True}):
-                pass
-    with pytest.raises(NotImplementedError, match="prefix"):
-        tT.forward(p, m.cfg, torch.zeros(1, 4, dtype=torch.int32),
-                   prefix_embeds=torch.zeros(1, 2, 128))
+    with tflags.use_flags(moe_grouped=True) as f:
+        assert f.moe_grouped and tflags.FLAGS.moe_grouped
+    assert not tflags.FLAGS.moe_grouped
+    with pytest.raises(TypeError, match="decode_kv_seq_shard"):
+        with tflags.use_flags(decode_kv_seq_shard=True):
+            pass
+    with pytest.raises(ValueError, match="vlm"):
+        m.forward(p, torch.zeros(1, 4, dtype=torch.int32),
+                  prefix_embeds=torch.zeros(1, 2, 128))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

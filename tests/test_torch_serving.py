@@ -2,9 +2,10 @@
 continuous-batching ``Server``, ``greedy_decode``, ``speculative_decode``
 and the ``launch.serve`` entry point.
 
-Both packages run Qwen2-1.5B's smoke config on the JAX model's
-``PRNGKey(0)`` parameters, carried with ``params_from_reference``, in
-float32 (both ``COMPUTE_DTYPE``s set here): the outputs compared are
+Both packages run Qwen2-1.5B's smoke config (and for the ``Server``
+also olmoe-1b-7b's, qwen2-moe-a2.7b's and paligemma-3b's) on the JAX
+model's ``PRNGKey(0)`` parameters, carried with ``params_from_reference``,
+in float32 (both ``COMPUTE_DTYPE``s set here): the outputs compared are
 greedy tokens, and float32 keeps the two frameworks' logits within 1e-4
 of their scale of each other (``test_torch_models.py``), inside the gaps
 between the top two logits these runs meet.  Tokens, step counts and statistics must
@@ -42,16 +43,20 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture
-def pair(monkeypatch):
+def build_pair(monkeypatch, arch):
     monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(tL, "COMPUTE_DTYPE", torch.float32)
-    jm = jregistry.build_smoke(ARCH)
+    jm = jregistry.build_smoke(arch)
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = tregistry.build_smoke(ARCH, device="cpu")
+    tm = tregistry.build_smoke(arch, device="cpu")
     tp = convert.params_from_reference(jax.tree.map(np.asarray, jp),
                                        tm.cfg, device="cpu")
     return jm, jp, tm, tp
+
+
+@pytest.fixture
+def pair(monkeypatch):
+    return build_pair(monkeypatch, ARCH)
 
 
 def requests(seed, n, vocab):
@@ -78,6 +83,29 @@ def test_server_matches_the_reference_server(pair, policy):
     assert [r.out for r in treqs] == [r.out for r in jreqs]
     assert all(r.done for r in treqs)
     assert all(r is None for r in tsrv.slot_req)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                  "paligemma-3b"])
+def test_server_serves_the_moe_and_vlm_families_as_the_reference(
+        monkeypatch, arch):
+    """The MoE models decode every slot through one routing (idle slots
+    fed token 0 compete for capacity, as in the reference) and paligemma
+    serves text alone, at per-lane positions: the same tokens, steps and
+    statistics as the JAX ``Server``."""
+    jm, jp, tm, tp = build_pair(monkeypatch, arch)
+    reqs = requests(3, 10, tm.cfg.vocab)
+    jsrv = jserving.Server(jm, jp, n_slots=4, max_len=32)
+    tsrv = tserving.Server(tm, tp, n_slots=4, max_len=32)
+    jreqs = [jserving.Request(i, list(p), m) for i, (p, m) in enumerate(reqs)]
+    treqs = [tserving.Request(i, list(p), m) for i, (p, m) in enumerate(reqs)]
+    for srv, rs in ((jsrv, jreqs), (tsrv, treqs)):
+        for r in rs:
+            srv.submit(r)
+    jst, tst = jsrv.run(), tsrv.run()
+    assert dataclasses.asdict(tst) == dataclasses.asdict(jst)
+    assert tst.completed == len(reqs) and all(r.done for r in treqs)
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
 
 
 def test_server_output_equals_unbatched_greedy_and_ooo_beats_naive(pair):
@@ -148,6 +176,15 @@ def test_launcher_serves_the_smoke_model_on_the_cpu(capsys):
     assert stats.completed == 6
     out = capsys.readouterr().out
     assert "policy=naive completed=6" in out and "device=cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "paligemma-3b"])
+def test_launcher_serves_the_moe_and_vlm_smoke_models_on_the_cpu(capsys,
+                                                                 arch):
+    stats = tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--requests", "5", "--slots", "2"])
+    assert stats.completed == 5
+    assert "completed=5" in capsys.readouterr().out
 
 
 def test_launcher_and_server_need_the_card_unless_asked(monkeypatch):

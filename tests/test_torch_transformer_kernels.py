@@ -7,7 +7,8 @@ JAX ops run their Pallas kernels in interpret mode, as
 ``tests/test_kernels_transformer.py`` runs them, at that file's shapes plus
 head dim 128 and GQA 6:1 (Qwen2-1.5B's 12 query heads on 2 KV heads), with
 its tolerances: rmsnorm 1e-5 in float32, 2e-2 in bfloat16; attention
-2e-3.  Unlike that file, q and k are not scaled down: the scores have a
+2e-3; attention also at head dim 256 (paligemma-3b's), causal, non-causal
+and after a prefix (q_offset).  Unlike that file, q and k are not scaled down: the scores have a
 standard deviation of about 1, so each query attends to a few keys and a
 wrong mask or a coarse rounding of the probabilities shows.  The Pallas attention is compared only where its key
 length is at most 128 or a multiple of 128: above 128 and ragged, its last
@@ -99,6 +100,8 @@ def test_rmsnorm_flattens_leading_dims_and_rounds_like_the_reference():
     (1, 2, 2, 128, 128),      # head dim 128
     (1, 12, 2, 128, 128),     # GQA 6:1, Qwen2-1.5B's heads
     (2, 4, 1, 64, 32),        # the smoke model's heads
+    (1, 8, 1, 256, 256),      # paligemma-3b's heads: MQA, head dim 256
+    (2, 2, 2, 128, 256),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_the_pallas_op(b, hq, hkv, t, d, causal):
@@ -107,6 +110,22 @@ def test_flash_attention_matches_the_pallas_op(b, hq, hkv, t, d, causal):
     jv, tv = both(arr(3, b, hkv, t, d))
     got = tops.flash_attention(tq, tk, tv, causal=causal)
     want = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("tq,q_offset", [(128, 128), (256, 256)])
+def test_flash_attention_at_head_dim_256_with_q_offset_matches_the_pallas_op(
+        tq, q_offset):
+    """paligemma-3b's text call: the queries after a prefix of q_offset
+    positions against every key, causal, at head dim 256 (MQA repeated 8
+    times)."""
+    tk = tq + q_offset
+    jq, tq_ = both(arr(11, 1, 8, tq, 256))
+    jk, tk_ = both(arr(12, 1, 1, tk, 256))
+    jv, tv_ = both(arr(13, 1, 1, tk, 256))
+    got = tops.flash_attention(tq_, tk_, tv_, causal=True, q_offset=q_offset)
+    want = jops.flash_attention(jq, jk, jv, causal=True, q_offset=q_offset)
     np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
                                atol=ATTN_TOL)
 
@@ -126,12 +145,12 @@ def test_flash_attention_q_offset_matches_the_pallas_op():
     (200, 200, 0, True), (200, 200, 0, False), (64, 300, 236, True),
     (1, 77, 76, True), (5, 9, 4, True)])
 def test_flash_attention_at_ragged_lengths_matches_the_plain_reference(
-        tq, tk, q_offset, causal):
+        tq, tk, q_offset, causal, d=128):
     """Ragged key lengths (and the decode shape, one query) against the
     JAX plain version, GQA 6:1 at head dim 128."""
-    jq, tq_ = both(arr(7, 1, 12, tq, 128))
-    jk, tk_ = both(arr(8, 1, 2, tk, 128))
-    jv, tv_ = both(arr(9, 1, 2, tk, 128))
+    jq, tq_ = both(arr(7, 1, 12, tq, d))
+    jk, tk_ = both(arr(8, 1, 2, tk, d))
+    jv, tv_ = both(arr(9, 1, 2, tk, d))
     got = tops.flash_attention(tq_, tk_, tv_, causal=causal,
                                q_offset=q_offset)
     want = jref.flash_attention(jq, jnp.repeat(jk, 6, axis=1),
@@ -139,6 +158,17 @@ def test_flash_attention_at_ragged_lengths_matches_the_plain_reference(
                                 q_offset=q_offset)
     np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
                                atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("tq,tk,q_offset,causal", [
+    (200, 300, 100, True), (40, 40, 0, False), (3, 9, 6, True)])
+def test_flash_attention_at_head_dim_256_and_ragged_lengths(tq, tk, q_offset,
+                                                            causal):
+    """Head dim 256 (paligemma-3b's) at ragged lengths against the JAX
+    plain version: a text chunk after a prefix, a prefix alone, a
+    decode-like chunk."""
+    test_flash_attention_at_ragged_lengths_matches_the_plain_reference(
+        tq, tk, q_offset, causal, d=256)
 
 
 def attention_with_p_in_bf16(q, k, v, causal, q_offset):

@@ -16,7 +16,8 @@ synthetic schedules executed); Qwen2-1.5B at full width through
 at full width through ``forward`` and the ``Server``; the scenario server
 ``hts.serve``, static and slice-and-refill, on 4096 requests through 1024
 lanes; the MoE family (olmoe-1b-7b, qwen2-moe-a2.7b) and paligemma-3b's
-prefix-LM attention at full width — then checks them:
+prefix-LM attention at full width; phi3-mini-3.8b at full width (head dim
+96) — then checks them:
 
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
@@ -25,13 +26,15 @@ prefix-LM attention at full width — then checks them:
    ``iir_packed<MT>`` and ``iir_flat<MT>``, K7 ``adaptive_fir_flat<K>``
    (the generic instance ``<0>`` among them), K12
    ``correlation_packed<LT>``, K13 ``fft_kernel<L>``, K14
-   ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP>``, K16
+   ``dct_kernel<C>``, bf16 K15 ``flash_attention_wgmma<DP, NWG>``, K16
    ``rmsnorm_vec<T, VPL>``/``rmsnorm_loop<T, VEC>``, K17's three kernels
    (``wkv6_chunk_state``, ``wkv6_state_passing``, ``wkv6_chunk_scan``)
    and K18's (``ssd_chunk_state``, ``ssd_state_passing``,
    ``ssd_chunk_scan``), and the ``HGMMA`` (tensor-core) instructions in
-   K15's SASS: each bf16 instance (padded head dims 64, 128, 256) must
-   have them, each float32 one (32, 64, 112, 128, 256) none;
+   K15's SASS: each bf16 instance (padded head dim, consumer
+   warpgroups: (64, 2), (96, 2), (128, 2), (256, 1), (256, 2)) must have
+   them, each float32 one (32, 64, 96, 112, 128, 256) none; ptxas's lines
+   on serialised ``wgmma`` in that file are printed;
 2. kernels against plain: for the first 64 trips of the main-path
    population, and 64 trips from the middle of its run, every K1–K4 launch
    of the per-phase loop (``machine.step``) is checked against its plain
@@ -198,11 +201,14 @@ prefix-LM attention at full width — then checks them:
    share are printed;
 12. the MoE family and paligemma-3b, one model on the card at a time,
    random weights from a seed: (a) K15 at head dim 256 against plain
-   (bf16 2e-2, float32 1e-5) at paligemma-3b's two calls a layer at B = 2
-   (the 256-position prefix bidirectional; 1792 text queries against
-   2048 keys, causal from q_offset 256), a causal square 2048 and ragged
-   lengths; the prefix, text and square calls timed in bf16 (device, call
-   and plain ms, bound, SDPA where one call computes the same function);
+   (bf16 2e-2, float32 1e-5; bf16 also through each of its two
+   instances, one consumer warpgroup and two) at paligemma-3b's two calls
+   a layer at B = 2 (the 256-position prefix bidirectional; 1792 text
+   queries against 2048 keys, causal from q_offset 256), a causal square
+   2048 and ragged lengths; the prefix, text, square and ragged calls
+   timed in bf16 through each instance, the one the wrapper takes named
+   (device, call and plain ms, bound, SDPA where one call computes the
+   same function), with each instance's registers and spills;
    (b) olmoe-1b-7b (16 layers, d_model 2048, 64 experts of 1024, top-8):
    prefill 4 x 2048 and 32 greedy decode steps in bf16 (16 K15 and 33 K16
    launches a prefill, 33 K16 a step; tokens/s, peak memory, the
@@ -222,6 +228,17 @@ prefix-LM attention at full width — then checks them:
    fail it; olmoe at 1 x 2048, qwen2-moe at 4 of its layers, both with
    their weight matrices drawn at 1/sqrt(input width) (their reading at
    the reference's draw, chaotic in float32, printed beside);
+13. phi3-mini-3.8b (32 layers, d_model 3072, 32 heads of 96, d_ff 8192,
+   vocab 32064) with random weights from a seed: (a) K15 at head dim 96
+   against plain (bf16 2e-2, float32 1e-5) at the prefill shape (128 ×
+   2048², causal), a ragged Tk, a chunk at q_offset 1000 and Tq = 5; the
+   prefill shape timed in bf16 beside its bound and SDPA, with the
+   instance's registers; (b) prefill of 4 x 2048 and 32
+   greedy decode steps in bf16 (32 K15 and 65 K16 launches a prefill, 65
+   K16 a step; tokens/s, peak memory, the prefill's device time split),
+   then the float32 gate (every position of the prefill and each decode
+   step, kernels against plain within ``FP32_LOGIT_TOL``, the control
+   failing it; plain on the embedding one ulp up printed beside);
 5b. kernel times: device, call, plain and library times of the DSP
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
    ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
@@ -233,7 +250,9 @@ prefix-LM attention at full width — then checks them:
    generic instance), beside the bound (with the second
    array x itself, x read once; the bound reading it twice beside it);
    K15's row also carries 12a's head-dim-256 times (``*_d256_prefix``,
-   ``*_d256_text``, ``*_d256_square``, ``*_d256_ragged``).  ``--only
+   ``*_d256_text``, ``*_d256_square``, ``*_d256_ragged``, each instance's
+   as ``ms_<instance>_d256_*``) and 13a's head-dim-96 ones
+   (``*_d96_prefill``).  ``--only
    5b`` times them all on their own (launches are counted only on the
    paths that ran).
 
@@ -246,8 +265,8 @@ build, the main path's set-up and the phases whose names start with a
 prefix (``--only 2c``: ``hts_run`` against the per-phase loop; ``--only
 3``: the main path; ``--only 9 "5b transformer"``: the dense model path;
 ``--only 10``: the ssm and hybrid families; ``--only 11``: the scenario
-server; ``--only 12``: the MoE family and paligemma-3b) and prints no
-kernels line.
+server; ``--only 12``: the MoE family and paligemma-3b; ``--only 13``:
+phi3-mini-3.8b) and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -450,6 +469,9 @@ TF_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:24",
 #: widths; K17 and K18 launch three each (``SPLIT_KERNELS``)
 TF_KERNEL = {"flash_attention": "flash_attention_wgmma",
              "rmsnorm": "rmsnorm_vec"}
+#: bf16 K15's instances (padded head dim, consumer warpgroups), as phase 1
+#: finds them in the SASS
+K15_BF16 = ((64, 2), (96, 2), (128, 2), (256, 1), (256, 2))
 #: the kernels K17 and K18 each launch once a call, whose times 5b sums
 SPLIT_KERNELS = {
     "wkv6": ("wkv6_chunk_state", "wkv6_state_passing", "wkv6_chunk_scan"),
@@ -519,7 +541,7 @@ RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
 #: bfloat16 (9b, prefill and every decode step)
 FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2,
                   "olmoe-1b-7b": 1e-4, "qwen2-moe-a2.7b": 1e-4,
-                  "paligemma-3b": 1e-2}
+                  "paligemma-3b": 1e-2, "phi3-mini-3.8b": 1e-2}
 #: the archs whose float32 gate (12b, 12c) draws the layers' weight
 #: matrices at 1/sqrt(their input width) (``scale_to_width``): at the
 #: reference's draw (a stacked leaf's fan-in is its layer count) these MoE
@@ -565,6 +587,20 @@ QMOE_B, QMOE_T, QMOE_GATE_LAYERS = 2, 1024, 4
 #: into a 2064-position cache, then 16 decode steps; the float32 gate the
 #: same
 VLM_B, VLM_TEXT, VLM_MAX_LEN, VLM_DECODE_STEPS = 2, 1792, 2064, 16
+
+# phi3-mini-3.8b (phase 13): K15 at head dim 96 and K16 in its path
+PHI3_ARCH = "phi3-mini-3.8b"
+#: K15 at head dim 96, (BH, Tq, Tk, D, causal, q_offset): phi3's prefill at
+#: B = 4 (32 heads of 96, no GQA), a ragged Tk (no multiple of the
+#: 128-key stage), a chunk of 300 queries after 1000 cached positions, a
+#: chunk of five (Tq < 8)
+ATTN_96_CASES = [(128, 2048, 2048, 96, True, 0),
+                 (32, 1000, 1300, 96, False, 0),
+                 (32, 300, 1300, 96, True, 1000),
+                 (32, 5, 777, 96, True, 772)]
+#: phi3's prefill of 4 x 2048 into a 2080-position cache, then 32 greedy
+#: decode steps; the float32 gate the same, the bf16 weights freed first
+PHI3_B, PHI3_T, PHI3_MAX_LEN, PHI3_DECODE_STEPS = 4, 2048, 2080, 32
 
 
 def log(*a):
@@ -1078,10 +1114,10 @@ MANGLED = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
 def ptxas_facts(report: str, pattern: str, label: str) -> dict:
-    """Registers and spill bytes of each kernel whose mangled name matches
-    ``pattern`` (a group a template argument) in a ``-Xptxas -v``
-    report, as ``{"label<args>": {"registers", "spill_stores",
-    "spill_loads"}}``."""
+    """Registers, stack frame and spill bytes of each kernel whose mangled
+    name matches ``pattern`` (a group a template argument) in a ``-Xptxas
+    -v`` report, as ``{"label<args>": {"registers", "stack_frame",
+    "spill_stores", "spill_loads"}}``."""
     facts: dict = {}
     name = None
     for line in report.splitlines():
@@ -1095,11 +1131,12 @@ def ptxas_facts(report: str, pattern: str, label: str) -> dict:
             continue
         if name is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            facts.setdefault(name, {}).update(spill_stores=int(m.group(1)),
-                                              spill_loads=int(m.group(2)))
+            facts.setdefault(name, {}).update(stack_frame=int(m.group(1)),
+                                              spill_stores=int(m.group(2)),
+                                              spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             facts.setdefault(name, {})["registers"] = int(m.group(1))
@@ -1108,8 +1145,8 @@ def ptxas_facts(report: str, pattern: str, label: str) -> dict:
 
 def sass_counts(lib_path, opcode: str, patterns: dict) -> dict:
     """How many ``opcode`` instructions ``cuobjdump -sass`` shows in each
-    function of a built library whose mangled name matches a pattern (one
-    group: its template argument), as ``{"label<arg>": count}``."""
+    function of a built library whose mangled name matches a pattern (a
+    group a template argument), as ``{"label<args>": count}``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
@@ -1122,7 +1159,7 @@ def sass_counts(lib_path, opcode: str, patterns: dict) -> dict:
             for pattern, label in patterns.items():
                 t = re.search(pattern, m.group(1))
                 if t:
-                    name = f"{label}<{t.group(1)}>"
+                    name = f"{label}<{', '.join(t.groups())}>"
                     counts.setdefault(name, 0)
             continue
         if name and re.search(rf"\b{opcode}\b", line):
@@ -1523,7 +1560,8 @@ def main(argv=None) -> int:
                  "hts_run_kernel"),
                 ("fft", dsp.LIB, r"fft_kernelILi(\d+)E", "fft_kernel"),
                 ("dct", dsp.LIB, r"dct_kernelILi(\d+)E", "dct_kernel"),
-                ("flash_attention", tf, r"flash_attention_wgmmaILi(\d+)E",
+                ("flash_attention", tf,
+                 r"flash_attention_wgmmaILi(\d+)ELi(\d+)E",
                  "flash_attention_wgmma"),
                 ("rmsnorm", tf, rf"rmsnorm_vecI{dt}Li(\d+)E", "rmsnorm_vec"),
                 ("rmsnorm", tf, rf"rmsnorm_loopI{dt}Lb([01])E",
@@ -1564,15 +1602,25 @@ def main(argv=None) -> int:
                    and (f.get("spill_stores") or f.get("spill_loads"))}
         assert not spilled, f"K8's packed kernel spills: {spilled}"
         hgmma = sass_counts(tf.build(), "HGMMA", {
-            r"flash_attention_wgmmaILi(\d+)E": "flash_attention_wgmma",
+            r"flash_attention_wgmmaILi(\d+)ELi(\d+)E": "flash_attention_wgmma",
             r"flash_attention_kernelILi(\d+)E": "flash_attention_kernel"})
         facts["flash_attention"]["hgmma"] = hgmma
         log(f"HGMMA instructions in the SASS of K15: {hgmma}")
         bf16 = {k: n for k, n in hgmma.items() if "wgmma" in k}
         fp32 = {k: n for k, n in hgmma.items() if "wgmma" not in k}
-        assert len(bf16) == 3 and all(bf16.values()), \
+        assert sorted(bf16) == sorted(
+            f"flash_attention_wgmma<{dp}, {nwg}>" for dp, nwg in K15_BF16) \
+            and all(bf16.values()), \
             f"bf16 K15 without tensor-core instructions: {bf16}"
-        assert len(fp32) == 5 and not any(fp32.values()), fp32
+        assert len(fp32) == 6 and not any(fp32.values()), fp32
+        # ptxas says where it serialises wgmma (a pipeline it cannot keep
+        # asynchronous): the K15 instances should have no such line
+        if tf.info:
+            serial = [ln.strip() for ln in tf.info["ptxas"].splitlines()
+                      if "wgmma" in ln and "serialized" in ln]
+            facts["flash_attention"]["wgmma_serialized"] = serial
+            log(f"ptxas lines on serialised wgmma in transformer.cu: "
+                f"{serial or 'none'}")
     phase("1 ptxas of hts_run, K5, K7, K8, K12-K18, SASS of K15",
           build_facts)
 
@@ -2391,13 +2439,15 @@ def main(argv=None) -> int:
     kernels = dict(attention=attention, rmsnorm=rmsnorm, rwkv6=rwkv6,
                    mamba2=mamba2)
 
-    def tf_check(name, shape, dt, seed):
-        """One K15 or K16 call against its plain version."""
+    def tf_check(name, shape, dt, seed, instance=None):
+        """One K15 or K16 call against its plain version (K15 through the
+        bf16 ``instance`` named, if any)."""
         args = tf_case(torch, name, shape, getattr(torch, dt), seed)
         if name == "flash_attention":
             q, k, v, causal, q_offset = args
             got = attention.flash_attention(q, k, v, causal=causal,
-                                            q_offset=q_offset)
+                                            q_offset=q_offset,
+                                            instance=instance)
             want = ref.flash_attention(
                 q[:, None], k[:, None], v[:, None], causal=causal,
                 q_offset=q_offset)[:, 0]
@@ -2414,8 +2464,26 @@ def main(argv=None) -> int:
         assert torch.allclose(got.float(), want.float(), rtol=tol,
                               atol=tol), \
             f"{name} {shape} {dt}: max abs err {err:.3g} > {tol}"
+        via = "" if instance is None else f" ({instance})"
         log(f"{name:15s} {str(shape):34s} {dt:8s} max abs err "
-            f"{err:.3g} (rtol = atol = {tol})")
+            f"{err:.3g} (rtol = atol = {tol}){via}")
+
+    def k15_instances(q, k, v, kw, names):
+        """Device ms a launch (profiler) and ms a call (events) of bf16
+        K15 through each instance of ``names`` on one input."""
+        out = {}
+        for inst in names:
+            calls = [functools.partial(attention.flash_attention, q, k, v,
+                                       instance=inst, **kw)] * 23
+            out[inst] = (profiled_ms(torch, calls, TF_KERNEL[
+                "flash_attention"]), events_ms(torch, calls))
+        return out
+
+    def k15_regs(dp, nwg):
+        """ptxas's registers, stack frame and spills of bf16 K15's (dp,
+        nwg) instance, from phase 1 (empty on a cached build)."""
+        return facts.get("flash_attention", {}).get("ptxas", {}).get(
+            f"flash_attention_wgmma<{dp}, {nwg}>", {})
 
     def tf_vs_plain():
         cases = [("flash_attention", c) for c in ATTN_CASES]
@@ -3150,26 +3218,32 @@ def main(argv=None) -> int:
 
     # 12. the MoE family and paligemma-3b's prefix-LM attention ------------
     def attn_256():
-        """K15 at head dim 256 against plain (bf16 and float32) at
-        paligemma-3b's call shapes and ragged ones; then the prefix, text,
-        square and a ragged causal shape timed in bf16 beside their bound
-        and SDPA (every timed shape is one SDPA call)."""
+        """K15 at head dim 256 against plain (bf16 and float32; bf16 also
+        through each of its two instances) at paligemma-3b's call shapes
+        and ragged ones; then the prefix, text, square and a ragged causal
+        shape timed in bf16, through each instance and the one the
+        wrapper chooses, beside their bound and SDPA (every timed shape is
+        one SDPA call)."""
         F = torch.nn.functional
         from torch.nn.attention.bias import causal_lower_right
+        names = tuple(attention.INSTANCES[256])
         for i, shape in enumerate(ATTN_256_CASES):
             for dt in ("bfloat16", "float32"):
                 tf_check("flash_attention", shape, dt, 900 + i)
-        kname = TF_KERNEL["flash_attention"]
+            for inst in names:
+                tf_check("flash_attention", shape, "bfloat16", 900 + i, inst)
+        for inst, (dp, nwg) in zip(names, ((256, 1), (256, 2))):
+            log(f"K15 D 256 {inst}: flash_attention_wgmma<{dp}, {nwg}>, "
+                f"ptxas {k15_regs(dp, nwg) or 'not reported (cached)'}")
         times: dict = {}
         for label, i in ATTN_256_TIMED.items():
             shape = ATTN_256_CASES[i]
             q, k, v, causal, q_offset = tf_case(
                 torch, "flash_attention", shape, torch.bfloat16, 950 + i)
             kw = dict(causal=causal, q_offset=q_offset)
-            calls = [functools.partial(attention.flash_attention, q, k, v,
-                                       **kw)] * 23
-            dev = profiled_ms(torch, calls, kname)
-            call = events_ms(torch, calls)
+            chosen = attention.d256_instance(shape[0], shape[1], q.device)
+            by_inst = k15_instances(q, k, v, kw, names)
+            dev, call = by_inst[chosen]
             plain = events_ms(torch, [functools.partial(
                 plain_attention, ref, q, k, v, **kw)] * 8)
             bound, by, _ = tf_bound("flash_attention",
@@ -3187,17 +3261,23 @@ def main(argv=None) -> int:
                                         k4, v4, attn_mask=mask)] * 23
                 lib = events_ms(torch, lc)
                 lib_dev = profiled_call_ms(torch, lc)
-            times[label] = dict(shape=list(shape), ms=dev, call_ms=call,
-                                plain_ms=plain, bound_ms=bound, bound_by=by,
-                                library_ms=lib, library_device_ms=lib_dev)
-            ratio = "" if dev is None else f", {dev / bound:.2f}x it"
+            times[label] = dict(shape=list(shape), instance=chosen, ms=dev,
+                                call_ms=call, plain_ms=plain, bound_ms=bound,
+                                bound_by=by, library_ms=lib,
+                                library_device_ms=lib_dev)
+            for inst, (d_ms, c_ms) in by_inst.items():
+                times[label].update({f"ms_{inst}": d_ms,
+                                     f"call_ms_{inst}": c_ms})
             sdpa = ("none (no single call)" if lib is None else
                     f"{lib:.4f} ms a call ({lib_dev} ms on the device)")
-            log(f"K15 D 256 {label:6s} {shape} bf16: kernel "
-                f"{'not measured' if dev is None else f'{dev:.4f} ms'} on "
-                f"the device, {call:.4f} ms a call, plain {plain:.4f} ms, "
-                f"bound {bound:.4f} ms ({by}{ratio}), SDPA {sdpa}  on "
-                f"{card}")
+            each = "; ".join(
+                f"{inst} {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}"
+                f" on the device ({'-' if d_ms is None else f'{d_ms / bound:.2f}x'}"
+                f" the bound), {c_ms:.4f} ms a call"
+                for inst, (d_ms, c_ms) in by_inst.items())
+            log(f"K15 D 256 {label:6s} {shape} bf16: {each}; the wrapper "
+                f"takes {chosen}; plain {plain:.4f} ms, bound {bound:.4f} ms "
+                f"({by}), SDPA {sdpa}  on {card}")
         ctx["d256"] = times
 
     def build12(arch, n_layers=None):
@@ -3224,7 +3304,9 @@ def main(argv=None) -> int:
         ffn = (f"{m.num_experts} experts (padded to "
                f"{transformer.padded_experts(m.num_experts)}) of width "
                f"{m.d_expert}, top-{m.top_k}, {m.num_shared} shared"
-               if m else f"d_ff {cfg.d_ff}, a prefix of {cfg.prefix_len}")
+               if m else f"d_ff {cfg.d_ff}" + (
+                   f", a prefix of {cfg.prefix_len}" if cfg.prefix_len
+                   else ""))
         log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
             f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
             f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}: "
@@ -3265,7 +3347,7 @@ def main(argv=None) -> int:
                     counts=dict(tlib.launches), routes=routes,
                     aux=float(aux))
 
-    def fp32_gate(model, run):
+    def fp32_gate(model, run, witness=False):
         """The float32 gate: the model drawn again in float32 (the same
         seed's draws, unrounded; for WIDTH_DRAW_GATES, after the kernels,
         and plain on the embedding one ulp up, are compared with plain at
@@ -3276,7 +3358,9 @@ def main(argv=None) -> int:
         is discrete, and one flipped expert moves a token by its gate; the
         kernels' free-running routing and logits are printed beside, not
         gated).  The kernels within FP32_LOGIT_TOL of plain, the control
-        past it."""
+        past it.  ``witness``: plain on the embedding one ulp up is
+        compared with plain and printed (how far one ulp anywhere carries
+        at this draw; not gated)."""
         arch = model.cfg.name
         tol = FP32_LOGIT_TOL[arch]
         saved = layers.COMPUTE_DTYPE
@@ -3311,6 +3395,15 @@ def main(argv=None) -> int:
                 del rp, rk, rn, rnf
                 scale_to_width(p32["layers"], model.cfg.n_layers)
             pl = run(p32, True)
+            if witness:
+                emb = p32["embed"]
+                p32["embed"] = torch.nextafter(emb, emb.new_tensor(math.inf))
+                rw = run(p32, True)
+                p32["embed"] = emb
+                logit_errors(f"{arch} fp32 logits, plain on the embedding one "
+                             "ulp up vs plain (the witness; not gated)", rw,
+                             pl)
+                del rw
             free = run(p32, False) if model.cfg.moe else None
             with force_routing(transformer, pl["routes"]) as flips:
                 k = run(p32, False)
@@ -3534,6 +3627,65 @@ def main(argv=None) -> int:
                      ("12d paligemma-3b at full width", paligemma)):
         phase(name, fn)
         torch.cuda.empty_cache()            # one model on the card at a time
+
+    # 13. phi3-mini-3.8b: K15 at head dim 96 -------------------------------
+    def attn_96():
+        """K15 at head dim 96 against plain (bf16 and float32) at phi3's
+        prefill shape, a ragged Tk, a q_offset chunk and Tq < 8; then the
+        prefill shape timed in bf16 beside its bound and SDPA."""
+        F = torch.nn.functional
+        for i, shape in enumerate(ATTN_96_CASES):
+            for dt in ("bfloat16", "float32"):
+                tf_check("flash_attention", shape, dt, 1300 + i)
+        log(f"K15 D 96: flash_attention_wgmma<96, 2>, ptxas "
+            f"{k15_regs(96, 2) or 'not reported (cached)'}")
+        shape = ATTN_96_CASES[0]
+        q, k, v, causal, q_offset = tf_case(torch, "flash_attention", shape,
+                                            torch.bfloat16, 1350)
+        kw = dict(causal=causal, q_offset=q_offset)
+        calls = [functools.partial(attention.flash_attention, q, k, v,
+                                   **kw)] * 23
+        dev = profiled_ms(torch, calls, TF_KERNEL["flash_attention"])
+        call = events_ms(torch, calls)
+        plain = events_ms(torch, [functools.partial(
+            plain_attention, ref, q, k, v, **kw)] * 8)
+        bound, by, _ = tf_bound("flash_attention", (q, k, v, causal,
+                                                    q_offset))
+        # SDPA on phi3's layout, (B, H, T, D), causal: the same function
+        q4, k4, v4 = (t.view(PHI3_B, t.shape[0] // PHI3_B, *t.shape[1:])
+                      for t in (q, k, v))
+        lc = [functools.partial(F.scaled_dot_product_attention, q4, k4, v4,
+                                is_causal=True)] * 23
+        lib, lib_dev = events_ms(torch, lc), profiled_call_ms(torch, lc)
+        ctx["d96"] = dict(shape=list(shape), ms=dev, call_ms=call,
+                          plain_ms=plain, bound_ms=bound, bound_by=by,
+                          library_ms=lib, library_device_ms=lib_dev)
+        ratio = "" if dev is None else f", {dev / bound:.2f}x it"
+        log(f"K15 D 96 prefill {shape} bf16: kernel "
+            f"{'not measured' if dev is None else f'{dev:.4f} ms'} on the "
+            f"device, {call:.4f} ms a call, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}{ratio}), SDPA {lib:.4f} ms a call "
+            f"({lib_dev} ms on the device)  on {card}")
+
+    def phi3():
+        """phi3-mini-3.8b at full width and depth: prefill 4 x 2048 and 32
+        greedy decode steps in bf16 (32 K15 and 65 K16 launches a prefill,
+        65 K16 a step), its time split traced; then the float32 gate on
+        the same tokens, the bf16 weights freed first, with the one-ulp
+        witness printed."""
+        model, params = model12(PHI3_ARCH)
+        assert model.cfg.head_dim == 96, model.cfg.head_dim
+        tok = tokens12(model.cfg.vocab, PHI3_B, PHI3_T)
+        prefill12(model, params, tok, PHI3_MAX_LEN, PHI3_DECODE_STEPS)
+        del params
+        feeds: list = []
+        fp32_gate(model, lambda p, on, **swap: drive(
+            model, p, tok, feeds, on=on, max_len=PHI3_MAX_LEN,
+            steps=PHI3_DECODE_STEPS, full=True, **swap), witness=True)
+
+    phase("13a K15 at head dim 96 vs plain", attn_96)
+    phase("13b phi3-mini-3.8b at full width", phi3)
+    torch.cuda.empty_cache()
 
     # 5b. DSP kernel times at each path's shape -----------------------------
     def extra_times(row, name, wrapper, plain, i):
@@ -3780,6 +3932,15 @@ def main(argv=None) -> int:
                           f"{row['call_ms_d112']:.4f} ms per call, library "
                           f"{row['library_ms_d112']:.4f} ms ({lib_name}), "
                           f"bound {row['bound_ms_d112']:.4f} ms")
+            if name == "flash_attention" and "d96" in ctx:
+                # phi3-mini-3.8b's prefill at head dim 96 (13a)
+                t = ctx["d96"]
+                row.update({f"{k}_d96_prefill": v for k, v in t.items()})
+                extra += (f"; D 96 prefill {t['shape']}: "
+                          f"kernel {t['ms']} ms on the device, "
+                          f"{t['call_ms']:.4f} ms a call, bound "
+                          f"{t['bound_ms']:.4f} ms, SDPA "
+                          f"{t['library_ms']:.4f} ms")
             if name == "flash_attention" and "d256" in ctx:
                 # paligemma-3b's calls at head dim 256 (12a), by label
                 for label, t in ctx["d256"].items():

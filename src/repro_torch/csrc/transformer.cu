@@ -243,7 +243,9 @@ int launch_rmsnorm(int R, int D, float eps, const void* x, const void* w,
 // Bound: at the model's prefill shape (BH = 48, T = 2048, D = 128, causal)
 // 51.6 GFLOP against 100.7 MB: operations; at paligemma-3b's text call
 // (BH = 16, Tq = 1792 after a 256-position prefix, Tk = 2048, D = 256,
-// causal) 33.8 GFLOP against 58.7 MB.  Head dims 32, 64, 112, 128 and 256.
+// causal) 33.8 GFLOP against 58.7 MB; at phi3-mini-3.8b's (BH = 128, T =
+// 2048, D = 96, causal) 103.1 GFLOP against 201.3 MB.  Head dims 32, 64,
+// 96, 112, 128 and 256.
 // Two kernels, by dtype:
 // bfloat16 runs flash_attention_wgmma on the tensor cores (below);
 // float32 runs flash_attention_kernel on the CUDA cores (67 TFLOP/s),
@@ -436,6 +438,9 @@ int attention_f32(int BH, int Tq, int Tk, int D, int causal, int q_offset,
     case 64:
       return launch_attention<64>(BH, Tq, Tk, causal, q_offset, scale, q, k,
                                   v, o, stream);
+    case 96:    // phi3-mini-3.8b: 58752 bytes of shared memory
+      return launch_attention<96>(BH, Tq, Tk, causal, q_offset, scale, q, k,
+                                  v, o, stream);
     case 112:   // zamba2-7b: d_model 3584 over 32 heads
       return launch_attention<112>(BH, Tq, Tk, causal, q_offset, scale, q, k,
                                    v, o, stream);
@@ -453,16 +458,16 @@ int attention_f32(int BH, int Tq, int Tk, int D, int causal, int q_offset,
 // ---------------------------------------------------------------------------
 // flash_attention_wgmma (bfloat16): the same online softmax on Hopper's
 // tensor cores.  One CTA a (head-batch, block of BQ query rows): NWG
-// consumer warpgroups of 64 rows each and one producer warp (FwShape: at
-// padded head dims DP 64 and 128 two warpgroups, BQ = 128, K/V stages of
-// BK = 128 keys, three stages; at DP 256 below).
+// consumer warpgroups of 64 rows each and a producer (FwShape<DP, NWG>, DP
+// the padded head dim; the instances below).
 //  - The producer's lane 0 issues TMA loads (tensor maps over (D, T, BH),
 //    so rows past T and columns past D arrive as zeros and nothing past an
 //    input is read) of Q once and of K and V blocks of BK keys into a
 //    STAGES-deep ring, each stage with a full and a free mbarrier for K
-//    and for V.  Tiles are stored as 64-column sub-tiles in the 128-byte
-//    swizzle that wgmma reads; head dims 32 and 112 are zero-padded to DP
-//    = 64 and 128 by the TMA box.
+//    and for V.  Tiles are stored as sub-tiles of SUBC columns in the
+//    swizzle that wgmma reads (64 columns in 128-byte rows; 32 columns in
+//    64-byte rows at DP 96); head dims 32 and 112 are zero-padded to DP =
+//    64 and 128 by the TMA box.
 //  - S = Q K^T: wgmma m64n{BK}k16 with both operands in shared memory
 //    (K-major), float32 accumulators (BK / 2 a thread).
 //  - The softmax runs on those registers in the log2 domain (scale folded
@@ -473,36 +478,67 @@ int attention_f32(int BH, int Tq, int Tk, int D, int causal, int q_offset,
 //  - O += P V: wgmma m64n{DP}k16 (at DP 256 two m64n128k16 halves), A
 //    from registers, V read MN-major from its [key][d] tile (no transpose
 //    pass).
-//  - With two warpgroups they take turns issuing S = Q K^T (named
-//    barriers 1 and 2), so one's softmax overlaps the other's products.
-// DP 256 (paligemma-3b): the DP 128 shape does not fit the SM.  Q would
-// take 64 KB and each 128-key K or V stage 64 KB (448 KB for three
-// stages), and O 128 float32 accumulators a thread against the 227
-// registers a thread of 288 may hold.  So one consumer warpgroup of 64
-// query rows (160 threads, so up to 255 registers a thread: O's 128, S's
-// 32, P's 16 packed), stages of BK = 64 keys (S = Q K^T on m64n64k16, K's
-// 256 columns as 16 k-steps over four swizzled sub-tiles), three stages:
-// 32 KB of Q and 192 KB of K and V, 225 KB with the barriers and the
-// alignment pad, one CTA an SM.  The warpgroup's softmax does not overlap
-// its own products (a redesign's lever: a second warpgroup, setmaxnreg).
 // Rounding P to bfloat16 moves each weight by at most 2^-9 relative, so
 // the output by at most 2^-9 max |v| (PERF.md, the tier-1 test of it).
+//
+// The instances (DP, NWG):
+//  - (64, 2) and (128, 2), head dims 32, 64 and 112, 128: BQ = 128, K/V
+//    stages of BK = 128 keys, three stages, a producer warp (288
+//    threads).  The two warpgroups take turns issuing S = Q K^T (named
+//    barriers 1 and 2), so one's softmax overlaps the other's products.
+//  - (96, 2), head dim 96 (phi3-mini-3.8b): the same schedule on
+//    32-column sub-tiles in the 64-byte swizzle (TMA boxes of 32
+//    columns), so S takes six k16 steps and O += P V one m64n96k16, 3/4
+//    of the products of head dim 96 zero-padded through (128, 2), which
+//    it beats (PERF.md §6); 24 KB of Q, 144 KB of K and V.
+//  - (256, 1), head dim 256 (paligemma-3b) on grids under one wave of
+//    (256, 2)'s CTAs (its prefix call): the DP 128 shape does not fit the
+//    SM at DP 256 (64 KB of Q, 448 KB of 128-key stages, 128 O registers
+//    a thread against the 227 a thread of 288 may hold).  One consumer
+//    warpgroup of 64 query rows (160 threads, so up to 255 registers a
+//    thread: O's 128, S's 32, P's 16 packed), stages of BK = 64 keys (S
+//    on m64n64k16, K's 256 columns as 16 k-steps over four sub-tiles),
+//    three stages: 32 KB of Q and 192 KB of K and V, 225 KB with the
+//    barriers and the alignment pad.  Its softmax does not overlap its
+//    own products.
+//  - (256, 2), head dim 256 on larger grids: two consumer warpgroups (BQ
+//    = 128) and a producer warpgroup, 384 threads.  At that launch bound a
+//    thread may hold 168 registers; the producer keeps 24 (setmaxnreg.dec)
+//    and the consumers take 240 (setmaxnreg.inc): 128 * 24 + 256 * 240 =
+//    64512 of the SM's 65536.  64 KB of Q and two stages of 64 keys (128
+//    KB), 193 KB.  Ping-pong in FlashAttention-3's order (fw_section): in
+//    its turn (named barriers 1 and 2) a warpgroup issues S = Q K^T of
+//    block n and O += P V of block n - 1, then runs block n's softmax
+//    while its P V and the other warpgroup's products hold the tensor
+//    cores.  A K and V block serves 128 query rows, so a product reads
+//    half the shared-memory and L2 bytes of the (256, 1) instance's.
+//    Measured against the alternatives (PERF.md §6): a section that waits
+//    for both products before the softmax, stages of 80 keys, and no
+//    turns are each slower; so is this schedule at head dim 96, and two
+//    warpgroups splitting the key blocks of 64 rows on small grids.
 // ---------------------------------------------------------------------------
-constexpr int FW_SUB = 64 * 2;           // bytes a swizzled sub-tile row
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DP>                        // padded head dim: 64, 128 or 256
+template <int DP, int NWG>               // padded head dim, warpgroups
 struct FwShape {
-  static constexpr int NWG = DP <= 128 ? 2 : 1;   // consumer warpgroups
-  static constexpr int BQ = 64 * NWG;             // query rows a CTA
-  static constexpr int BK = DP <= 128 ? 128 : 64; // keys a ring stage
-  static constexpr int STAGES = 3;
-  static constexpr int THREADS = 128 * NWG + 32;  // and a producer warp
+  static constexpr int SUBC = DP == 96 ? 32 : 64;  // columns a sub-tile
+  static constexpr int ROW = 2 * SUBC;   // a sub-tile row's bytes (its swizzle)
+  static constexpr int NSUB = DP / SUBC;
+  static constexpr bool PINGPONG = DP == 256 && NWG == 2;
+  static constexpr int BQ = 64 * NWG;              // query rows a CTA
+  static constexpr int BK = DP <= 128 ? 128 : 64;  // keys a ring stage
+  static constexpr int STAGES = PINGPONG ? 2 : 3;
+  static constexpr int PRODUCER = PINGPONG ? 128 : 32;   // its threads
+  static constexpr int THREADS = 128 * NWG + PRODUCER;
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // setmaxnreg
 };
+static_assert(128 * FwShape<256, 2>::PRODUCER_REGS +
+                  256 * FwShape<256, 2>::CONSUMER_REGS <= 65536,
+              "K15 (256, 2) past the SM's registers");
 
-template <int DP>
+template <int DP, int NWG>
 struct FwLayout {
-  using S = FwShape<DP>;
+  using S = FwShape<DP, NWG>;
   static constexpr uint32_t Q_BYTES = S::BQ * DP * 2;
   static constexpr uint32_t KV_BYTES = S::BK * DP * 2;
   static constexpr size_t K_OFF = Q_BYTES;
@@ -511,7 +547,9 @@ struct FwLayout {
   // q_full, then k_full, v_full, k_free, v_free a stage; + 1024 to align
   static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 4 * S::STAGES) + 1024;
 };
-static_assert(FwLayout<256>::BYTES <= 232448, "K15 DP 256 past 227 KB");
+static_assert(FwLayout<128, 2>::BYTES <= 232448, "K15 (128, 2) past 227 KB");
+static_assert(FwLayout<256, 1>::BYTES <= 232448, "K15 (256, 1) past 227 KB");
+static_assert(FwLayout<256, 2>::BYTES <= 232448, "K15 (256, 2) past 227 KB");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -562,14 +600,29 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
-// a wgmma shared-memory matrix descriptor, 128-byte swizzle; offsets in
-// bytes (LBO: between 64-element swizzle atoms along M/N for MN-major
-// operands, unused for K-major ones; SBO: between 8-row groups)
+// a wgmma shared-memory matrix descriptor for sub-tiles of ROW-byte rows
+// in the ROW-byte swizzle (128 or 64); offsets in bytes (LBO: between
+// swizzle atoms along M/N for MN-major operands, unused for K-major ones;
+// SBO: between 8-row groups)
+template <int ROW>
 __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo) {
+  static_assert(ROW == 128 || ROW == 64, "a 128- or 64-byte swizzle");
+  constexpr uint64_t layout = ROW == 128 ? 1 : 2;
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         ((uint64_t)1 << 62);
+         (layout << 62);
+}
+
+// a warpgroup's registers a thread, set for the rest of the kernel (all
+// four warps execute it; sm_90a)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -581,12 +634,23 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// until at most the last committed group is in flight
+__device__ __forceinline__ void wg_wait_but_last() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 // keeps the compiler from moving accesses of wgmma's registers across the
 // asynchronous instruction and its wait
 template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// the same for a register A operand, which wgmma reads asynchronously: it
+// keeps the registers from other use until the product is waited for
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // 2^x on the special-function unit (max relative error 2^-22, far below
@@ -604,8 +668,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // the wgmma shapes K15 issues: S = Q K^T (both operands in shared memory,
 // K-major; accumulate = 0 overwrites d; n128, or n64 at DP 256) and O +=
-// P V (P from registers, V MN-major; n64 or n128), float32 accumulators
-// in the fragment layout
+// P V (P from registers, V MN-major; n64, n96 or n128), float32
+// accumulators in the fragment layout
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -722,6 +786,34 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // S = Q K^T for one k-step over a K stage of BK keys
 template <int BK>
@@ -732,33 +824,166 @@ __device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db,
 }
 
 // O += P V for one k-step of 16 keys; v points at the step's first key
-// row of sub-tile 0, the sub-tiles (64 columns each) BK * FW_SUB bytes
+// row of sub-tile 0, the sub-tiles (64 columns, or 32 at DP 96) BK rows
 // apart
 template <int DP, int BK>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
                                          const uint8_t* v) {
-  constexpr uint32_t LBO = BK * FW_SUB;
+  constexpr uint32_t ROW = DP == 96 ? 64 : 128, LBO = BK * ROW, SBO = 8 * ROW;
   if constexpr (DP == 256) {
-    wgmma_rs_n128(d, a, gmma_desc(v, LBO, 1024));
-    wgmma_rs_n128(d + 64, a, gmma_desc(v + 2 * LBO, LBO, 1024));
+    wgmma_rs_n128(d, a, gmma_desc<ROW>(v, LBO, SBO));
+    wgmma_rs_n128(d + 64, a, gmma_desc<ROW>(v + 2 * LBO, LBO, SBO));
   } else if constexpr (DP == 128) {
-    wgmma_rs_n128(d, a, gmma_desc(v, LBO, 1024));
+    wgmma_rs_n128(d, a, gmma_desc<ROW>(v, LBO, SBO));
+  } else if constexpr (DP == 96) {
+    wgmma_rs_n96(d, a, gmma_desc<ROW>(v, LBO, SBO));
   } else {
-    wgmma_rs_n64(d, a, gmma_desc(v, LBO, 1024));
+    wgmma_rs_n64(d, a, gmma_desc<ROW>(v, LBO, SBO));
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(FwShape<DP>::THREADS, 1)
+// what a consumer's softmax needs to know of its rows and the call
+struct FwRows {
+  int Tk, causal, q_offset;
+  int first_row;                         // the warpgroup's lowest, + q_offset
+  int row0, cq;                          // this thread's row and column pair
+  float scale_log2;
+};
+
+// key block n's scores in sc: scale, mask, the running max (a row's BK / 4
+// scores in a thread, its four threads neighbouring lanes), p = 2^(s - m)
+// in place (float32), the normaliser, and alpha, the rows' rescale of O
+template <int BK>
+__device__ __forceinline__ void fw_scores(float* sc, float* alpha,
+                                          float* m_run, float* l_run, int n,
+                                          const FwRows& r) {
+  const int key0 = n * BK;
+  const bool edge = key0 + BK > r.Tk ||
+                    (r.causal && (long long)key0 + BK - 1 > r.first_row);
+  float mx[2] = {FA_NEG, FA_NEG};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float val = sc[4 * j + e] * r.scale_log2;
+      if (edge) {
+        const int col = key0 + 8 * j + r.cq + (e & 1);
+        const long long row = (long long)r.row0 + 8 * (e >> 1) + r.q_offset;
+        if (col >= r.Tk || (r.causal && col > row)) val = FA_NEG;
+      }
+      sc[4 * j + e] = val;
+      mx[e >> 1] = fmaxf(mx[e >> 1], val);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_run[i], mx[i]);
+    alpha[i] = exp2_approx(m_run[i] - m_new);
+    m_run[i] = m_new;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = exp2_approx(sc[4 * j + e] - m_run[e >> 1]);
+      ps[e >> 1] += sc[4 * j + e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + ps[i];
+}
+
+// p rounded to bf16 and packed as the A fragments of P V: k-step kk's
+// registers are (row r, keys 16 kk + cq..), (r + 8, same), (r, keys 16 kk
+// + 8 + cq..), (r + 8, same) = accumulators 8 kk .. 8 kk + 7
+template <int BK>
+__device__ __forceinline__ void fw_pack(const float* sc, uint32_t (*pa)[4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      pa[j >> 1][(j & 1) * 2 + i] =
+          pack_bf16(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]);
+}
+
+// one ping-pong section of a consumer warpgroup (the (256, 2) instance),
+// in FlashAttention-3's order: in its turn, S = Q K^T of block n (QK),
+// then O rescaled by block n - 1's alpha and O += P V of block n - 1 (PV);
+// the turn handed over; block n's softmax while P V runs; block n's P
+// packed once P V is done
+template <int DP, int NWG, bool PV, bool QK>
+__device__ __forceinline__ void fw_section(
+    int n, int wg, int lane, const uint8_t* sq, const uint8_t* sk,
+    const uint8_t* sv, uint64_t* k_full, uint64_t* v_full, uint64_t* k_free,
+    uint64_t* v_free, float* oacc, uint32_t (*pa)[4], float* alpha,
+    float* m_run, float* l_run, const FwRows& rows) {
+  using L = FwLayout<DP, NWG>;
+  using S = FwShape<DP, NWG>;
+  constexpr int BQ = S::BQ, BK = S::BK, STAGES = S::STAGES, ROW = S::ROW;
+  constexpr int KPS = S::SUBC / 16;
+  const int s = n % STAGES, sp = (n + STAGES - 1) % STAGES;
+  float sc[BK / 2];
+  if constexpr (QK) mbar_wait(k_full + s, (n / STAGES) & 1);
+  if constexpr (PV) mbar_wait(v_full + sp, ((n - 1) / STAGES) & 1);
+  bar_sync(1 + wg, 256);
+  if constexpr (QK) {
+    const uint8_t* ks = sk + s * L::KV_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int sub = kk / KPS, off = (kk % KPS) * 32;
+      wgmma_qk<BK>(sc,
+                   gmma_desc<ROW>(sq + sub * BQ * ROW + wg * 64 * ROW + off,
+                                  16, 8 * ROW),
+                   gmma_desc<ROW>(ks + sub * BK * ROW + off, 16, 8 * ROW),
+                   kk > 0);
+    }
+    wg_commit();
+  }
+  if constexpr (PV) {
+    const uint8_t* vs = sv + sp * L::KV_BYTES;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= alpha[e >> 1];
+    fence_regs<DP / 2>(oacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<DP, BK>(oacc, pa[kk], vs + kk * 16 * ROW);
+    wg_commit();
+  }
+  if (wg == 0 || QK) bar_arrive(2 - wg, 256);
+  if constexpr (QK) {
+    if constexpr (PV) wg_wait_but_last();
+    else wg_wait_all();
+    fence_regs<BK / 2>(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_free + s);
+    fw_scores<BK>(sc, alpha, m_run, l_run, n, rows);
+  }
+  if constexpr (PV) {
+    wg_wait_all();
+    fence_regs<DP / 2>(oacc);
+    fence_regs<BK / 4>(&pa[0][0]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_free + sp);
+  }
+  if constexpr (QK) fw_pack<BK>(sc, pa);
+}
+
+template <int DP, int NWG>
+__global__ void __launch_bounds__(FwShape<DP, NWG>::THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
                       const __grid_constant__ CUtensorMap tmk,
                       const __grid_constant__ CUtensorMap tmv, int BH, int Tq,
                       int Tk, int D, int nqb, int causal, int q_offset,
                       float scale_log2, __nv_bfloat16* __restrict__ o) {
-  using L = FwLayout<DP>;
-  using S = FwShape<DP>;
-  constexpr int BQ = S::BQ, BK = S::BK, STAGES = S::STAGES, NWG = S::NWG;
-  constexpr int NSUB = DP / 64;          // 64-column sub-tiles
+  using L = FwLayout<DP, NWG>;
+  using S = FwShape<DP, NWG>;
+  constexpr int BQ = S::BQ, BK = S::BK, STAGES = S::STAGES, ROW = S::ROW;
+  constexpr int KPS = S::SUBC / 16;      // k16 steps a sub-tile
   extern __shared__ uint8_t fw_raw[];
   uint8_t* sm = fw_raw + ((1024u - (smem_u32(fw_raw) & 1023u)) & 1023u);
   uint8_t* sq = sm;
@@ -793,27 +1018,29 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
   }
   __syncthreads();
 
-  if (warp == 4 * NWG) {                 // the producer
-    if (lane == 0) {
+  if (warp >= 4 * NWG) {                 // the producer (a warp or a group)
+    if constexpr (S::PINGPONG) regs_dec<S::PRODUCER_REGS>();
+    if (warp == 4 * NWG && lane == 0) {
       mbar_expect_tx(q_full, L::Q_BYTES);
-      for (int c = 0; c < NSUB; ++c)
-        tma_load3(sq + c * BQ * FW_SUB, &tmq, q_full, 64 * c, q0, bh);
+      for (int c = 0; c < S::NSUB; ++c)
+        tma_load3(sq + c * BQ * ROW, &tmq, q_full, S::SUBC * c, q0, bh);
       for (int n = 0; n < nkb; ++n) {
         const int s = n % STAGES, par = ((n / STAGES) & 1) ^ 1;
         mbar_wait(k_free + s, par);
         mbar_expect_tx(k_full + s, L::KV_BYTES);
-        for (int c = 0; c < NSUB; ++c)
-          tma_load3(sk + s * L::KV_BYTES + c * BK * FW_SUB, &tmk,
-                    k_full + s, 64 * c, n * BK, bh);
+        for (int c = 0; c < S::NSUB; ++c)
+          tma_load3(sk + s * L::KV_BYTES + c * BK * ROW, &tmk, k_full + s,
+                    S::SUBC * c, n * BK, bh);
         mbar_wait(v_free + s, par);
         mbar_expect_tx(v_full + s, L::KV_BYTES);
-        for (int c = 0; c < NSUB; ++c)
-          tma_load3(sv + s * L::KV_BYTES + c * BK * FW_SUB, &tmv,
-                    v_full + s, 64 * c, n * BK, bh);
+        for (int c = 0; c < S::NSUB; ++c)
+          tma_load3(sv + s * L::KV_BYTES + c * BK * ROW, &tmv, v_full + s,
+                    S::SUBC * c, n * BK, bh);
       }
     }
     return;
   }
+  if constexpr (S::PINGPONG) regs_inc<S::CONSUMER_REGS>();
 
   // a consumer: warpgroup wg's 64 rows; this thread holds rows r and r + 8
   // (accumulator layout: row 16 * warp + lane / 4, columns 8 j + 2 (lane
@@ -826,97 +1053,118 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
   float m_run[2] = {FA_NEG, FA_NEG}, l_run[2] = {0.f, 0.f};
-  if constexpr (NWG == 2) {
-    if (wg == 1) bar_arrive(1, 256);    // warpgroup 0 issues first
-  }
-  mbar_wait(q_full, 0);
-
-  for (int n = 0; n < nkb; ++n) {
-    const int s = n % STAGES, par = (n / STAGES) & 1;
-    const uint8_t* ks = sk + s * L::KV_BYTES;
-    const uint8_t* vs = sv + s * L::KV_BYTES;
-    float sc[BK / 2];
-    mbar_wait(k_full + s, par);
-    if constexpr (NWG == 2) bar_sync(1 + wg, 256);   // this group's turn
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const int sub = kk >> 2, off = (kk & 3) * 32;
-      wgmma_qk<BK>(sc,
-                   gmma_desc(sq + sub * BQ * FW_SUB + wg * 64 * FW_SUB + off,
-                             16, 1024),
-                   gmma_desc(ks + sub * BK * FW_SUB + off, 16, 1024),
-                   kk > 0);
+  if constexpr (!S::PINGPONG) {
+    if constexpr (NWG == 2) {
+      if (wg == 1) bar_arrive(1, 256);   // warpgroup 0 issues first
     }
-    wg_commit();
-    if constexpr (NWG == 2) {            // the other group's turn
-      if (wg == 0 || n + 1 < nkb) bar_arrive(2 - wg, 256);
-    }
-    wg_wait_all();
-    fence_regs<BK / 2>(sc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(k_free + s);
-
-    // scale, mask, running max (a row's BK / 4 scores in a thread, its
-    // four threads neighbouring lanes)
-    const int key0 = n * BK;
-    const bool edge = key0 + BK > Tk ||
-                      (causal && (long long)key0 + BK - 1 > first_row);
-    float mx[2] = {FA_NEG, FA_NEG};
+    mbar_wait(q_full, 0);
+    for (int n = 0; n < nkb; ++n) {
+      const int s = n % STAGES, par = (n / STAGES) & 1;
+      const uint8_t* ks = sk + s * L::KV_BYTES;
+      const uint8_t* vs = sv + s * L::KV_BYTES;
+      float sc[BK / 2];
+      mbar_wait(k_full + s, par);
+      if constexpr (NWG == 2) bar_sync(1 + wg, 256);   // this group's turn
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = sc[4 * j + e] * scale_log2;
-        if (edge) {
-          const int col = key0 + 8 * j + cq + (e & 1);
-          const long long row = (long long)row0 + 8 * (e >> 1) + q_offset;
-          if (col >= Tk || (causal && col > row)) val = FA_NEG;
-        }
-        sc[4 * j + e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int sub = kk / KPS, off = (kk % KPS) * 32;
+        wgmma_qk<BK>(sc,
+                     gmma_desc<ROW>(sq + sub * BQ * ROW + wg * 64 * ROW + off,
+                                    16, 8 * ROW),
+                     gmma_desc<ROW>(ks + sub * BK * ROW + off, 16, 8 * ROW),
+                     kk > 0);
       }
-    float alpha[2];
+      wg_commit();
+      if constexpr (NWG == 2) {          // the other group's turn
+        if (wg == 0 || n + 1 < nkb) bar_arrive(2 - wg, 256);
+      }
+      wg_wait_all();
+      fence_regs<BK / 2>(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_free + s);
+
+      // scale, mask, running max (a row's BK / 4 scores in a thread, its
+      // four threads neighbouring lanes)
+      const int key0 = n * BK;
+      const bool edge = key0 + BK > Tk ||
+                        (causal && (long long)key0 + BK - 1 > first_row);
+      float mx[2] = {FA_NEG, FA_NEG};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = exp2_approx(m_run[i] - m_new);
-      m_run[i] = m_new;
-    }
-    // p rounded to bf16, packed as the A fragments of P V: k-step kk's
-    // registers are (row r, keys 16 kk + cq..), (r + 8, same), (r, keys
-    // 16 kk + 8 + cq..), (r + 8, same) = accumulators 8 kk .. 8 kk + 7
-    uint32_t pa[BK / 16][4];
-    float ps[2] = {0.f, 0.f};
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+        for (int e = 0; e < 4; ++e) {
+          float val = sc[4 * j + e] * scale_log2;
+          if (edge) {
+            const int col = key0 + 8 * j + cq + (e & 1);
+            const long long row = (long long)row0 + 8 * (e >> 1) + q_offset;
+            if (col >= Tk || (causal && col > row)) val = FA_NEG;
+          }
+          sc[4 * j + e] = val;
+          mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        }
+      float alpha[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float p0 = exp2_approx(sc[4 * j + 2 * i] - m_run[i]);
-        const float p1 = exp2_approx(sc[4 * j + 2 * i + 1] - m_run[i]);
-        ps[i] += p0 + p1;
-        pa[j >> 1][(j & 1) * 2 + i] = pack_bf16(p0, p1);
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);
+        alpha[i] = exp2_approx(m_run[i] - m_new);
+        m_run[i] = m_new;
       }
+      // p rounded to bf16, packed as the A fragments of P V: k-step kk's
+      // registers are (row r, keys 16 kk + cq..), (r + 8, same), (r, keys
+      // 16 kk + 8 + cq..), (r + 8, same) = accumulators 8 kk .. 8 kk + 7
+      uint32_t pa[BK / 16][4];
+      float ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + ps[i];
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
+        for (int i = 0; i < 2; ++i) {
+          const float p0 = exp2_approx(sc[4 * j + 2 * i] - m_run[i]);
+          const float p1 = exp2_approx(sc[4 * j + 2 * i + 1] - m_run[i]);
+          ps[i] += p0 + p1;
+          pa[j >> 1][(j & 1) * 2 + i] = pack_bf16(p0, p1);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= alpha[e >> 1];
+      for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + ps[i];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= alpha[e >> 1];
 
-    mbar_wait(v_full + s, par);
-    fence_regs<DP / 2>(oacc);
-    wg_fence();
+      mbar_wait(v_full + s, par);
+      fence_regs<DP / 2>(oacc);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_pv<DP, BK>(oacc, pa[kk], vs + kk * 16 * FW_SUB);
-    wg_commit();
-    wg_wait_all();
-    fence_regs<DP / 2>(oacc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(v_free + s);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<DP, BK>(oacc, pa[kk], vs + kk * 16 * ROW);
+      wg_commit();
+      wg_wait_all();
+      fence_regs<DP / 2>(oacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_free + s);
+    }
+  } else {
+    // ping-pong: section n issues S of block n (up to nkb - 1) and P V of
+    // block n - 1 (from n = 1) in this group's turn and hands the turn
+    // over (warpgroup 1 not after its last section: warpgroup 0 has none
+    // left)
+    const FwRows rows{Tk, causal, q_offset, first_row, row0, cq, scale_log2};
+    uint32_t pa[BK / 16][4];             // P, bf16: the A fragments of P V
+    float alpha[2];                      // O's rescale by the last softmax
+    if (wg == 1) bar_arrive(1, 256);     // warpgroup 0 issues first
+    mbar_wait(q_full, 0);
+    fw_section<DP, NWG, false, true>(0, wg, lane, sq, sk, sv, k_full,
+                                     v_full, k_free, v_free, oacc, pa, alpha,
+                                     m_run, l_run, rows);
+    for (int n = 1; n < nkb; ++n)
+      fw_section<DP, NWG, true, true>(n, wg, lane, sq, sk, sv, k_full,
+                                      v_full, k_free, v_free, oacc, pa,
+                                      alpha, m_run, l_run, rows);
+    fw_section<DP, NWG, true, false>(nkb, wg, lane, sq, sk, sv, k_full,
+                                     v_full, k_free, v_free, oacc, pa, alpha,
+                                     m_run, l_run, rows);
   }
 
   // the row's normaliser: its four threads' partial sums
@@ -964,71 +1212,89 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a (D, T, BH) bfloat16 tensor, boxes of 64 columns x rows, 128-byte swizzle
+// a (D, T, BH) bfloat16 tensor, boxes of `cols` columns x `rows` rows in
+// the swizzle of their row (128 bytes at 64 columns, 64 at 32)
 int head_map(CUtensorMap* map, const void* base, int D, int T, int BH,
-             int rows) {
+             int rows, int cols) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                          const_cast<void*>(base), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DP>
+template <int DP, int NWG>
 int launch_attention_wgmma(int BH, int Tq, int Tk, int D, int causal,
                            int q_offset, float scale, const void* q,
                            const void* k, const void* v, void* o,
                            cudaStream_t stream) {
-  using S = FwShape<DP>;
-  constexpr size_t smem = FwLayout<DP>::BYTES;
+  using S = FwShape<DP, NWG>;
+  constexpr size_t smem = FwLayout<DP, NWG>::BYTES;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_wgmma<DP>,
+        flash_attention_wgmma<DP, NWG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   CUtensorMap mq, mk, mv;
-  int err = head_map(&mq, q, D, Tq, BH, S::BQ);
-  if (!err) err = head_map(&mk, k, D, Tk, BH, S::BK);
-  if (!err) err = head_map(&mv, v, D, Tk, BH, S::BK);
+  int err = head_map(&mq, q, D, Tq, BH, S::BQ, S::SUBC);
+  if (!err) err = head_map(&mk, k, D, Tk, BH, S::BK, S::SUBC);
+  if (!err) err = head_map(&mv, v, D, Tk, BH, S::BK, S::SUBC);
   if (err) return err;
   const int nqb = (Tq + S::BQ - 1) / S::BQ;
   const long long blocks = (long long)BH * nqb;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  flash_attention_wgmma<DP><<<(unsigned)blocks, S::THREADS, smem, stream>>>(
+  flash_attention_wgmma<DP, NWG><<<(unsigned)blocks, S::THREADS, smem,
+                                   stream>>>(
       mq, mk, mv, BH, Tq, Tk, D, nqb, causal, q_offset, scale * LOG2E,
       (__nv_bfloat16*)o);
   return (int)cudaGetLastError();
 }
 
-int attention_bf16(int BH, int Tq, int Tk, int D, int causal, int q_offset,
-                   float scale, const void* q, const void* k, const void* v,
-                   void* o, cudaStream_t stream) {
+// the bf16 instance a call names (kernels/attention.py INSTANCES): head
+// dim 256 has two and takes no default; the others one
+enum FwInstance {
+  FW_DEFAULT = 0,   // the head dim's only instance
+  FW_ONE_WG = 1,    // head dim 256 on (256, 1)
+  FW_TWO_WG = 2,    // head dim 256 on (256, 2)
+};
+
+int attention_bf16(int BH, int Tq, int Tk, int D, int instance, int causal,
+                   int q_offset, float scale, const void* q, const void* k,
+                   const void* v, void* o, cudaStream_t stream) {
+#define FW_LAUNCH(DP, NWG)                                                  \
+  launch_attention_wgmma<DP, NWG>(BH, Tq, Tk, D, causal, q_offset, scale, q, \
+                                  k, v, o, stream)
   switch (D) {
     case 32:
     case 64:
-      return launch_attention_wgmma<64>(BH, Tq, Tk, D, causal, q_offset,
-                                        scale, q, k, v, o, stream);
+      if (instance == FW_DEFAULT) return FW_LAUNCH(64, 2);
+      break;
+    case 96:    // phi3-mini-3.8b: d_model 3072 over 32 heads
+      if (instance == FW_DEFAULT) return FW_LAUNCH(96, 2);
+      break;
     case 112:   // zamba2-7b: d_model 3584 over 32 heads
     case 128:
-      return launch_attention_wgmma<128>(BH, Tq, Tk, D, causal, q_offset,
-                                         scale, q, k, v, o, stream);
+      if (instance == FW_DEFAULT) return FW_LAUNCH(128, 2);
+      break;
     case 256:   // paligemma-3b
-      return launch_attention_wgmma<256>(BH, Tq, Tk, D, causal, q_offset,
-                                         scale, q, k, v, o, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+      if (instance == FW_ONE_WG) return FW_LAUNCH(256, 1);
+      if (instance == FW_TWO_WG) return FW_LAUNCH(256, 2);
+      break;
   }
+#undef FW_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1983,20 +2249,23 @@ int tf_rmsnorm(int R, int D, int dtype, float eps, void* x, void* w, void* y,
   }
 }
 
-int tf_flash_attention(int BH, int Tq, int Tk, int D, int dtype, int causal,
-                       int q_offset, float scale, void* q, void* k, void* v,
-                       void* o, void* stream) {
+// instance: FwInstance, for bfloat16; float32 has one kernel a head dim
+// (FW_DEFAULT)
+int tf_flash_attention(int BH, int Tq, int Tk, int D, int dtype, int instance,
+                       int causal, int q_offset, float scale, void* q,
+                       void* k, void* v, void* o, void* stream) {
   if (BH < 0 || Tq < 0 || Tk < 1 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Tq == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case DT_F32:
+      if (instance != FW_DEFAULT) return (int)cudaErrorInvalidValue;
       return attention_f32(BH, Tq, Tk, D, causal, q_offset, scale, q, k, v,
                            o, s);
     case DT_BF16:   // q, k, v 16-byte aligned (TMA): the wrapper sees to it
-      return attention_bf16(BH, Tq, Tk, D, causal, q_offset, scale, q, k, v,
-                            o, s);
+      return attention_bf16(BH, Tq, Tk, D, instance, causal, q_offset, scale,
+                            q, k, v, o, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -43,7 +43,7 @@ on_card = _build.on_card
 TRANSFORMER_LIB = _build.Library("transformer.cu", {
     # sizes..., dtype, flags..., scalars..., pointers..., stream
     "tf_rmsnorm": [_I] * 3 + [_F] + [_P] * 3 + [_P],
-    "tf_flash_attention": [_I] * 7 + [_F] + [_P] * 4 + [_P],
+    "tf_flash_attention": [_I] * 8 + [_F] + [_P] * 4 + [_P],
     "tf_wkv6": [_I] * 5 + [_P] * 7 + [_P],
     "tf_ssd": [_I] * 6 + [_P] * 6 + [_P],
 }, ("rmsnorm", "flash_attention", "wkv6", "ssd"))

@@ -9,6 +9,16 @@ side runs its Pallas ops in interpret mode at T = 64 and 128 (where its
 attention is exact, ``test_torch_transformer_kernels.py``) and its plain
 ops (``repro.kernels.ops.KERNELS_ENABLED`` False) at a ragged T.
 
+phi3-mini-3.8b's smoke config at its own head dim, 96 (``d_head=96``:
+2 layers, d_model 128, 4 heads of 96 without bias), runs the same
+``forward``, ``prefill``, ``decode_step`` and ``chunk_step`` checks, with
+its weight matrices drawn at 1/sqrt(their input width)
+(``reference_params(width_draw=True)``, as ``test_torch_ssm.py`` draws
+them): at the reference's draw, without QKV biases, its bfloat16 logits
+part from the JAX model's by about the bfloat16 limit itself on some
+token draws, at head dims 32 and 64 alike (the floor of that draw, not
+of the head dim); at the width draw they sit well inside it.
+
 Tolerance, normwise: the largest absolute difference over the largest
 magnitude of the reference array.  In float32, with both packages'
 ``COMPUTE_DTYPE`` set to float32 here, 1e-4 (measured up to 4.8e-5): the
@@ -21,6 +31,8 @@ rounding to 8 bits of mantissa is amplified the same way.  Every op
 rounds where the reference's does (``layers.silu`` follows XLA's
 expansion of the sigmoid), so the rest is equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +53,7 @@ from repro_torch.runtime import flags as tflags
 
 NORM_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 ARCH = "qwen2-1.5b"
+PHI3 = "phi3-mini-3.8b"
 
 
 @pytest.fixture(autouse=True)
@@ -52,30 +65,60 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(params=["bfloat16", "float32"])
-def pair(request, monkeypatch):
-    """(JAX model, JAX params, port model, port params, tolerance) in the
-    compute dtype of the parameter."""
-    if request.param == "float32":
+def make_pair(dtype, monkeypatch, jcfg, tcfg, width_draw=False):
+    """(JAX model, JAX params, port model, port params, tolerance) at the
+    two packages' copies of one config, in the compute dtype ``dtype``."""
+    if dtype == "float32":
         monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
         monkeypatch.setattr(tL, "COMPUTE_DTYPE", torch.float32)
-    jm = jregistry.build_smoke(ARCH)
-    jp = reference_params(jm)
-    tm = tregistry.build_smoke(ARCH, device="cpu")
+    jm = jregistry.build(jcfg)
+    jp = reference_params(jm, width_draw=width_draw)
+    tm = tregistry.build(tcfg, device="cpu")
     tp = convert.params_from_reference(jax.tree.map(np.asarray, jp),
                                        tm.cfg, device="cpu")
-    return jm, jp, tm, tp, NORM_TOL[request.param]
+    return jm, jp, tm, tp, NORM_TOL[dtype]
 
 
-def reference_params(jm, seed=5):
+@pytest.fixture(params=["bfloat16", "float32"])
+def pair(request, monkeypatch):
+    """The smoke Qwen2-1.5B pair in the compute dtype of the parameter."""
+    return make_pair(request.param, monkeypatch,
+                     jregistry.build_smoke(ARCH).cfg,
+                     tconfigs.get_config(ARCH).smoke())
+
+
+@pytest.fixture(params=["bfloat16", "float32"])
+def phi3_pair(request, monkeypatch):
+    """phi3-mini-3.8b's smoke config at head dim 96, the pair in the
+    compute dtype of the parameter."""
+    return make_pair(
+        request.param, monkeypatch,
+        dataclasses.replace(jregistry.build_smoke(PHI3).cfg, d_head=96),
+        dataclasses.replace(tconfigs.get_config(PHI3).smoke(), d_head=96),
+        width_draw=True)
+
+
+def reference_params(jm, seed=5, width_draw=False):
     """The JAX model's ``PRNGKey(0)`` parameters, with the leaves its
     template starts at zero (the QKV biases) or one (the norm weights)
     drawn from numpy instead, so that the bias adds and the norm weights
-    are exercised too."""
+    are exercised too.  ``width_draw``: every weight matrix but the
+    embedding drawn from numpy at 1/sqrt(its input width) too, as
+    ``test_torch_ssm.py`` draws them (the reference's draw takes a stacked
+    leaf's fan-in from its layer count)."""
     jp = jm.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
+    if width_draw:
+        def leaf(path, a):
+            if a.ndim < 2 or "embed" in jax.tree_util.keystr(path):
+                return a
+            return jnp.asarray(rng.standard_normal(a.shape)
+                               / np.sqrt(a.shape[-2]), jnp.float32)
+        jp = jax.tree_util.tree_map_with_path(leaf, jp)
     lay = jp["layers"]
     for k in ("bq", "bk", "bv"):
+        if k not in lay["attn"]:            # no QKV bias
+            continue
         b = lay["attn"][k]
         lay["attn"][k] = jnp.asarray(rng.standard_normal(b.shape) * 0.5,
                                      jnp.float32)
@@ -107,7 +150,27 @@ def tokens(seed, *shape):
 
 @pytest.mark.parametrize("T", [64, 128, 100])
 def test_forward_and_prefill_match(pair, T, monkeypatch):
+    forward_and_prefill_match(pair, T, monkeypatch)
+
+
+@pytest.mark.parametrize("T", [64, 100])
+def test_phi3_at_head_dim_96_forward_and_prefill_match(phi3_pair, T,
+                                                       monkeypatch):
+    forward_and_prefill_match(phi3_pair, T, monkeypatch)
+
+
+def test_phi3_at_head_dim_96_decode_steps_match(phi3_pair):
+    decode_steps_at_one_position_match(phi3_pair)
+    decode_steps_at_per_lane_positions_match(phi3_pair)
+
+
+def test_phi3_at_head_dim_96_chunk_steps_match(phi3_pair):
+    chunk_steps_match(phi3_pair)
+
+
+def forward_and_prefill_match(pair, T, monkeypatch):
     jm, jp, tm, tp, tol = pair
+    assert tm.cfg.head_dim == jm.cfg.head_dim
     if T % 64:                       # ragged: the reference's plain ops
         monkeypatch.setattr(jops, "KERNELS_ENABLED", False)
     tok = tokens(T, 2, T)
@@ -124,6 +187,10 @@ def test_forward_and_prefill_match(pair, T, monkeypatch):
 
 
 def test_decode_steps_at_one_position_match(pair):
+    decode_steps_at_one_position_match(pair)
+
+
+def decode_steps_at_one_position_match(pair):
     """Scalar ``pos``: a prompt fed token by token, the last step past the
     cache, where the reference's ``dynamic_update_slice`` clamps the write
     to the last row."""
@@ -140,6 +207,10 @@ def test_decode_steps_at_one_position_match(pair):
 
 
 def test_decode_steps_at_per_lane_positions_match(pair):
+    decode_steps_at_per_lane_positions_match(pair)
+
+
+def decode_steps_at_per_lane_positions_match(pair):
     """Per-lane ``pos``: three lanes at different depths; lane 2 runs past
     the cache, where the reference drops the write (and a negative
     position counts from the end)."""
@@ -161,6 +232,10 @@ def test_decode_steps_at_per_lane_positions_match(pair):
 
 
 def test_chunk_steps_match(pair):
+    chunk_steps_match(pair)
+
+
+def chunk_steps_match(pair):
     """``chunk_step`` after a prefill: a chunk, an overlapping chunk (the
     rollback), and a chunk past the end (a clamped write)."""
     jm, jp, tm, tp, tol = pair

@@ -7,8 +7,8 @@ JAX ops run their Pallas kernels in interpret mode, as
 ``tests/test_kernels_transformer.py`` runs them, at that file's shapes plus
 head dim 128 and GQA 6:1 (Qwen2-1.5B's 12 query heads on 2 KV heads), with
 its tolerances: rmsnorm 1e-5 in float32, 2e-2 in bfloat16; attention
-2e-3; attention also at head dim 256 (paligemma-3b's), causal, non-causal
-and after a prefix (q_offset).  Unlike that file, q and k are not scaled down: the scores have a
+2e-3; attention also at head dims 96 (phi3-mini-3.8b's) and 256
+(paligemma-3b's), causal, non-causal and after a prefix (q_offset).  Unlike that file, q and k are not scaled down: the scores have a
 standard deviation of about 1, so each query attends to a few keys and a
 wrong mask or a coarse rounding of the probabilities shows.  The Pallas attention is compared only where its key
 length is at most 128 or a multiple of 128: above 128 and ragged, its last
@@ -130,6 +130,37 @@ def test_flash_attention_at_head_dim_256_with_q_offset_matches_the_pallas_op(
                                atol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("b,hq,hkv,t", [(2, 4, 4, 128), (1, 8, 2, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_dim_96_matches_the_pallas_op(b, hq, hkv, t,
+                                                              causal):
+    """phi3-mini-3.8b's head dim, 96 (d_model 3072 over 32 heads): the
+    port's K15 against the Pallas op, which takes any head dim, at a full
+    block and at two (GQA 4:1)."""
+    jq, tq = both(arr(21, b, hq, t, 96))
+    jk, tk = both(arr(22, b, hkv, t, 96))
+    jv, tv = both(arr(23, b, hkv, t, 96))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("tq,q_offset", [(128, 128), (64, 192)])
+def test_flash_attention_at_head_dim_96_with_q_offset_matches_the_pallas_op(
+        tq, q_offset):
+    """Head dim 96 after a prefix of q_offset positions (a chunk of a
+    chunked prefill), causal, against every key."""
+    tk = tq + q_offset
+    jq, tq_ = both(arr(24, 1, 4, tq, 96))
+    jk, tk_ = both(arr(25, 1, 4, tk, 96))
+    jv, tv_ = both(arr(26, 1, 4, tk, 96))
+    got = tops.flash_attention(tq_, tk_, tv_, causal=True, q_offset=q_offset)
+    want = jops.flash_attention(jq, jk, jv, causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
 def test_flash_attention_q_offset_matches_the_pallas_op():
     """Chunked decode: 64 queries at the end of a 256-key cache."""
     jq, tq = both(arr(4, 2, 4, 64, 64))
@@ -171,6 +202,45 @@ def test_flash_attention_at_head_dim_256_and_ragged_lengths(tq, tk, q_offset,
         tq, tk, q_offset, causal, d=256)
 
 
+@pytest.mark.parametrize("tq,tk,q_offset,causal", [
+    (200, 300, 100, True), (40, 40, 0, False), (5, 9, 4, True),
+    (1, 77, 76, True)])
+def test_flash_attention_at_head_dim_96_and_ragged_lengths(tq, tk, q_offset,
+                                                           causal):
+    """Head dim 96 at ragged lengths, a decode-like chunk (Tq < 8) and one
+    query, against the JAX plain version (GQA 6:1)."""
+    test_flash_attention_at_ragged_lengths_matches_the_plain_reference(
+        tq, tk, q_offset, causal, d=96)
+
+
+def test_the_wrapper_takes_head_dim_96_and_names_the_d256_instances(
+        monkeypatch):
+    """Head dim 96 is one of the kernel's; the bfloat16 instances a caller
+    may name at head dim 256 are checked on every device (a float32 call,
+    or another head dim, raises); ``d256_instance`` sends head dim 256 to
+    the two-warpgroup instance where its grid fills the card's SMs once
+    (paligemma-3b's text call) and to the one-warpgroup instance below
+    that (its 256-position prefix)."""
+    assert 96 in attention.HEAD_DIMS
+    assert set(attention.INSTANCES) == {256}
+    q = torch.from_numpy(arr(27, 2, 8, 256))
+    qb = q.to(torch.bfloat16)
+    for inst in attention.INSTANCES[256]:
+        got = attention.flash_attention(qb, qb, qb, instance=inst)
+        assert torch.equal(got, attention.flash_attention(qb, qb, qb))
+    with pytest.raises(ValueError, match="instance"):
+        attention.flash_attention(q, q, q, instance="two_warpgroups")
+    q96 = qb[..., :96].contiguous()
+    with pytest.raises(ValueError, match="instance"):
+        attention.flash_attention(q96, q96, q96, instance="one_warpgroup")
+    monkeypatch.setattr(attention, "_sm_count", lambda device: 132)
+    card = torch.device("cuda")
+    assert attention.d256_instance(16, 1792, card) == "two_warpgroups"
+    assert attention.d256_instance(16, 2048, card) == "two_warpgroups"
+    assert attention.d256_instance(16, 256, card) == "one_warpgroup"
+    assert attention.d256_instance(16, 300, card) == "one_warpgroup"
+
+
 def attention_with_p_in_bf16(q, k, v, causal, q_offset):
     """The plain attention as a tensor-core attention rounds it (as
     FlashAttention and SDPA do): scores and softmax in float32, p = exp(s
@@ -190,7 +260,8 @@ def attention_with_p_in_bf16(q, k, v, causal, q_offset):
     (3, 1, 77, 128, True, 76), (3, 5, 9, 32, True, 4),
     (3, 200, 200, 64, False, 0), (3, 64, 300, 128, True, 236),
     (3, 1000, 1000, 112, True, 0), (3, 100, 612, 128, True, 512),
-    (1, 2048, 2048, 128, True, 0), (1, 1024, 1024, 112, True, 0)])
+    (1, 2048, 2048, 128, True, 0), (1, 1024, 1024, 112, True, 0),
+    (3, 300, 300, 96, True, 0), (2, 64, 320, 96, True, 256)])
 def test_rounding_p_to_bf16_stays_inside_the_bf16_tolerance(
         bh, tq, tk, d, causal, q_offset):
     """The argument for rounding P to bfloat16 in a tensor-core K15

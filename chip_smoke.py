@@ -17,7 +17,8 @@ at full width through ``forward`` and the ``Server``; the scenario server
 ``hts.serve``, static and slice-and-refill, on 4096 requests through 1024
 lanes; the MoE family (olmoe-1b-7b, qwen2-moe-a2.7b) and paligemma-3b's
 prefix-LM attention at full width; phi3-mini-3.8b at full width (head dim
-96) — then checks them:
+96); whisper-base, the audio family, at full width (head dim 64) — then
+checks them:
 
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
@@ -155,6 +156,18 @@ prefix-LM attention at full width; phi3-mini-3.8b at full width (head dim
    launches a step, ``ooo`` takes fewer steps; tokens/s, ms a step, a
    traced window's device busy share and peak memory are printed, and
    one staggered request against ``greedy_decode`` at B = 1 (not gated);
+   then the float32 ``Server`` over the same requests, four of them
+   (``STAGGERED_F32``) against float32 ``greedy_decode`` at B = 1, every
+   token equal (gated); (d) the decode flags: ``decode_gqa_packed`` in
+   float32, 9b's 32 decode steps flag on against flag off within
+   ``FP32_LOGIT_TOL``, a control (the packed scores rounded to bfloat16)
+   failing it; in bfloat16 decode and ``Server`` ms a step off and on in
+   turns, a traced window of Server steps off and on (device busy time,
+   the cache's copies), the packed ``Server`` run through (tokens/s);
+   ``decode_kv_int8`` (with ``decode_gqa_packed``): 9b's prompts fed one
+   token at a time from position 0 on the int8 cache against the wide
+   cache, the logits printed beside a one-ulp witness (not gated), the
+   cache's bytes and the peak memory off and on;
 10. the ssm and hybrid families, rwkv6-3b (32 layers, d_model 2560, 40
    WKV heads of 64) and zamba2-7b (81 layers: 13 groups of 6 Mamba-2
    layers and a shared attention block, then 3; d_model 3584, 112 SSD
@@ -239,6 +252,24 @@ prefix-LM attention at full width; phi3-mini-3.8b at full width (head dim
    then the float32 gate (every position of the prefill and each decode
    step, kernels against plain within ``FP32_LOGIT_TOL``, the control
    failing it; plain on the embedding one ulp up printed beside);
+14. whisper-base (6 encoder and 6 decoder layers, d_model 512, 8 heads of
+   64, d_ff 2048, vocab 51865) with random weights from a seed: (a) K15
+   at head dim 64 against plain (bf16 2e-2, float32 1e-5) at its three
+   calls at B = 16 (the encoder's 1500 frames unmasked, the cross
+   attention's 448 queries on 1500 frames unmasked, the decoder's 448
+   causal) and K16 at 16 x 1500 rows of 512, each timed in bf16 beside
+   its bound and the library call; (b) ``encode`` of 16 x 1500 frames and
+   ``decode_seq`` of 16 x 448 tokens in bf16 (6 K15 and 13 K16 launches,
+   then 12 and 19; frames/s, tokens/s, the time split), then the float32
+   gate at weights drawn at 1/sqrt(input width) (every position, kernels
+   against plain within ``FP32_LOGIT_TOL``, the control failing it; at
+   the reference's draw whisper-base is chaotic in float32, and that
+   reading is printed beside one-ulp witnesses on the embedding and the
+   frames); (c) cross K/V of the 1500 frames, 32 float32
+   ``decode_step``s against ``decode_seq``'s logits within
+   ``WHISPER_LOGIC_TOL`` at the same width draw (the reference's draw
+   printed), then bf16 decode ms a step; (d) the ``Server``, 8 slots, 16 requests of 16 prompt and
+   16 new tokens: every request completes, 19 K16 launches a step;
 5b. kernel times: device, call, plain and library times of the DSP
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
    ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
@@ -251,8 +282,10 @@ prefix-LM attention at full width; phi3-mini-3.8b at full width (head dim
    array x itself, x read once; the bound reading it twice beside it);
    K15's row also carries 12a's head-dim-256 times (``*_d256_prefix``,
    ``*_d256_text``, ``*_d256_square``, ``*_d256_ragged``, each instance's
-   as ``ms_<instance>_d256_*``) and 13a's head-dim-96 ones
-   (``*_d96_prefill``).  ``--only
+   as ``ms_<instance>_d256_*``), 13a's head-dim-96 ones
+   (``*_d96_prefill``) and 14a's head-dim-64 ones (``*_d64_encoder``,
+   ``*_d64_cross``, ``*_d64_decoder``); K16's row 14a's
+   (``*_24000x512``).  ``--only
    5b`` times them all on their own (launches are counted only on the
    paths that ran).
 
@@ -266,7 +299,7 @@ prefix (``--only 2c``: ``hts_run`` against the per-phase loop; ``--only
 3``: the main path; ``--only 9 "5b transformer"``: the dense model path;
 ``--only 10``: the ssm and hybrid families; ``--only 11``: the scenario
 server; ``--only 12``: the MoE family and paligemma-3b; ``--only 13``:
-phi3-mini-3.8b) and prints no kernels line.
+phi3-mini-3.8b; ``--only 14``: whisper-base) and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -541,14 +574,15 @@ RMS_SSM_CASES = [(2048, 2560), (2048, 3584), (8, 2560), (8, 3584)]
 #: bfloat16 (9b, prefill and every decode step)
 FP32_LOGIT_TOL = {"rwkv6-3b": 1e-3, "zamba2-7b": 0.1, "qwen2-1.5b": 1e-2,
                   "olmoe-1b-7b": 1e-4, "qwen2-moe-a2.7b": 1e-4,
-                  "paligemma-3b": 1e-2, "phi3-mini-3.8b": 1e-2}
-#: the archs whose float32 gate (12b, 12c) draws the layers' weight
+                  "paligemma-3b": 1e-2, "phi3-mini-3.8b": 1e-2,
+                  "whisper-base": 1e-4}
+#: the archs whose float32 gate (12b, 12c, 14b) draws the layers' weight
 #: matrices at 1/sqrt(their input width) (``scale_to_width``): at the
-#: reference's draw (a stacked leaf's fan-in is its layer count) these MoE
+#: reference's draw (a stacked leaf's fan-in is its layer count) these
 #: models are chaotic in float32 (the plain path on an embedding one ulp
-#: up parts from itself as far as the kernels do; PERF.md §6), so that
-#: reading is printed beside the witness, not gated
-WIDTH_DRAW_GATES = ("olmoe-1b-7b", "qwen2-moe-a2.7b")
+#: up parts from itself about as far as the kernels do; PERF.md §6), so
+#: that reading is printed beside the witness, not gated
+WIDTH_DRAW_GATES = ("olmoe-1b-7b", "qwen2-moe-a2.7b", "whisper-base")
 #: 10b's float32 reading on the kernels before K17 and K18 were chunked
 #: (a CTA a (sequence, head), PERF.md §6): printed beside this run's
 FP32_LOGIT_BEFORE = {"rwkv6-3b": 2.58e-5, "zamba2-7b": 0.0154}
@@ -601,6 +635,36 @@ ATTN_96_CASES = [(128, 2048, 2048, 96, True, 0),
 #: phi3's prefill of 4 x 2048 into a 2080-position cache, then 32 greedy
 #: decode steps; the float32 gate the same, the bf16 weights freed first
 PHI3_B, PHI3_T, PHI3_MAX_LEN, PHI3_DECODE_STEPS = 4, 2048, 2080, 32
+
+# the decode flags on Qwen2-1.5B (phase 9d) and the float32 Server against
+# greedy decoding at B = 1 (9c)
+#: the requests of phase 9's Server held against float32 greedy_decode at
+#: B = 1 (9c; STAGGERED among them)
+STAGGERED_F32 = (0, 21, STAGGERED, 63)
+#: the int8 cache's rollout: phase 9's 4 prompts, their first 64 tokens
+#: fed one at a time from position 0 into a cache of PREFILL_MAX_LEN
+INT8_T = 64
+
+# whisper-base (phase 14): K15 at head dim 64 (the encoder's and the cross
+# attention unmasked, the decoder's causal, Tq != Tk) and K16 at width 512
+WHISPER_ARCH = "whisper-base"
+#: 16 clips of Whisper's 30-s window (1500 encoder frames) and 448 decoder
+#: tokens (its text context); 32 greedy decode steps
+WHISPER_B, WHISPER_TE, WHISPER_TD, WHISPER_DECODE_STEPS = 16, 1500, 448, 32
+#: K15 at whisper-base's three calls at B = 16 (8 heads of 64), (BH, Tq,
+#: Tk, D, causal, q_offset), by name
+ATTN_64_CASES = {"encoder": (128, 1500, 1500, 64, False, 0),
+                 "cross": (128, 448, 1500, 64, False, 0),
+                 "decoder": (128, 448, 448, 64, True, 0)}
+#: K16 at the encoder's rows (16 x 1500) of width 512
+RMS_512 = (WHISPER_B * WHISPER_TE, 512)
+#: float32 decode steps against decode_seq's logits at the same positions
+#: (14c), normwise
+WHISPER_LOGIC_TOL = 1e-3
+#: the Server: 8 slots of 64 positions, 16 requests of 16 prompt tokens
+#: (equal lengths: this family decodes at one position) and 16 new tokens
+WHISPER_SLOTS, WHISPER_MAX_LEN, WHISPER_REQUESTS = 8, 64, 16
+WHISPER_PROMPT, WHISPER_NEW = 16, 16
 
 
 def log(*a):
@@ -1495,7 +1559,7 @@ def main(argv=None) -> int:
                                          dsp_vector, mamba2, ops, ref,
                                          rmsnorm, rwkv6)
         from repro_torch.core.sched import serving, specdecode
-        from repro_torch.models import layers, registry, transformer
+        from repro_torch.models import layers, registry, transformer, whisper
         from repro_torch.runtime import flags
     except ImportError as e:
         print(f"chip_smoke: the port is not importable from {ROOT / 'src'} "
@@ -2746,6 +2810,7 @@ def main(argv=None) -> int:
             peak = torch.cuda.max_memory_allocated()
             tf_launches[f"server/{policy}"] = counts
             stats[policy] = st
+            ctx[f"server_{policy}_rate"] = st.slot_busy_steps / wall
             assert st.completed == SERVE_REQUESTS and all(
                 r.done and len(r.out) == r.max_new for r in objs), \
                 f"{policy}: {st.completed} of {SERVE_REQUESTS} completed"
@@ -2805,6 +2870,260 @@ def main(argv=None) -> int:
             f"{same} tokens agree, {sum(a == b for a, b in zip(r.out, want))}"
             f" of {len(want)} in all")
 
+    def staggered_fp32():
+        """The Server's requests against greedy decoding at B = 1 in
+        float32 (ROADMAP Queue 3): the float32 ``Server`` (ooo) over phase
+        9's requests, then each of STAGGERED_F32 through float32
+        ``greedy_decode`` at B = 1; every token must agree.  Beside it,
+        how many of each one's tokens 9c's bfloat16 Server gave too (not
+        gated)."""
+        model = ctx["model"]
+        reqs = serve_requests()
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            p32 = model.init(MODEL_SEED)
+            srv = serving.Server(model, p32, n_slots=SERVE_SLOTS,
+                                 max_len=SERVE_MAX_LEN)
+            objs = [serving.Request(i, list(p_), m)
+                    for i, (p_, m) in enumerate(reqs)]
+            for r in objs:
+                srv.submit(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = {i: specdecode.greedy_decode(
+                model, p32, np.asarray([objs[i].prompt]), len(objs[i].out),
+                SERVE_MAX_LEN)[0].tolist() for i in STAGGERED_F32}
+            del p32, srv
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        assert st.completed == SERVE_REQUESTS, st.completed
+        log(f"float32 Server ooo: {st.steps} steps, "
+            f"{st.slot_busy_steps / wall:.1f} tokens/s, "
+            f"{wall / st.steps * 1e3:.2f} ms a step  on {card}")
+        bf16 = ctx.get("server_ooo")
+        flips = 0
+        for i, w in want.items():
+            r = objs[i]
+            first = next((j for j, (a, b) in enumerate(zip(r.out, w))
+                          if a != b), len(w))
+            flips += sum(a != b for a, b in zip(r.out, w))
+            note = "" if bf16 is None else (
+                f"; 9c's bf16 Server agrees with it on "
+                f"{sum(a == b for a, b in zip(r.out, bf16[i].out))}")
+            log(f"request {i} (prompt {len(r.prompt)}, {len(r.out)} new "
+                f"tokens): float32 Server against float32 greedy_decode at "
+                f"B=1: the first {first} tokens agree, "
+                f"{sum(a == b for a, b in zip(r.out, w))} of {len(w)}{note}")
+        assert flips == 0, (f"{flips} tokens of the float32 Server differ "
+                            "from float32 greedy decoding at B=1")
+        log(f"float32: every token of requests {list(STAGGERED_F32)} "
+            "agrees with greedy decoding at B=1")
+
+    def packed_gate():
+        """9d, ``decode_gqa_packed`` in float32: prefill and phase 9's 32
+        decode steps with the flag off and on, teacher-forced on the same
+        tokens; each step's logits flag on within FP32_LOGIT_TOL of flag
+        off, and a control (the packed path with its scores rounded to
+        bfloat16) that must fail it."""
+        model = ctx["model"]
+        tok = prompt_tokens(model)
+        tol = FP32_LOGIT_TOL[ARCH]
+        saved = (layers.COMPUTE_DTYPE, layers.grouped_scores)
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            p32 = model.init(MODEL_SEED)
+            feeds: list = []
+            off = drive(model, p32, tok, feeds)
+            with flags.use_flags(decode_gqa_packed=True):
+                on = drive(model, p32, tok, feeds)
+                layers.grouped_scores = lambda qg, k: saved[1](qg, k).to(
+                    torch.bfloat16).float()
+                ctl = drive(model, p32, tok, feeds)
+            del p32
+        finally:
+            layers.COMPUTE_DTYPE, layers.grouped_scores = saved
+        log(f"float32 decode {off['dwall'] / DECODE_STEPS * 1e3:.2f} ms a "
+            f"step unpacked, {on['dwall'] / DECODE_STEPS * 1e3:.2f} packed  "
+            f"on {card}")
+        err = logit_errors("fp32 logits, decode_gqa_packed vs unpacked", on,
+                           off, tol)
+        c_err = logit_errors("fp32 logits, control (packed, scores rounded "
+                             "to bf16) vs unpacked", ctl, off, tol)
+        assert err <= tol, f"packed decode differs ({err:.3g} > {tol})"
+        if c_err <= tol:
+            raise AssertionError(f"the control passes the packed gate at "
+                                 f"{tol} ({c_err:.3g})")
+        log(f"the control fails the packed gate, as it must ({c_err:.3g} > "
+            f"{tol})")
+
+    def copy_time(events):
+        """Device µs of the copies among traced activities: the casts and
+        repeats of the cache (``copy`` kernels, ``index``/``repeat``
+        kernels of ``repeat_interleave``) and memcpys."""
+        return sum(us for key, us in events
+                   if any(w in key.lower() for w in ("copy", "index",
+                                                     "repeat", "memcpy")))
+
+    def packed_speed():
+        """9d, ``decode_gqa_packed`` in bfloat16, each reading taken in
+        turns (off, on, on, off) in this call: prefill and 32 greedy
+        decode steps (ms a step); Server steps 49-80 of two ``Server``s
+        (ooo) on 9c's requests, one a setting, 16 steps a turn (ms a step:
+        the steps' occupancy depends on the requests' lengths alone, so it
+        is the same in both); a traced window of each (device busy time,
+        the cache's copies); then the packed ``Server`` run to completion
+        (tokens/s beside 9c's, the tokens it shares with 9c's)."""
+        model, params = ctx["model"], ctx["params"]
+        tok = prompt_tokens(model)
+        Lr = model.cfg.n_layers
+        dec: dict = {False: [], True: []}
+        runs = {}
+        for packed in (False, True, True, False):
+            with flags.use_flags(decode_gqa_packed=packed):
+                r = drive(model, params, tok, [])
+            assert r["dcounts"] == {**zero, "rmsnorm": DECODE_STEPS
+                                    * (2 * Lr + 1)}, r["dcounts"]
+            dec[packed].append(r["dwall"] / DECODE_STEPS * 1e3)
+            runs[packed] = r
+        log(f"bf16 decode at B={PREFILL_B}, in turns (off, on, on, off): "
+            f"unpacked {dec[False]} ms a step, packed {dec[True]}  on {card}")
+        logit_errors("bf16 greedy decode, packed vs unpacked (each its own "
+                     "tokens)", runs[True], runs[False])
+        reqs = serve_requests()
+        servers = {}
+        for packed in (False, True):
+            with flags.use_flags(decode_gqa_packed=packed):
+                srv = serving.Server(model, params, n_slots=SERVE_SLOTS,
+                                     max_len=SERVE_MAX_LEN)
+                for i, (p_, m) in enumerate(reqs):
+                    srv.submit(serving.Request(i, list(p_), m))
+                for _ in range(48):
+                    srv.step()
+            servers[packed] = srv
+        step_ms: dict = {False: [], True: []}
+        for packed in (False, True, True, False):
+            srv = servers[packed]
+            with flags.use_flags(decode_gqa_packed=packed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(16):
+                    srv.step()
+                torch.cuda.synchronize()
+            step_ms[packed].append((time.perf_counter() - t0) / 16 * 1e3)
+        log(f"Server steps 49-80 in turns (off, on, on, off), ms a step: "
+            f"unpacked {step_ms[False]}, packed {step_ms[True]}  on {card}")
+        for packed, srv in servers.items():
+            with flags.use_flags(decode_gqa_packed=packed):
+                def steps(n):
+                    for _ in range(n):
+                        srv.step()
+                try:
+                    events, wall_us = trace_window(
+                        torch, lambda: steps(1), lambda: steps(TRACE_STEPS))
+                except (RuntimeError, AssertionError, AttributeError) as e:
+                    log(f"packed={packed}: step profile not measured ({e})")
+                    continue
+            busy = sum(us for _k, us in events)
+            log(f"Server steps 82-{81 + TRACE_STEPS}, decode_gqa_packed="
+                f"{packed}, traced: {wall_us / TRACE_STEPS / 1e3:.3f} ms wall "
+                f"a step, device busy {busy / TRACE_STEPS / 1e3:.3f} ms a "
+                f"step ({100 * busy / wall_us:.1f} %), the cache's copies "
+                f"{copy_time(events) / TRACE_STEPS / 1e3:.3f} ms a step, "
+                f"{len(events) / TRACE_STEPS:.0f} device activities a step"
+                f"  on {card}")
+            for key, us, cnt in costliest(events, TRACE_STEPS, 6):
+                log(f"    {us:9.1f} us/step  x{cnt:<4d} {key}")
+        del servers
+        with flags.use_flags(decode_gqa_packed=True):
+            srv = serving.Server(model, params, n_slots=SERVE_SLOTS,
+                                 max_len=SERVE_MAX_LEN)
+            objs = [serving.Request(i, list(p_), m)
+                    for i, (p_, m) in enumerate(reqs)]
+            for r in objs:
+                srv.submit(r)
+            torch.cuda.synchronize()
+            tlib.reset_launches()
+            t0 = time.perf_counter()
+            st = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = dict(tlib.launches)
+        tf_launches["server/ooo packed"] = counts
+        assert st.completed == SERVE_REQUESTS and counts == {
+            **zero, "rmsnorm": st.steps * (2 * Lr + 1)}, (st, counts)
+        base = ctx.get("server_ooo")
+        agree = ("" if base is None else
+                 f", {sum(a == b for x, y in zip(objs, base) for a, b in zip(x.out, y.out))}"
+                 f" of {sum(len(y.out) for y in base)} tokens as 9c's "
+                 "unpacked Server's (bf16: not gated)")
+        log(f"Server ooo, decode_gqa_packed: {st.steps} steps, "
+            f"{st.slot_busy_steps / wall:.1f} tokens/s, "
+            f"{wall / st.steps * 1e3:.2f} ms a step (9c unpacked: "
+            f"{ctx.get('server_ooo_rate', float('nan')):.1f} tokens/s){agree}"
+            f"  on {card}")
+
+    def int8_decode():
+        """9d, ``decode_kv_int8`` with ``decode_gqa_packed`` in bfloat16:
+        phase 9's prompts fed token by token from position 0 (one
+        position for every lane: the int8 cache takes no per-lane
+        positions, so the ``Server`` cannot run it, as in the reference)
+        into a cache of PREFILL_MAX_LEN, against the same rollout on the
+        wide cache: each step's logits normwise and the argmax agreement,
+        printed beside the witness (the wide rollout on the embedding one
+        bf16 ulp up against the wide one); the cache's bytes, the
+        rollout's peak memory and ms a step, off and on."""
+        model, params = ctx["model"], ctx["params"]
+        tok = prompt_tokens(model)[:, :INT8_T]
+
+        def rollout(int8, p):
+            with flags.use_flags(decode_kv_int8=int8, decode_gqa_packed=int8):
+                cache = model.init_cache(PREFILL_B, PREFILL_MAX_LEN)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in cache.values())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                outs = [model.decode_step(p, cache, tok[:, t:t + 1], t)[0][
+                    :, -1].float() for t in range(INT8_T)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            assert ("k_s" in cache) == int8
+            assert all(bool(torch.isfinite(o).all()) for o in outs)
+            return dict(steps=outs, bytes=nbytes, wall=wall,
+                        peak=torch.cuda.max_memory_allocated())
+
+        wide, q8 = rollout(False, params), rollout(True, params)
+        emb = params["embed"]
+        params["embed"] = torch.nextafter(emb, emb.new_tensor(math.inf))
+        try:
+            wit = rollout(False, params)
+        finally:
+            params["embed"] = emb
+        for name, r in (("wide (bf16)", wide), ("int8", q8)):
+            log(f"cache {name}: {r['bytes'] / 1e6:.3f} MB for B="
+                f"{PREFILL_B} x {PREFILL_MAX_LEN} positions; rollout of "
+                f"{INT8_T} steps {r['wall'] / INT8_T * 1e3:.2f} ms a step, "
+                f"peak device memory {r['peak'] / 1e9:.3f} GB  on {card}")
+
+        def read(r):
+            errs = [normwise(a, b) for a, b in zip(r["steps"], wide["steps"])]
+            agree = np.mean([float((a.argmax(-1) == b.argmax(-1)).float()
+                                   .mean()) for a, b in zip(r["steps"],
+                                                            wide["steps"])])
+            return max(errs), float(np.mean(errs)), agree
+        for what, r in (("int8 cache vs wide cache", q8),
+                        ("witness: wide cache, embedding one ulp up, vs "
+                         "wide cache", wit)):
+            mx, mean, agree = read(r)
+            log(f"bf16 rollout logits, {what}: normwise max {mx:.3g} mean "
+                f"{mean:.3g} over {INT8_T} steps, argmax agreement "
+                f"{agree:.3f} (not gated)")
+        assert q8["bytes"] < wide["bytes"]
+
     for name, fn in (("9a K15 and K16 vs plain", tf_vs_plain),
                      ("9 model setup", model_setup)):
         phase(name, fn)
@@ -2813,6 +3132,11 @@ def main(argv=None) -> int:
         phase("9b float32 logits gate", fp32_logit_gate)
         phase("9b per-layer bf16 attention gate", attention_layer_gate)
         phase("9c the Server at full width", server_path)
+        phase("9c float32 Server against greedy decoding at B=1",
+              staggered_fp32)
+        phase("9d decode_gqa_packed float32 gate", packed_gate)
+        phase("9d decode_gqa_packed in bf16, the Server", packed_speed)
+        phase("9d decode_kv_int8 rollout", int8_decode)
         ctx.pop("params", None)      # free Qwen2's weights; its cfg stays
 
     # 10. the ssm and hybrid families at full width on K17 and K18 ----------
@@ -3320,6 +3644,13 @@ def main(argv=None) -> int:
         """K15 and K16 launches of one prefill or forward (K15 twice a
         layer with a prefix) and of one decode step (K16 alone)."""
         L = cfg.n_layers
+        if cfg.family == "audio":
+            # whisper: encode (K15 a layer, K16 twice and once more) and
+            # decode_seq (K15 twice a layer, K16 three times and once more)
+            E = cfg.enc_layers
+            return ({**zero, "flash_attention": E + 2 * L,
+                     "rmsnorm": 2 * E + 3 * L + 2},
+                    {**zero, "rmsnorm": 3 * L + 1})
         attn = L * (2 if cfg.prefix_len else 1)
         return ({**zero, "flash_attention": attn, "rmsnorm": 2 * L + 1},
                 {**zero, "rmsnorm": 2 * L + 1})
@@ -3393,7 +3724,8 @@ def main(argv=None) -> int:
                              "decisions differ) vs plain (not gated)",
                              rnf, rp)
                 del rp, rk, rn, rnf
-                scale_to_width(p32["layers"], model.cfg.n_layers)
+                for key in model.impl.STACKED:
+                    scale_to_width(p32[key], len(p32[key]))
             pl = run(p32, True)
             if witness:
                 emb = p32["embed"]
@@ -3687,6 +4019,248 @@ def main(argv=None) -> int:
     phase("13b phi3-mini-3.8b at full width", phi3)
     torch.cuda.empty_cache()
 
+    # 14. whisper-base, the audio family: K15 at head dim 64 ---------------
+    def attn_64():
+        """K15 at whisper-base's three calls (B = 16: the encoder's 1500
+        frames and the cross attention's 448 queries on them unmasked, the
+        decoder's 448 causal) and K16 at 16·1500 rows of 512 against
+        plain (bf16 2e-2, float32 1e-5); then each timed in bf16 beside
+        its bound and the library call (SDPA on the model's (B, H, T, D)
+        layout, ``F.rms_norm``)."""
+        F = torch.nn.functional
+        for i, shape in enumerate(ATTN_64_CASES.values()):
+            for dt in ("bfloat16", "float32"):
+                tf_check("flash_attention", shape, dt, 1400 + i)
+        for dt in ("bfloat16", "float32"):
+            tf_check("rmsnorm", RMS_512, dt, 1410)
+        log(f"K15 D 64: flash_attention_wgmma<64, 2>, ptxas "
+            f"{k15_regs(64, 2) or 'not reported (cached)'}")
+        times: dict = {}
+        for i, (label, shape) in enumerate(ATTN_64_CASES.items()):
+            q, k, v, causal, q_offset = tf_case(
+                torch, "flash_attention", shape, torch.bfloat16, 1450 + i)
+            calls = [functools.partial(attention.flash_attention, q, k, v,
+                                       causal=causal)] * 23
+            dev = profiled_ms(torch, calls, TF_KERNEL["flash_attention"])
+            call = events_ms(torch, calls)
+            plain = events_ms(torch, [functools.partial(
+                plain_attention, ref, q, k, v, causal=causal)] * 8)
+            bound, by, _ = tf_bound("flash_attention",
+                                    (q, k, v, causal, q_offset))
+            q4, k4, v4 = (t.view(WHISPER_B, t.shape[0] // WHISPER_B,
+                                 *t.shape[1:]) for t in (q, k, v))
+            lc = [functools.partial(F.scaled_dot_product_attention, q4, k4,
+                                    v4, is_causal=causal)] * 23
+            lib, lib_dev = events_ms(torch, lc), profiled_call_ms(torch, lc)
+            times[label] = dict(shape=list(shape), ms=dev, call_ms=call,
+                                plain_ms=plain, bound_ms=bound, bound_by=by,
+                                library_ms=lib, library_device_ms=lib_dev)
+            ratio = "" if dev is None else f", {dev / bound:.2f}x it"
+            log(f"K15 D 64 {label:7s} {shape} bf16: kernel "
+                f"{'not measured' if dev is None else f'{dev:.4f} ms'} on "
+                f"the device, {call:.4f} ms a call, plain {plain:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}{ratio}), SDPA {lib:.4f} ms a "
+                f"call ({lib_dev} ms on the device)  on {card}")
+        ctx["d64"] = times
+        x, w = tf_case(torch, "rmsnorm", RMS_512, torch.bfloat16, 1460)
+        calls = [functools.partial(rmsnorm.rmsnorm, x, w, 1e-6)] * 23
+        lc = [functools.partial(F.rms_norm, x, (x.shape[1],), w, 1e-6)] * 23
+        r = dict(shape=list(RMS_512),
+                 ms=profiled_ms(torch, calls, TF_KERNEL["rmsnorm"]),
+                 call_ms=events_ms(torch, calls),
+                 plain_ms=events_ms(torch, [functools.partial(
+                     ref.rmsnorm, x, w, 1e-6)] * 8),
+                 bound_ms=tf_bound("rmsnorm", (x, w))[0],
+                 library_ms=events_ms(torch, lc),
+                 library_device_ms=profiled_call_ms(torch, lc))
+        ctx["r512"] = r
+        log(f"K16 {RMS_512} bf16: kernel {r['ms']} ms on the device, "
+            f"{r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms, F.rms_norm "
+            f"{r['library_ms']:.4f} ms a call ({r['library_device_ms']} ms "
+            f"on the device)  on {card}")
+
+    def whisper_inputs(cfg):
+        rng = np.random.default_rng(MODEL_SEED)
+        frames = torch.from_numpy(rng.standard_normal(
+            (WHISPER_B, WHISPER_TE, cfg.d_model), dtype=np.float32)).to(DEVICE)
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (WHISPER_B, WHISPER_TD)).astype(np.int32)).to(DEVICE)
+        return frames, tok
+
+    def whisper_run(model, params, frames, tok, on=False, **swap):
+        """``encode`` then ``decode_seq`` on the path ``on`` and ``swap``
+        select, in ``drive``'s result's form (every position's logits, no
+        decode steps), each half's wall and launches."""
+        cfg = model.cfg
+        with plain_path(on, ref, **kernels, **swap):
+            torch.cuda.synchronize()
+            tlib.reset_launches()
+            t0 = time.perf_counter()
+            enc = whisper.encode(params, cfg, frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            enc_counts = dict(tlib.launches)
+            logits = whisper.decode_seq(params, cfg, tok, enc)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        seq = logits.float()
+        del logits, enc
+        assert bool(torch.isfinite(seq).all()), "not finite"
+        counts = dict(tlib.launches)
+        return dict(seq=seq, last=seq[:, -1], steps=[], routes=[],
+                    wall=t2 - t0, enc_wall=t1 - t0, dec_wall=t2 - t1,
+                    enc_counts=enc_counts, counts=counts)
+
+    def whisper_forward():
+        """14b: whisper-base at full width and depth with random bf16
+        weights from MODEL_SEED: ``encode`` of 16 x 1500 frames and
+        ``decode_seq`` of 16 x 448 tokens on the kernels (6 K15 and 13 K16
+        launches, then 12 and 19), frames/s and tokens/s, the time split
+        traced; then the float32 gate (every position's logits, kernels
+        against plain, the control failing it, at weights scaled to
+        1/sqrt(input width); at the reference's draw, chaotic in float32,
+        the kernels' reading printed beside the one-ulp witnesses on the
+        embedding and on the frames)."""
+        model, params = model12(WHISPER_ARCH)
+        cfg = model.cfg
+        E, D = cfg.enc_layers, cfg.n_layers
+        frames, tok = whisper_inputs(cfg)
+        whisper_run(model, params, frames, tok)           # warm-up
+        r = whisper_run(model, params, frames, tok)
+        enc_want = {**zero, "flash_attention": E, "rmsnorm": 2 * E + 1}
+        assert r["enc_counts"] == enc_want, r["enc_counts"]
+        assert r["counts"] == tf_counts(cfg)[0], r["counts"]
+        tf_launches["whisper-base/encode"] = enc_want
+        tf_launches["whisper-base/decode_seq"] = {
+            k: r["counts"][k] - enc_want[k] for k in zero}
+        split12(f"whisper-base encode + decode_seq bf16 B={WHISPER_B}",
+                lambda: whisper_run(model, params, frames, tok))
+        log(f"whisper-base bf16: encode {WHISPER_B} x {WHISPER_TE} frames "
+            f"{r['enc_wall'] * 1e3:.1f} ms ({WHISPER_B * WHISPER_TE / r['enc_wall']:.0f}"
+            f" frames/s), decode_seq {WHISPER_B} x {WHISPER_TD} tokens "
+            f"{r['dec_wall'] * 1e3:.1f} ms ({WHISPER_B * WHISPER_TD / r['dec_wall']:.0f}"
+            f" tokens/s), launches {r['counts']}  on {card}")
+        ctx["whisper"] = (model, params)
+        fp32_gate(model, lambda p, on, **swap: whisper_run(
+            model, p, frames, tok, on=on, **swap), witness=True)
+        # the encoder's witness at the reference's draw: fp32_gate's moves
+        # the decoder's embedding alone
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            p32 = model.init(MODEL_SEED)
+            pl = whisper_run(model, p32, frames, tok, on=True)
+            up = torch.nextafter(frames, frames.new_tensor(math.inf))
+            rw = whisper_run(model, p32, up, tok, on=True)
+            del p32
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        logit_errors("whisper-base fp32 logits at the reference's draw, "
+                     "plain on the frames one ulp up vs plain (the "
+                     "encoder's witness; not gated)", rw, pl)
+
+    def whisper_decode():
+        """14c: cross K/V from the encoder states at max_len = 1500 (no
+        pad rows, as the reference's test fills it), then 32 teacher-forced
+        ``decode_step``s in float32 against ``decode_seq``'s logits at the
+        same positions: at the weights scaled to 1/sqrt(input width)
+        within WHISPER_LOGIC_TOL normwise, at the reference's draw
+        (chaotic in float32, 14b) printed; then 32 greedy bf16 decode
+        steps timed."""
+        model, params = ctx["whisper"]
+        cfg = model.cfg
+        frames, tok = whisper_inputs(cfg)
+        n = WHISPER_DECODE_STEPS
+
+        def decode_vs_seq(p):
+            enc = whisper.encode(p, cfg, frames)
+            seq = whisper.decode_seq(p, cfg, tok[:, :n], enc).float()
+            cache = whisper.fill_cross_cache(
+                p, cfg, model.init_cache(WHISPER_B, WHISPER_TE), enc)
+            return [normwise(model.decode_step(p, cache, tok[:, t:t + 1],
+                                               t)[0][:, 0], seq[:, t])
+                    for t in range(n)]
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            p32 = model.init(MODEL_SEED)
+            chaotic = decode_vs_seq(p32)
+            for key in model.impl.STACKED:
+                scale_to_width(p32[key], len(p32[key]))
+            errs = decode_vs_seq(p32)
+            del p32
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        log(f"float32 decode_step vs decode_seq over {n} positions (cross "
+            f"K/V of {WHISPER_TE} frames, no pad rows), the reference's "
+            f"draw: normwise max {max(chaotic):.3g} mean "
+            f"{np.mean(chaotic):.3g} (chaotic, as 14b's witness: not gated)")
+        log(f"the same at weights scaled to 1/sqrt(input width): normwise "
+            f"max {max(errs):.3g} mean {np.mean(errs):.3g} (limit "
+            f"{WHISPER_LOGIC_TOL})")
+        assert max(errs) <= WHISPER_LOGIC_TOL, max(errs)
+        enc = whisper.encode(params, cfg, frames)
+        cache = whisper.fill_cross_cache(
+            params, cfg, model.init_cache(WHISPER_B, WHISPER_TE), enc)
+        cur = tok[:, :1]
+        model.decode_step(params, model.init_cache(WHISPER_B, 64), cur, 0)
+        torch.cuda.synchronize()
+        tlib.reset_launches()
+        t0 = time.perf_counter()
+        for t in range(n):
+            lg, cache = model.decode_step(params, cache, cur, t)
+            cur = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(tlib.launches)
+        assert counts == {**zero, "rmsnorm": n * tf_counts(cfg)[1][
+            "rmsnorm"]}, counts
+        tf_launches["whisper-base/decode"] = counts
+        log(f"whisper-base bf16 decode at B={WHISPER_B} against {WHISPER_TE}"
+            f" frames: {wall / n * 1e3:.2f} ms a step, "
+            f"{WHISPER_B * n / wall:.1f} tokens/s  on {card}")
+
+    def whisper_server():
+        """14d: the ``Server`` on whisper-base, WHISPER_SLOTS slots, equal
+        prompts (one position for every slot, as the reference serves this
+        family; the cross K/V zeroed with the slot, as in the reference):
+        every request completes, K16 19 launches a step and no K15."""
+        model, params = ctx["whisper"]
+        cfg = model.cfg
+        rng = np.random.default_rng(SERVE_SEED)
+        srv = serving.Server(model, params, n_slots=WHISPER_SLOTS,
+                             max_len=WHISPER_MAX_LEN)
+        objs = [serving.Request(i, rng.integers(
+            0, cfg.vocab, WHISPER_PROMPT).tolist(), WHISPER_NEW)
+            for i in range(WHISPER_REQUESTS)]
+        for r in objs:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        tlib.reset_launches()
+        t0 = time.perf_counter()
+        st = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(tlib.launches)
+        tf_launches["whisper-base/server"] = counts
+        assert st.completed == WHISPER_REQUESTS and all(
+            r.done and len(r.out) == WHISPER_NEW for r in objs), st
+        assert counts == {**zero, "rmsnorm": st.steps * tf_counts(cfg)[1][
+            "rmsnorm"]}, counts
+        log(f"whisper-base Server: {WHISPER_REQUESTS} requests, {st.steps} "
+            f"steps, utilization {st.utilization(WHISPER_SLOTS):.4f}, "
+            f"{st.slot_busy_steps / wall:.1f} tokens/s, "
+            f"{wall / st.steps * 1e3:.2f} ms a step  on {card}")
+
+    phase("14a K15 at head dim 64 and K16 at 512 vs plain", attn_64)
+    phase("14b whisper-base forward at full width", whisper_forward)
+    if "whisper" in ctx:
+        phase("14c whisper-base decode against decode_seq", whisper_decode)
+        phase("14d whisper-base Server", whisper_server)
+        ctx.pop("whisper")
+    torch.cuda.empty_cache()
+
     # 5b. DSP kernel times at each path's shape -----------------------------
     def extra_times(row, name, wrapper, plain, i):
         """The kernel at its ``DSP_EXTRA`` shapes too: device, call, plain
@@ -3941,6 +4515,24 @@ def main(argv=None) -> int:
                           f"{t['call_ms']:.4f} ms a call, bound "
                           f"{t['bound_ms']:.4f} ms, SDPA "
                           f"{t['library_ms']:.4f} ms")
+            if name == "flash_attention" and "d64" in ctx:
+                # whisper-base's three calls at head dim 64 (14a), by label
+                for label, t in ctx["d64"].items():
+                    row.update({f"{k}_d64_{label}": v for k, v in t.items()})
+                    extra += (f"; D 64 {label} {t['shape']}: kernel "
+                              f"{t['ms']} ms on the device, "
+                              f"{t['call_ms']:.4f} ms a call, bound "
+                              f"{t['bound_ms']:.4f} ms, SDPA "
+                              f"{t['library_ms']:.4f} ms")
+            if name == "rmsnorm" and "r512" in ctx:
+                # whisper-base's encoder rows at width 512 (14a)
+                t = ctx["r512"]
+                key = "x".join(map(str, t["shape"]))
+                row.update({f"{k}_{key}": v for k, v in t.items()
+                            if k != "shape"})
+                extra += (f"; at {key} (whisper-base): kernel {t['ms']} ms "
+                          f"on the device, library {t['library_ms']:.4f} ms, "
+                          f"bound {t['bound_ms']:.4f} ms")
             if name == "flash_attention" and "d256" in ctx:
                 # paligemma-3b's calls at head dim 256 (12a), by label
                 for label, t in ctx["d256"].items():

@@ -19,7 +19,8 @@ absorbed token-by-token into the slot's cache lane.  The transformer
 families (dense, moe, and vlm serving text alone) decode at per-lane
 positions (true continuous batching); the others at one position, the
 largest over the active slots, as in the reference (their callers submit
-prompts of equal length).  Every slot decodes each step, idle ones on
+prompts of equal length; whisper's cross K/V is zeroed with the rest of a
+slot's cache on admission, as the reference zeroes it).  Every slot decodes each step, idle ones on
 token 0: a MoE model routes them with the rest, as the reference does.  The cache is written in
 place, and the step's argmax is read back to the host once per step, as
 the reference reads it.

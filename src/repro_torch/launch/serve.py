@@ -1,5 +1,5 @@
-"""Serving launcher: the continuous-batching server over a ported
-``--arch`` (the dense, moe, vlm (text alone), ssm and hybrid families;
+"""Serving launcher: the continuous-batching server over any ``--arch``
+(the dense, moe, vlm (text alone), ssm, hybrid and audio families;
 smoke-sized with ``--smoke``), on the CUDA card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \

@@ -3,7 +3,8 @@
 ``params_from_reference`` takes the JAX package's parameter tree as numpy
 arrays (its template's tree: ``layers`` stacked on a leading L axis for
 the dense and ssm families; zamba2's ``groups`` stacked (n_groups,
-period), ``shared`` and ``tail`` on one axis each) and the model's config,
+period), ``shared`` and ``tail`` on one axis each; whisper's
+``enc_layers`` and ``dec_layers`` on one axis each) and the model's config,
 and returns the port's: every leaf cast once to ``COMPUTE_DTYPE`` (the
 cast the reference makes at every use) but the ones the family reads
 uncast (its module's ``FLOAT32_LEAVES``, kept float32), and the family's

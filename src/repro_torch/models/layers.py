@@ -23,8 +23,15 @@ Departures from the reference, each with its reason:
   makes the two packages compute the same function.  The distribution is
   the reference's, including its fan-in: for a stacked layer tensor
   (``stack_layers``) that is the leading layer count.
-* The decode flags ``decode_gqa_packed`` and ``decode_kv_int8`` are not
-  ported (ROADMAP Queue 1 item 5e): set, they raise.
+* ``FLAGS.decode_gqa_packed``'s decode attention contracts each KV
+  head with its G query heads, without the GQA repeat, as the reference
+  does.  The reference's einsums take bfloat16 operands and accumulate
+  in float32 (``preferred_element_type``).  On the card the scores are
+  ``torch.bmm(..., out_dtype=torch.float32)`` on the bfloat16 keys and
+  P·V a float32 product on the values cast once (float32 weights, as the
+  reference keeps them); on the CPU both are float32 products of the cast
+  operands ordered as the unpacked path orders them, so that the two
+  paths agree bit for bit there, as the reference's test asks of its own.
 """
 from __future__ import annotations
 
@@ -194,6 +201,24 @@ def swiglu(x, w_gate, w_up, w_down):
     return linear(h, w_down)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh form, op by op as XLA expands
+    it, every op rounded to x's dtype: ``x * (0.5 * (1 + tanh(c1 * (x +
+    c0 * x³))))`` with x³ = ``x * (x * x)`` (``integer_pow``) and the
+    constants rounded to x's dtype first (in bfloat16 c0 = 0.044677734375,
+    c1 = 0.796875).  ``F.gelu(approximate="tanh")`` rounds once, a
+    different function in bfloat16."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+    x3 = x * (x * x)
+    t = torch.tanh(c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * x3))
+    return x * (c(0.5) * (t + c(1.0)))
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    return linear(gelu(linear(x, w_up, b_up)), w_down, b_down)
+
+
 # ---------------------------------------------------------------------------
 # attention (GQA, RoPE, optional KV cache)
 # ---------------------------------------------------------------------------
@@ -212,15 +237,17 @@ def attn_template(cfg) -> dict:
     return t
 
 
-def attn_qkv(p, cfg, x, positions):
-    """x: (B, T, D) → q (B, H, T, Dh), k/v (B, Hkv, T, Dh), RoPE on q, k."""
+def attn_qkv(p, cfg, x, positions, *, use_rope=True):
+    """x: (B, T, D) → q (B, H, T, Dh), k/v (B, Hkv, T, Dh), RoPE on q, k
+    unless ``use_rope`` is False."""
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(B, T, H, Dh)
     k = linear(x, p["wk"], p.get("bk")).reshape(B, T, Hkv, Dh)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, T, Hkv, Dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -246,15 +273,62 @@ def _write_lanes(cache, new, pos):
                                    old)
 
 
-def decode_attention(p, cfg, x, cache_k, cache_v, pos):
+def self_attention(p, cfg, x, positions, *, causal=True, use_rope=True):
+    """Attention of x over itself on K15: (B, T, D) → (B, T, D)."""
+    q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
+    return attn_out(p, ops.flash_attention(q, k, v, causal=causal))
+
+
+def grouped_scores(qg, k):
+    """Scores of G query heads against their KV head's cache, accumulated
+    and returned in float32, as the reference's einsum with
+    ``preferred_element_type=float32``.  qg: (N, G, Dh); k: (N, Tmax, Dh)
+    → (N, G, Tmax).
+
+    On the card one product, M = G rows a KV head; bfloat16 operands go to
+    ``torch.bmm``'s ``out_dtype`` form (products exact in float32, summed
+    in float32), with no float32 copy of the cache.  On the CPU one
+    product a query head (M = 1, the cache cast to float32 once), the
+    shape the unpacked path's einsum gives the BLAS, so that the packed
+    and unpacked scores are equal bit for bit."""
+    kt = k.transpose(1, 2)
+    if qg.is_cuda:
+        if qg.dtype == kt.dtype == torch.bfloat16:
+            return torch.bmm(qg, kt, out_dtype=torch.float32)
+        return torch.bmm(qg.float(), kt.float())
+    kt = kt.float()
+    qf = qg.float()
+    return torch.stack([torch.bmm(qf[:, g:g + 1], kt)[:, 0]
+                        for g in range(qg.shape[1])], dim=1)
+
+
+def grouped_values(w, v):
+    """The float32 weights' sums of the cache rows: w (N, G, Tmax) float32,
+    v (N, Tmax, Dh) → (N, G, Dh) in float32, w kept in float32 as the
+    reference keeps it.
+
+    On the card one product, M = G rows a KV head, on the cache cast to
+    float32 once (a copy of one KV head's rows, not of G repeats).  On
+    the CPU one product a query head, as :func:`grouped_scores`."""
+    vf = v.float()
+    if w.is_cuda:
+        return torch.bmm(w, vf)
+    return torch.stack([torch.bmm(w[:, g:g + 1], vf)[:, 0]
+                        for g in range(w.shape[1])], dim=1)
+
+
+def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, use_rope=True):
     """One-token decode. x: (B, 1, D); cache_k/v: (B, Hkv, Tmax, Dh),
     written in place; pos: an int (every lane at that position) OR a (B,)
     int tensor of per-lane positions (continuous batching: each serving
-    slot may be at a different depth).  Returns (y, cache_k, cache_v)."""
-    if flags.FLAGS.decode_gqa_packed:
-        raise NotImplementedError(
-            "FLAGS.decode_gqa_packed is not ported yet (ROADMAP Queue 1 "
-            "item 5e, the decode flags)")
+    slot may be at a different depth).  Returns (y, cache_k, cache_v).
+
+    With ``FLAGS.decode_gqa_packed`` each KV head's cache is contracted
+    with its G query heads (:func:`grouped_scores`,
+    :func:`grouped_values`), with no GQA repeat and, on the card, the
+    keys read in bfloat16 and the values cast to float32 once; else the
+    cache is repeated G times and cast to float32, as the reference's
+    baseline does."""
     B = x.shape[0]
     Hkv, Tmax = cfg.n_kv_heads, cache_k.shape[2]
     per_lane = torch.is_tensor(pos) and pos.dim() == 1
@@ -264,7 +338,7 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos):
     else:
         pos = int(pos)
         positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = attn_qkv(p, cfg, x, positions)
+    q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
     if per_lane:
         _write_lanes(cache_k, k[:, :, 0], pos)
         _write_lanes(cache_v, v[:, :, 0], pos)
@@ -275,14 +349,24 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos):
         cache_k[:, :, start:start + 1] = k.to(cache_k.dtype)
         cache_v[:, :, start:start + 1] = v.to(cache_v.dtype)
         row_pos = pos
-    Hq = cfg.n_heads
-    scale = cfg.head_dim ** -0.5
+    Hq, Dh = cfg.n_heads, cfg.head_dim
+    scale = Dh ** -0.5
+    mask = torch.arange(Tmax, device=x.device)[None, None, None, :] <= row_pos
+    if flags.FLAGS.decode_gqa_packed:
+        G = Hq // Hkv
+        qg = q.reshape(B * Hkv, G, Dh)
+        s = grouped_scores(qg, cache_k.reshape(B * Hkv, Tmax, Dh))
+        s = torch.where(mask, s.view(B, Hkv, G, Tmax) * scale, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = grouped_values(w.view(B * Hkv, G, Tmax),
+                           cache_v.reshape(B * Hkv, Tmax, Dh))
+        o = o.view(B, Hq, 1, Dh).to(x.dtype)
+        return attn_out(p, o), cache_k, cache_v
     kk = cache_k.repeat_interleave(Hq // Hkv, dim=1)
     vv = cache_v.repeat_interleave(Hq // Hkv, dim=1)
     # masked single-query attention over the cache (memory-bound; plain
     # torch, as the reference's is plain jnp)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
-    mask = torch.arange(Tmax, device=x.device)[None, None, None, :] <= row_pos
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", w, vv.float()).to(x.dtype)

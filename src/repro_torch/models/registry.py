@@ -2,10 +2,10 @@
 
 Port of the reference's ``models/registry.py``.  ``build(cfg)`` returns a
 :class:`Model` bound to a device (``None`` = the CUDA card; without one it
-raises unless the caller passes ``device="cpu"``).  The transformer
-families ``dense``, ``moe`` and ``vlm`` (:mod:`.transformer`), ``ssm``
-(:mod:`.rwkv6`) and ``hybrid`` (:mod:`.zamba2`) are ported; ``audio``
-raises ``NotImplementedError`` naming the slice that ports it.
+raises unless the caller passes ``device="cpu"``).  Every family of the
+reference is ported: ``dense``, ``moe`` and ``vlm``
+(:mod:`.transformer`), ``ssm`` (:mod:`.rwkv6`), ``hybrid``
+(:mod:`.zamba2`) and ``audio`` (:mod:`.whisper`).
 """
 from __future__ import annotations
 
@@ -22,12 +22,12 @@ from ..core.hts.machine import resolve_device
 from . import layers as L
 from . import rwkv6 as R
 from . import transformer as T
+from . import whisper as W
 from . import zamba2 as Z
 
-#: the module that implements each ported family
-FAMILIES = {"dense": T, "moe": T, "vlm": T, "ssm": R, "hybrid": Z}
-#: the ROADMAP item (Queue 1) that ports each family not ported yet
-LATER = {"audio": "5d (whisper)"}
+#: the module that implements each family
+FAMILIES = {"dense": T, "moe": T, "vlm": T, "ssm": R, "hybrid": Z,
+            "audio": W}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,13 +75,25 @@ class Model:
                              f"family's; this is {self.cfg.family!r}")
         return {"prefix_embeds": prefix_embeds}
 
-    def forward(self, params, tokens, prefix_embeds=None):
+    def _frames(self, frames) -> dict:
+        audio = self.cfg.family == "audio"
+        if audio and frames is None:
+            raise ValueError(f"{self.cfg.name}: the audio family's forward "
+                             "needs the encoder's frames")
+        if frames is not None and not audio:
+            raise ValueError(f"{self.cfg.name}: frames are the audio "
+                             f"family's; this is {self.cfg.family!r}")
+        return {} if frames is None else {"frames": frames}
+
+    def forward(self, params, tokens, prefix_embeds=None, frames=None):
         """The sequence path of every family (the reference's
         family-uniform prefill, ``launch/dryrun.py`` ``_prefill_logits``):
         tokens (B, T) → logits (B, T, V); the vlm takes ``prefix_embeds``
-        (B, P, D) before the tokens (then T' = P + T logits)."""
+        (B, P, D) before the tokens (then T' = P + T logits), the audio
+        family the encoder's ``frames`` (B, Te, D)."""
         return self.impl.forward(params, self.cfg, tokens,
-                                 **self._prefix(prefix_embeds))[0]
+                                 **self._prefix(prefix_embeds),
+                                 **self._frames(frames))[0]
 
     def _transformer_only(self, what: str):
         if self.impl is not T:
@@ -116,10 +128,7 @@ class Model:
 def build(cfg: ArchConfig, device=None) -> Model:
     impl = FAMILIES.get(cfg.family)
     if impl is None:
-        item = LATER.get(cfg.family, "none yet")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item {item})")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return Model(cfg=cfg, template=impl.template(cfg),
                  device=resolve_device(device), impl=impl)
 

@@ -5,8 +5,10 @@ Port of the reference's ``models/transformer.py``.  The reference stacks
 the layers on a scanned axis; here ``params["layers"]`` is a list of
 per-layer dicts (views of the stacked tensors the template draws), walked
 by a Python loop.  The KV cache keeps the reference's layout, ``{"k",
-"v"}`` of (L, B, Hkv, Tmax, Dh), and is written in place: ``decode_step``
-and ``chunk_step`` return the cache they were given.
+"v"}`` of (L, B, Hkv, Tmax, Dh) (under ``FLAGS.decode_kv_int8`` int8,
+with float32 scales ``k_s``, ``v_s`` of (L, B, Hkv, Tmax)), and is
+written in place: ``decode_step`` and ``chunk_step`` return the cache
+they were given.
 
 The MoE layer (:func:`moe_apply`) keeps the reference's scatter dispatch
 and its two forms, global and ``FLAGS.moe_grouped``; the expert products
@@ -243,15 +245,66 @@ def block_apply(lp, cfg, x, positions, *, prefix_len: int = 0):
     return x + y, aux
 
 
-def block_decode(lp, cfg, x, ck, cv, pos):
+def _quantize(t):
+    """(B, Hkv, 1, Dh) → int8 rows and their float32 scales (B, Hkv, 1):
+    the scale ``max|t| / 127`` floored at 1e-8, the values rounded half
+    to even (``jnp.round``'s rounding) and clipped to ±127."""
+    tf = t.float()
+    s = (tf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q8 = torch.round(tf / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q8, s
+
+
+def _quant_decode_attention(p, cfg, x, ck, cv, ks, vs, pos: int):
+    """int8-KV decode attention (grouped-query, one position ``pos`` for
+    every lane), the reference's ``_quant_decode_attention``: the new K/V
+    rows are quantized at write (:func:`_quantize`, each write clamped
+    into the cache as ``dynamic_update_slice`` clamps it), and the scales
+    fold into the contractions on the key axis, so the cache is read as
+    int8 (the keys widened to the compute dtype, exactly; the values to
+    float32).  ck/cv: (B, Hkv, Tmax, Dh) int8, ks/vs: (B, Hkv, Tmax)
+    float32, written in place.  Returns (y, ck, cv, ks, vs)."""
+    B = x.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Tmax = ck.shape[2]
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = L.attn_qkv(p, cfg, x, positions)
+    k8, k_s = _quantize(k)
+    v8, v_s = _quantize(v)
+    start = min(max(pos, 0), Tmax - 1)
+    ck[:, :, start:start + 1] = k8
+    cv[:, :, start:start + 1] = v8
+    ks[:, :, start:start + 1] = k_s
+    vs[:, :, start:start + 1] = v_s
+    G = Hq // Hkv
+    qg = q.reshape(B * Hkv, G, Dh)
+    s = L.grouped_scores(qg, ck.reshape(B * Hkv, Tmax, Dh).to(q.dtype))
+    s = (s.view(B, Hkv, G, Tmax) * ks[:, :, None, :]) * (Dh ** -0.5)
+    mask = torch.arange(Tmax, device=x.device)[None, None, None, :] <= pos
+    s = torch.where(mask, s, L.NEG_INF)
+    w = torch.softmax(s, dim=-1) * vs[:, :, None, :]
+    o = L.grouped_values(w.view(B * Hkv, G, Tmax),
+                         cv.reshape(B * Hkv, Tmax, Dh))
+    o = o.view(B, Hq, 1, Dh).to(x.dtype)
+    return L.attn_out(p, o), ck, cv, ks, vs
+
+
+def block_decode(lp, cfg, x, ck, cv, pos, ks=None, vs=None):
     """One-token decode. x: (B, 1, D); ck/cv: (B, Hkv, Tmax, Dh), written
-    in place.  The MoE layer routes every lane of the batch together, as
-    the reference does (idle lanes compete for capacity)."""
+    in place; ks/vs: the int8 cache's scales (B, Hkv, Tmax), or None for
+    a wide cache.  The MoE layer routes every lane of the batch together,
+    as the reference does (idle lanes compete for capacity).  Returns
+    (x, ck, cv) for a wide cache, (x, ck, cv, ks, vs) for an int8 one."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    attn, ck, cv = L.decode_attention(lp["attn"], cfg, h, ck, cv, pos)
+    if ks is not None:
+        attn, ck, cv, ks, vs = _quant_decode_attention(
+            lp["attn"], cfg, h, ck, cv, ks, vs, pos)
+    else:
+        attn, ck, cv = L.decode_attention(lp["attn"], cfg, h, ck, cv, pos)
     x = x + attn
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, cfg, h)[0], ck, cv
+    x = x + _ffn(lp, cfg, h)[0]
+    return (x, ck, cv) if ks is None else (x, ck, cv, ks, vs)
 
 
 # ---------------------------------------------------------------------------
@@ -293,13 +346,16 @@ def forward(params, cfg, tokens, prefix_embeds: Optional[torch.Tensor] = None):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
     """Zero KV cache ``{"k", "v"}``, each (L, B, Hkv, max_len, Dh) in
-    ``dtype`` (default ``COMPUTE_DTYPE``) on ``device``."""
-    if flags.FLAGS.decode_kv_int8:
-        raise NotImplementedError(
-            "FLAGS.decode_kv_int8 is not ported yet (ROADMAP Queue 1 item 5e, "
-            "the decode flags)")
-    dtype = L.COMPUTE_DTYPE if dtype is None else dtype
+    ``dtype`` (default ``COMPUTE_DTYPE``) on ``device``.  Under
+    ``FLAGS.decode_kv_int8``: ``k``, ``v`` in int8 and their float32
+    scales ``k_s``, ``v_s`` of (L, B, Hkv, max_len)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if flags.FLAGS.decode_kv_int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], device=device),
+                "v_s": torch.zeros(shape[:-1], device=device)}
+    dtype = L.COMPUTE_DTYPE if dtype is None else dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -308,18 +364,35 @@ _KV_AXES = ("layers", "cache_batch", "kv_heads", "kv_seq", None)
 
 
 def cache_axes(cfg):
-    """Each cache leaf's logical axes (the reference's
-    ``Model.cache_axes`` for the dense family)."""
+    """Each cache leaf's logical axes (the reference's ``Model.cache_axes``
+    for the transformer families; the scales of the int8 cache under
+    ``FLAGS.decode_kv_int8``, read at call time)."""
     del cfg
-    return {"k": _KV_AXES, "v": _KV_AXES}
+    axes = {"k": _KV_AXES, "v": _KV_AXES}
+    if flags.FLAGS.decode_kv_int8:
+        axes.update(k_s=_KV_AXES[:-1], v_s=_KV_AXES[:-1])
+    return axes
 
 
 def decode_step(params, cfg, cache, tokens, pos):
     """tokens: (B, 1); pos: an int, or (B,) per-lane positions →
-    (logits (B, 1, V), cache), the cache written in place."""
+    (logits (B, 1, V), cache), the cache written in place.  An int8 cache
+    (one with ``k_s``, as the reference chooses) takes one int position:
+    per-lane positions raise a ``ValueError``, as the reference's
+    broadcast of (B,) positions into its one-row write does."""
     x = embed_tokens(params, tokens)
+    int8 = "k_s" in cache
+    if int8:
+        if torch.is_tensor(pos) and pos.dim() > 0:
+            raise ValueError(
+                f"the int8 KV cache decodes every lane at one position; got "
+                f"per-lane positions of shape {tuple(pos.shape)} (the "
+                "reference: Incompatible shapes for broadcasting)")
+        pos = int(pos)
     for i, lp in enumerate(params["layers"]):
-        x, _, _ = block_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos)
+        scales = (cache["k_s"][i], cache["v_s"][i]) if int8 else ()
+        x = block_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos,
+                         *scales)[0]
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), cache
 

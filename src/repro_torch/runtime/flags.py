@@ -7,9 +7,11 @@ before/after roofline terms (hypothesis → change → measure → validate).
 The port's copy of the reference's ``runtime/flags.py``.  The port runs the
 default path, all flags False, and keeps only the flags its model reads:
 ``moe_grouped`` (``models/transformer.py`` ``moe_apply``: the grouped
-dispatch), and ``decode_gqa_packed`` and ``decode_kv_int8``, each of which
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 5e where it is
-read, until a slice ports it.  The reference's fourth,
+dispatch), ``decode_gqa_packed`` (``models/layers.py``
+``decode_attention``: the grouped-query contraction) and
+``decode_kv_int8`` (``models/transformer.py``: the int8 cache of
+``init_cache``, chosen by ``decode_step`` where the cache has ``k_s``,
+and its ``cache_axes``).  The reference's fourth,
 ``decode_kv_seq_shard``, is not here, so ``use_flags`` refuses it with a
 ``TypeError``: it only changes sharding rules, which one card does not
 have.

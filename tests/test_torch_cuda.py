@@ -20,7 +20,11 @@ included), and in bfloat16 at the models' block-aligned lengths (2048,
 (paligemma-3b's, also at its two calls a layer and in its smoke model at
 that head dim); head dim 96 at chip_smoke 13a's shapes and 256 at
 12a's, each of 256's two bfloat16 instances on its own; phi3-mini-3.8b's smoke model
-at head dim 96.  K17
+at head dim 96; head dim 64 at whisper-base's three calls (the encoder's
+and the cross attention unmasked, the decoder's causal), and its smoke
+model at head dim 64.  The packed decode (``decode_gqa_packed``) against
+the float32-cast form it replaces: its products within 1e-5 normwise, a
+smoke model's decode logits within 1e-5 (float32) and 2e-2 (bfloat16).  K17
 and K18 in float32 within 1e-5 normwise (largest difference over the
 largest plain magnitude: their sums run in another order than the plain
 version's), in bfloat16 at rtol = atol = 2e-2 (about one output ulp), at
@@ -899,6 +903,34 @@ def test_flash_attention_kernel_at_paligemmas_two_calls(card, dtype):
                                    atol=tol)
 
 
+#: whisper-base's three K15 calls at B = 2 (8 heads of 64), (BH, Tq, Tk,
+#: causal): the encoder's over its 1500 frames, unmasked; the cross
+#: attention, 448 decoder positions on 1500 frames, unmasked; the
+#: decoder's causal self-attention over 448
+WHISPER_ATTN = [(16, 1500, 1500, False), (16, 448, 1500, False),
+                (16, 448, 448, True)]
+
+
+@pytest.mark.parametrize("bh,tq,tk,causal", WHISPER_ATTN,
+                         ids=["encoder", "cross", "decoder"])
+@pytest.mark.parametrize("dtype", list(TF_TOL))
+def test_flash_attention_kernel_at_whispers_three_calls(card, bh, tq, tk,
+                                                       causal, dtype):
+    """Head dim 64 (the bfloat16 (64, 2) instance, the float32 CUDA-core
+    kernel) at whisper-base's three calls: one launch each, within K15's
+    tolerance of the plain version."""
+    q = _frames(card, 41 + tq, bh, tq, 64).to(dtype)
+    k = _frames(card, 42 + tk, bh, tk, 64).to(dtype)
+    v = _frames(card, 43 + tk, bh, tk, 64).to(dtype)
+    got = _tf_counted("flash_attention", attention.flash_attention, q, k, v,
+                      causal=causal)
+    want = ref.flash_attention(q[:, None], k[:, None], v[:, None],
+                               causal=causal)[:, 0]
+    assert bool(torch.isfinite(got).all())
+    tol = TF_TOL[dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_transformer_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros(2, 8, 48, device=card)
     with pytest.raises(ValueError, match="head dims"):
@@ -1109,6 +1141,120 @@ def test_phi3_smoke_at_head_dim_96_runs_k15(card, dtype, monkeypatch):
         control = logits()
     c_err = max(_normwise(a, b) for a, b in zip(control, plain))
     assert err <= FP32_SMOKE_TOL < c_err, (err, c_err)
+
+
+@pytest.mark.parametrize("dtype", list(TF_TOL))
+def test_whisper_smoke_at_head_dim_64_runs_k15(card, dtype, monkeypatch):
+    """whisper-base's smoke config at its own head dim, 64: ``forward``
+    (frames in) launches K15 once an encoder layer and twice a decoder
+    layer (causal self-attention, unmasked cross attention, Tq ≠ Tk) and
+    K16 at every norm; then cross K/V from the encoder states and decode
+    steps.  The logits agree with the plain path's: float32 within
+    FP32_SMOKE_TOL, a control (the plain attention with its scores
+    rounded to bfloat16) failing it; bfloat16 within 1e-1 with the weight
+    matrices at 1/sqrt(their input width)."""
+    from repro_torch.models import whisper
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", dtype)
+    cfg = dataclasses.replace(registry.get_config("whisper-base").smoke(),
+                              d_head=64)
+    m = registry.build(cfg)
+    p = m.init(0)
+    if dtype == torch.bfloat16:
+        for key in ("enc_layers", "dec_layers"):
+            chip_smoke.scale_to_width(p[key], len(p[key]))
+    gen = torch.Generator().manual_seed(3)
+    frames = torch.randn(2, 100, cfg.d_model, generator=gen).to(card)
+    tok = torch.randint(0, cfg.vocab, (2, 40), generator=gen).to(card)
+
+    def logits():
+        out = [m.forward(p, tok, frames=frames)]
+        enc = whisper.encode(p, cfg, frames)
+        cache = whisper.fill_cross_cache(p, cfg, m.init_cache(2, 100), enc)
+        for t in range(3):
+            out.append(m.decode_step(p, cache, tok[:, t:t + 1], t)[0])
+        return out
+
+    lib = dsp.TRANSFORMER_LIB
+    lib.reset_launches()
+    m.forward(p, tok, frames=frames)
+    torch.cuda.synchronize()
+    E, D = cfg.enc_layers, cfg.n_layers
+    assert lib.launches["flash_attention"] == E + 2 * D
+    assert lib.launches["rmsnorm"] == (2 * E + 1) + (3 * D + 1)
+    kern = logits()
+    with monkeypatch.context() as mp:
+        _swap_plain(mp)
+        plain = logits()
+    err = max(_normwise(a, b) for a, b in zip(kern, plain))
+    if dtype == torch.bfloat16:
+        assert err <= 1e-1, err
+        return
+    with monkeypatch.context() as mp:
+        _swap_plain(mp, attn=chip_smoke.attention_bf16_scores)
+        control = logits()
+    c_err = max(_normwise(a, b) for a, b in zip(control, plain))
+    assert err <= FP32_SMOKE_TOL < c_err, (err, c_err)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+def test_packed_products_match_the_float32_cast_form(card, cache_dtype):
+    """The card's packed decode products (the scores by ``bmm`` with
+    ``out_dtype`` float32 on the bfloat16 keys, M = G rows a KV head; P·V
+    on the values cast once) against the float32-cast form they replace,
+    at Qwen2-1.5B's 32-slot shape (2 KV heads of 128, 6 query heads each,
+    512 positions): within 1e-5 normwise (float32 sums in another order).
+    An int8 cache is read widened to bfloat16, exactly."""
+    N, G, T, D = 64, 6, 512, 128
+    q = _frames(card, 51, N, G, D).to(torch.bfloat16)
+    if cache_dtype == torch.int8:
+        k = (_frames(card, 52, N, T, D) * 40).round().clamp(-127, 127)
+        v = (_frames(card, 53, N, T, D) * 40).round().clamp(-127, 127)
+        k, v = k.to(torch.int8), v.to(torch.int8)
+        s = layers.grouped_scores(q, k.to(torch.bfloat16))
+    else:
+        k = _frames(card, 52, N, T, D).to(torch.bfloat16)
+        v = _frames(card, 53, N, T, D).to(torch.bfloat16)
+        s = layers.grouped_scores(q, k)
+    want_s = torch.bmm(q.float(), k.float().transpose(1, 2))
+    assert s.dtype == torch.float32 and _normwise(s, want_s) <= 1e-5
+    w = torch.softmax(want_s * D ** -0.5, dim=-1)
+    o = layers.grouped_values(w, v)
+    want_o = torch.einsum("ngt,ntd->ngd", w, v.float())
+    assert o.dtype == torch.float32 and _normwise(o, want_o) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", list(TF_TOL))
+def test_packed_decode_matches_the_unpacked_decode_on_the_card(
+        card, dtype, monkeypatch):
+    """Qwen2-1.5B's smoke config on the card: decode steps at per-lane
+    positions with ``decode_gqa_packed`` against the same steps without
+    it (the float32-cast, repeated form), the logits within 1e-5
+    normwise in float32 and 2e-2 in bfloat16 (the attention output is
+    rounded to bfloat16 once, after float32 sums in another order); and
+    an int8 rollout at one position runs, its logits finite."""
+    from repro_torch.runtime import flags
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", dtype)
+    m = registry.build_smoke("qwen2-1.5b")
+    p = m.init(0)
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, m.cfg.vocab, (4, 12), generator=gen).to(card)
+    out = {}
+    for packed in (False, True):
+        c = m.init_cache(4, 32)
+        with flags.use_flags(decode_gqa_packed=packed):
+            out[packed] = [m.decode_step(
+                p, c, tok[:, t:t + 1],
+                torch.tensor([t, t + 3, t + 9, 2 * t], device=card))[0]
+                for t in range(12)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = max(_normwise(a, b) for a, b in zip(out[True], out[False]))
+    assert err <= tol, err
+    with flags.use_flags(decode_kv_int8=True, decode_gqa_packed=True):
+        c = m.init_cache(4, 32)
+        assert c["k"].dtype == torch.int8
+        for t in range(12):
+            lg, c = m.decode_step(p, c, tok[:, t:t + 1], t)
+            assert bool(torch.isfinite(lg).all())
 
 
 # ---------------------------------------------------------------------------

@@ -310,22 +310,24 @@ def test_random_init_follows_the_reference_distribution():
 
 
 def test_unported_families_and_flags_raise():
-    """Whisper (ROADMAP Queue 1 item 5d) and the decode flags (5e) still
-    raise; the MoE and VLM families (5c) build, and ``moe_grouped`` is a
-    flag; ``decode_kv_seq_shard`` is not one."""
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        tregistry.build_arch("whisper-base", device="cpu")
-    for arch in ("olmoe-1b-7b", "qwen2-moe-a2.7b", "paligemma-3b"):
+    """Every family builds now (whisper-base, the audio family, since
+    ROADMAP Queue 1 item 5d; the MoE and VLM families since 5c), and the
+    decode flags run (5e): ``decode_kv_int8`` gives the int8 cache and
+    ``decode_gqa_packed`` a decode step.  What still raises:
+    ``decode_kv_seq_shard``, which is not a flag of the port
+    (``TypeError``), and ``prefix_embeds`` given to a family that is not
+    the vlm (``ValueError``)."""
+    for arch in ("whisper-base", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                 "paligemma-3b"):
         assert tregistry.build_arch(arch, device="cpu").cfg.name == arch
     m = tregistry.build_smoke(ARCH, device="cpu")
     p = m.init(0)
     with tflags.use_flags(decode_kv_int8=True):
-        with pytest.raises(NotImplementedError, match="5e"):
-            m.init_cache(1, 8)
+        assert m.init_cache(1, 8)["k"].dtype == torch.int8
     c = m.init_cache(1, 8)
     with tflags.use_flags(decode_gqa_packed=True):
-        with pytest.raises(NotImplementedError, match="5e"):
-            m.decode_step(p, c, torch.zeros(1, 1, dtype=torch.int32), 0)
+        lg, _ = m.decode_step(p, c, torch.zeros(1, 1, dtype=torch.int32), 0)
+    assert lg.shape == (1, 1, m.cfg.vocab)
     with tflags.use_flags(moe_grouped=True) as f:
         assert f.moe_grouped and tflags.FLAGS.moe_grouped
     assert not tflags.FLAGS.moe_grouped

@@ -17,8 +17,11 @@ at full width through ``forward`` and the ``Server``; the scenario server
 ``hts.serve``, static and slice-and-refill, on 4096 requests through 1024
 lanes; the MoE family (olmoe-1b-7b, qwen2-moe-a2.7b) and paligemma-3b's
 prefix-LM attention at full width; phi3-mini-3.8b at full width (head dim
-96); whisper-base, the audio family, at full width (head dim 64) — then
-checks them:
+96); whisper-base, the audio family, at full width (head dim 64);
+training: Qwen2-1.5B's train steps at full width through
+``runtime.train.make_train_step``, one train step of every other
+family's smoke model, and the fault-tolerant ``TrainLoop`` and its
+launcher — then checks them:
 
 1. device and build: the card's name and power limit, the four kernel
    libraries' builds (time and ``-Xptxas -v`` report); the registers and
@@ -270,6 +273,33 @@ checks them:
    ``WHISPER_LOGIC_TOL`` at the same width draw (the reference's draw
    printed), then bf16 decode ms a step; (d) the ``Server``, 8 slots, 16 requests of 16 prompt and
    16 new tokens: every request completes, 19 K16 launches a step;
+15. training (the kernels' gradients are their plain versions' VJPs
+   behind ``kernels.ops._RefVJP``, as the reference's ``_make_ref_bwd``):
+   (a) each op's Function on the card (K15 bf16 at 4 x 12 heads of 128
+   over 2048, GQA 6 to 1; K16 bf16 at 8192 x 1536; K17 and K18 float32 at
+   rwkv6's and zamba2's smoke widths): one launch, the gradients equal
+   plain autograd's bit for bit, and the control, the raw kernel
+   without the Function, leaves every upstream gradient None; (b)
+   Qwen2-1.5B at full width and depth, float32 masters from a seed,
+   bf16 compute, remat ``"nothing"``, AdamW: 2 warm-up and 4 timed steps
+   on 4 x 2048 tokens, finite losses, 56 K15 and 113 K16 launches a step
+   (each layer's again in its recompute); ms a step, tokens/s, peak
+   memory, and a traced step's busy share and device time split
+   (products, K15, K16, the plain attention backward, AdamW, the
+   cross-entropy, the rest); (c) the float32 gate at full depth on 1 x
+   2048: the loss within ``TRAIN_LOSS_TOL`` and every leaf's gradient
+   within ``TRAIN_GRAD_TOL`` normwise, kernels against plain autograd
+   on the plain versions, the control (the kernels without the
+   Function: missing gradients read as zeros) past it, beside a
+   one-ulp witness (plain on the embedding one ulp up, leaf by leaf;
+   not gated); the bf16 readings printed; (d) one train step of olmoe-1b-7b, paligemma-3b,
+   rwkv6-3b, zamba2-7b and whisper-base at smoke width in float32, each
+   gated at its forward gate's limit (``FP32_LOGIT_TOL``, at that gate's
+   draw) with the same control; (e) in subprocesses, the ``TrainLoop``
+   at Qwen2's smoke config with a failure injected at step 6 equal to an
+   uninterrupted run bit for bit (every loss and the final state, under
+   ``torch.use_deterministic_algorithms``), and ``python -m
+   repro_torch.launch.train --arch qwen2-1.5b --smoke --steps 8``;
 5b. kernel times: device, call, plain and library times of the DSP
    kernels at each path's shape, of K15 and K16 at the prefill's (K15 and
    ``scaled_dot_product_attention`` at zamba2's too, K16 and ``rms_norm``
@@ -299,7 +329,8 @@ prefix (``--only 2c``: ``hts_run`` against the per-phase loop; ``--only
 3``: the main path; ``--only 9 "5b transformer"``: the dense model path;
 ``--only 10``: the ssm and hybrid families; ``--only 11``: the scenario
 server; ``--only 12``: the MoE family and paligemma-3b; ``--only 13``:
-phi3-mini-3.8b; ``--only 14``: whisper-base) and prints no kernels line.
+phi3-mini-3.8b; ``--only 14``: whisper-base; ``--only 15``: training)
+and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -310,6 +341,7 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -666,6 +698,24 @@ WHISPER_LOGIC_TOL = 1e-3
 WHISPER_SLOTS, WHISPER_MAX_LEN, WHISPER_REQUESTS = 8, 64, 16
 WHISPER_PROMPT, WHISPER_NEW = 16, 16
 
+# training (phase 15): Qwen2-1.5B's train step at full width and depth
+#: the train step's tokens (phase 9b's prefill shape), its warm-up and timed
+#: steps; the float32 gate's batch
+TRAIN_B, TRAIN_T, TRAIN_WARM, TRAIN_STEPS = 4, 2048, 2, 4
+TRAIN_F32_B = 1
+#: the float32 gate (15c): the loss relative, each leaf's gradient
+#: normwise (largest difference over the largest plain magnitude)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-2
+#: 15d: one train step of each other family's smoke model, on 2 x
+#: TRAIN_SMOKE_T tokens (whisper-base on TRAIN_FRAMES frames), gated at
+#: the model's FP32_LOGIT_TOL; 15a's K17 and K18 at FN_SMOKE_T steps
+TRAIN_FAMILIES = ("olmoe-1b-7b", "paligemma-3b", "rwkv6-3b", "zamba2-7b",
+                  "whisper-base")
+TRAIN_SMOKE_T = TRAIN_FRAMES = FN_SMOKE_T = 64
+#: 15e: the TrainLoop at Qwen2's smoke config, uninterrupted and with a
+#: failure injected, as the reference's test_fault_tolerance.py runs it
+RESUME_STEPS, RESUME_FAIL_AT, RESUME_CKPT_EVERY = 12, 6, 4
+
 
 def log(*a):
     print(*a, flush=True)
@@ -881,12 +931,20 @@ def device_events(prof):
     """(name, µs) of every device-side activity in a profile: kernels,
     copies and sets.  Counting these, and not the host ops that launched
     them, counts each microsecond of device work once.  A profiler
-    schedule's ``ProfilerStep*`` range also lands on the device timeline;
-    it spans the step, not device work, and is left out."""
+    schedule's ``ProfilerStep*`` range, and each ``record_function``
+    range (the train step's), also land on the device timeline; they
+    span device work, not do it, and are left out."""
     from torch.autograd import DeviceType
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("ProfilerStep")]
+            and not e.name.startswith("ProfilerStep")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+class StepFailed(Exception):
+    """A step run under the profiler failed by itself: not a profiler's
+    failure (a ``RuntimeError``), which a phase may report as "not
+    measured"."""
 
 
 def trace_window(torch, warm, run, on_trace=None):
@@ -1533,8 +1591,57 @@ def model_config(get_config):
     return get_config(ARCH)
 
 
+def train_resume(directory: str) -> int:
+    """Phase 15e's subprocess (``--train-resume DIR``): the ``TrainLoop``
+    on the card at Qwen2's smoke config under
+    ``torch.use_deterministic_algorithms(True)``, RESUME_STEPS steps
+    uninterrupted and again with a ``RuntimeError`` injected once at step
+    RESUME_FAIL_AT (a checkpoint every RESUME_CKPT_EVERY steps); every
+    loss and the final state must be equal bit for bit.  Prints one JSON
+    line; exit 0 if they are."""
+    import torch
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.models import layers, registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import train as train_rt
+    torch.use_deterministic_algorithms(True)
+    model = registry.build(registry.get_config(ARCH).smoke(), device=DEVICE)
+    source = data_lib.make_source(data_lib.DataConfig(
+        vocab=model.cfg.vocab, seq_len=64, global_batch=4, seed=7))
+    tcfg = train_rt.TrainConfig(optimizer=AdamWConfig(lr=1e-3),
+                                warmup_steps=2, total_steps=RESUME_STEPS,
+                                ckpt_every=RESUME_CKPT_EVERY, max_restarts=2)
+    fired = []
+
+    def injector(step):
+        if step == RESUME_FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+    runs = {}
+    for name, inj in (("uninterrupted", None), ("failed", injector)):
+        loop = train_rt.TrainLoop(
+            model, source, train_rt.make_train_step(model, tcfg), tcfg,
+            str(Path(directory) / name),
+            lambda: train_rt.init_state(model, MODEL_SEED), inj)
+        state = loop.run(RESUME_STEPS)
+        losses = {h["step"]: h["loss"] for h in loop.history}
+        runs[name] = (loop.restarts, [losses[i] for i in range(RESUME_STEPS)],
+                      layers.tree_leaves(state))
+    (_, la, sa), (restarts, lb, sb) = runs["uninterrupted"], runs["failed"]
+    same_losses = la == lb
+    same_state = all(torch.equal(x, y) for x, y in zip(sa, sb))
+    print(json.dumps({"resume": {
+        "device": torch.cuda.get_device_name(0), "restarts": restarts,
+        "steps": RESUME_STEPS, "failed_at": RESUME_FAIL_AT,
+        "losses_equal": same_losses, "state_equal": same_state,
+        "leaves": len(sa), "first_loss": la[0], "last_loss": la[-1]}}))
+    return 0 if (same_losses and same_state and restarts == 1) else 1
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if "--train-resume" in argv:
+        return train_resume(argv[argv.index("--train-resume") + 1])
     # ``--only PREFIX ...``: run the build and the phases whose names start
     # with a prefix, and print no kernels line (for iterating on one path;
     # the check itself runs with no arguments)
@@ -4259,6 +4366,515 @@ def main(argv=None) -> int:
         phase("14c whisper-base decode against decode_seq", whisper_decode)
         phase("14d whisper-base Server", whisper_server)
         ctx.pop("whisper")
+    torch.cuda.empty_cache()
+
+    # 15. training: Qwen2-1.5B train steps at full width, every family's
+    # step at smoke width, the runtime ---------------------------------------
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.models import layers as train_layers
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import train as train_rt
+
+    def train_batch(cfg, B, T, seed=MODEL_SEED):
+        """A ``SyntheticLM`` batch of B x T (the vlm's prefix embeddings
+        and the audio family's frames drawn from numpy) on the card."""
+        src = data_lib.SyntheticLM(data_lib.DataConfig(
+            vocab=cfg.vocab, seq_len=T, global_batch=B, seed=seed))
+        out = src.batch(0)
+        rng = np.random.default_rng(seed)
+        if cfg.family == "vlm":
+            out["prefix_embeds"] = rng.standard_normal(
+                (B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            out["frames"] = rng.standard_normal(
+                (B, TRAIN_FRAMES, cfg.d_model)).astype(np.float32)
+        return data_lib.shard_batch(out, DEVICE)
+
+    def grads_of(model, params, batch, policy="nothing"):
+        """The train step's loss and gradients (``train_rt.loss_and_grads``;
+        zeros where none reached a master, as ``make_train_step`` takes
+        them), the launches, and how many gradients were missing."""
+        torch.cuda.synchronize()
+        tlib.reset_launches()
+        loss, got = train_rt.loss_and_grads(model, params, batch, policy)
+        torch.cuda.synchronize()
+        counts = dict(tlib.launches)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(train_layers.tree_leaves(params), got)]
+        return loss, grads, counts, sum(g is None for g in got)
+
+    def leaf_paths(tree, path=""):
+        """Each leaf's path (``['layers'][3]['wq']``), in ``tree_leaves``'
+        order."""
+        if isinstance(tree, dict):
+            return [q for k, v in tree.items()
+                    for q in leaf_paths(v, f"{path}[{k!r}]")]
+        if isinstance(tree, list):
+            return [q for i, v in enumerate(tree)
+                    for q in leaf_paths(v, f"{path}[{i}]")]
+        return [path]
+
+    def grad_errors(grads, want) -> list:
+        """Each leaf's normwise error (0 where both are zero)."""
+        out = []
+        for g, w in zip(grads, want):
+            scale = float(w.abs().max())
+            diff = float((g - w).abs().max())
+            out.append(diff / scale if scale > 0 else
+                       (0.0 if diff == 0 else math.inf))
+        return out
+
+    def train_counts(cfg):
+        """K15-K18 launches of one train step under remat "nothing": each
+        layer's kernels in the forward and again in its recompute (the
+        final norm, zamba2's tail and whisper's norms outside the layers
+        run once)."""
+        n = 2
+        L = cfg.n_layers
+        if cfg.family == "audio":
+            E = cfg.enc_layers
+            return {**zero, "flash_attention": n * (E + 2 * L),
+                    "rmsnorm": n * (2 * E + 3 * L) + 2}
+        if cfg.family == "ssm":
+            return {**zero, "wkv6": n * L, "rmsnorm": n * 2 * L + 1}
+        if cfg.family == "hybrid":
+            period = cfg.shared_attn_period
+            groups = L // period
+            tail = L - groups * period
+            return {**zero, "ssd": n * groups * period + tail,
+                    "flash_attention": n * groups,
+                    "rmsnorm": n * groups * (period + 2) + tail + 1}
+        attn = L * (2 if cfg.prefix_len else 1)
+        return {**zero, "flash_attention": n * attn,
+                "rmsnorm": n * 2 * L + 1}
+
+    @contextlib.contextmanager
+    def no_function():
+        """While open, the ops call the K15-K18 wrappers directly, without
+        the gradient's Function (``ops._apply``): the control (a raw
+        kernel's output carries no graph), and, with ``plain_path``,
+        plain autograd through the plain versions."""
+        saved = ops._apply
+        ops._apply = lambda name, kernel, plain, *inputs: kernel(*inputs)
+        try:
+            yield
+        finally:
+            ops._apply = saved
+
+    def fn_cases():
+        """15a's inputs on the card, (op, plain, inputs): K15 bf16 at the
+        train step's 4 x 12 heads of 128 over 2048 (GQA 6 to 1), K16 bf16
+        at 8192 x 1536, K17 and K18 float32 at rwkv6's and zamba2's smoke
+        widths."""
+        g = torch.Generator(device=DEVICE).manual_seed(MODEL_SEED)
+
+        def rn(*shape, dtype=torch.float32, scale=1.0):
+            return (torch.randn(*shape, generator=g, device=DEVICE)
+                    * scale).to(dtype)
+        bf = torch.bfloat16
+        B, T = TRAIN_B, TRAIN_T
+        r = registry.get_config("rwkv6-3b").smoke()
+        z = registry.get_config("zamba2-7b").smoke()
+        H, K, V = r.n_heads, r.ssm.d_state, r.ssm.head_dim
+        zi = z.ssm.expand * z.d_model
+        zH, zN, zP = zi // z.ssm.head_dim, z.ssm.d_state, z.ssm.head_dim
+        Ts = FN_SMOKE_T
+        return {
+            "flash_attention": (
+                lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+                lambda q, k, v: ref.flash_attention(
+                    q, k.repeat_interleave(6, 1), v.repeat_interleave(6, 1),
+                    causal=True),
+                [rn(B, 12, T, 128, dtype=bf), rn(B, 2, T, 128, dtype=bf),
+                 rn(B, 2, T, 128, dtype=bf)]),
+            "rmsnorm": (lambda x, w: ops.rmsnorm(x, w, 1e-6),
+                        lambda x, w: ref.rmsnorm(x, w, 1e-6),
+                        [rn(B * T, 1536, dtype=bf),
+                         (1 + 0.2 * rn(1536)).to(bf)]),
+            "wkv6": (ops.rwkv6_scan, ref.rwkv6_scan,
+                     [rn(2, Ts, H, K), rn(2, Ts, H, K), rn(2, Ts, H, V),
+                      torch.exp(-torch.exp(rn(2, Ts, H, K, scale=0.5))),
+                      rn(H, K)]),
+            "ssd": (ops.mamba2_ssd, ref.mamba2_ssd,
+                    [rn(2, Ts, zH, zP), -torch.exp(rn(2, Ts, zH)),
+                     rn(2, Ts, zN), rn(2, Ts, zN)]),
+        }
+
+    def op_grads(fn, inputs):
+        """Gradients of ((fn(1.5 x...) + bias) c).sum() with respect to
+        the leaves x (upstream of the op) and bias, None where the graph
+        does not reach one."""
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out = fn(*(1.5 * t for t in leaves))
+        bias = torch.zeros((), device=DEVICE, requires_grad=True)
+        c = torch.randn(out.shape, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(1)).to(out.dtype)
+        loss = ((out + bias) * c).float().sum()
+        return torch.autograd.grad(loss, leaves + [bias], allow_unused=True)
+
+    def functions_on_card():
+        """15a: each op's Function on the card at its model shape: the
+        gradients through the kernel's Function equal plain autograd's bit
+        for bit (both are the plain version's VJP of the same inputs);
+        the control, the raw kernel without the Function, leaves every
+        upstream gradient None."""
+        for name, (fn, plain, inputs) in fn_cases().items():
+            tlib.reset_launches()
+            got = op_grads(fn, inputs)
+            launched = tlib.launches[name]
+            want = op_grads(plain, inputs)
+            with no_function():
+                ctl = op_grads(fn, inputs)
+            torch.cuda.synchronize()
+            assert launched == 1, (name, launched)
+            same = all(g is not None and torch.equal(g, w)
+                       for g, w in zip(got, want))
+            assert same, f"{name}: the Function's gradients differ from plain"
+            assert all(g is None for g in ctl[:-1]), \
+                f"{name}: the control's upstream gradients are not None"
+            shapes = [tuple(t.shape) for t in inputs]
+            log(f"15a {name:15s} {shapes} {inputs[0].dtype}: "
+                f"{len(got)} gradients through the Function equal plain "
+                "autograd's bit for bit; control (raw kernel): upstream "
+                "gradients None")
+
+    def train_split(prof) -> dict:
+        """A traced train step's device time (ms) by part: K15 and K16
+        (forward and recompute), the plain attention backward (inside the
+        Function's ``ref_vjp:flash_attention``), AdamW (``adamw.update``),
+        the cross-entropy (its forward and its two V-wide backward nodes),
+        the other matrix products, the rest."""
+        parts = dict.fromkeys(("k15", "k16", "attention_backward", "adamw",
+                               "cross_entropy", "products"), 0.0)
+        linked = 0.0
+        for e in prof.events():
+            if not getattr(e, "kernels", None):
+                continue
+            chain = []
+            p = e
+            while p is not None:
+                chain.append(p.name)
+                p = p.cpu_parent
+            for kern in e.kernels:
+                us = kern.duration
+                linked += us
+                if "flash_attention" in kern.name:
+                    key = "k15"
+                elif "rmsnorm" in kern.name:
+                    key = "k16"
+                elif any(n.startswith("ref_vjp:flash_attention")
+                         for n in chain):
+                    key = "attention_backward"
+                elif "adamw.update" in chain:
+                    key = "adamw"
+                elif any(n == "softmax_xent" or "LogsumexpBackward" in n
+                         or "GatherBackward" in n for n in chain):
+                    key = "cross_entropy"
+                elif e.name in ("aten::mm", "aten::addmm", "aten::bmm",
+                                "aten::baddbmm"):
+                    key = "products"
+                else:
+                    continue
+                parts[key] += us
+        out = {k: v / 1e3 for k, v in parts.items()}
+        out["linked"] = linked / 1e3
+        return out
+
+    @contextlib.contextmanager
+    def xent_range():
+        """``layers.softmax_xent`` inside ``record_function("softmax_xent")``
+        (the time split reads it)."""
+        saved = train_layers.softmax_xent
+
+        def ranged(*a, **k):
+            with torch.profiler.record_function("softmax_xent"):
+                return saved(*a, **k)
+        train_layers.softmax_xent = ranged
+        try:
+            yield
+        finally:
+            train_layers.softmax_xent = saved
+
+    def qwen2_train():
+        """15b: Qwen2-1.5B at full width and depth, float32 masters drawn
+        from MODEL_SEED, bf16 compute, remat "nothing": TRAIN_WARM
+        warm-up steps, then TRAIN_STEPS timed steps of make_train_step on
+        TRAIN_B x TRAIN_T tokens, each checked for finite losses and its
+        K15 and K16 launches; ms a step, tokens/s, peak memory; then a
+        traced step's busy share and its device time split."""
+        cfg = model_config(registry.get_config)
+        model = registry.build(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_rt.init_state(model, MODEL_SEED)
+        torch.cuda.synchronize()
+        log(f"{cfg.name} train state: {model.param_count() / 1e9:.4f} B "
+            "float32 masters with AdamW's m and v, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card")
+        tcfg = train_rt.TrainConfig(optimizer=AdamWConfig(lr=3e-4),
+                                    remat_policy="nothing", warmup_steps=2,
+                                    total_steps=100)
+        step = train_rt.make_train_step(model, tcfg)
+        source = data_lib.SyntheticLM(data_lib.DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_T, global_batch=TRAIN_B,
+            seed=MODEL_SEED))
+        want = train_counts(cfg)
+        n = 0
+        walls, losses = [], []
+
+        def one():
+            nonlocal state, n
+            batch = source.batch(n)
+            n += 1
+            torch.cuda.synchronize()
+            tlib.reset_launches()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(tlib.launches)
+            assert math.isfinite(loss), f"step {n - 1}: loss {loss}"
+            assert counts == want, (counts, want)
+            return wall, loss, met
+        for _ in range(TRAIN_WARM):
+            one()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_STEPS):
+            wall, loss, met = one()
+            walls.append(wall)
+            losses.append(loss)
+        peak = torch.cuda.max_memory_allocated()
+        tf_launches[f"train/{cfg.name}"] = want
+        ms = statistics.median(walls) * 1e3
+        log(f"15b {cfg.name} train step at {TRAIN_B} x {TRAIN_T} tokens, "
+            f"bf16, remat 'nothing': {[round(w * 1e3, 1) for w in walls]} ms "
+            f"(median {ms:.1f} ms, {TRAIN_B * TRAIN_T / ms * 1e3:.0f} "
+            f"tokens/s), losses {[round(x, 4) for x in losses]}, grad_norm "
+            f"{float(met['grad_norm']):.4g}, lr {float(met['lr']):.3g}, peak "
+            f"{peak / 1e9:.2f} GB, launches a step {want}  on {card}")
+        out: dict = {}
+
+        def traced_step():
+            # a traced step's own failure (a loss not finite, other
+            # launches, a device fault) fails the phase: only the
+            # profiler's own may pass as "not measured"
+            try:
+                one()
+            except Exception as e:
+                raise StepFailed(f"a traced train step: {e!r}") from e
+        try:
+            with xent_range():
+                events, wall_us = trace_window(
+                    torch, traced_step, traced_step,
+                    on_trace=lambda p: out.update(split=train_split(p)))
+        except (RuntimeError, AssertionError, AttributeError) as e:
+            log(f"15b time split not measured (profiler: {e})")
+        else:
+            busy = sum(us for _k, us in events) / 1e3
+            s = out["split"]
+            rest = busy - sum(v for k, v in s.items() if k != "linked")
+            log(f"15b a traced train step: wall {wall_us / 1e3:.1f} ms, "
+                f"device busy {busy:.1f} ms ({100 * busy * 1e3 / wall_us:.1f}"
+                f" %), {len(events)} device activities: products "
+                f"{s['products']:.1f}, K15 forward {s['k15']:.1f}, K16 "
+                f"{s['k16']:.1f}, the plain attention backward "
+                f"{s['attention_backward']:.1f}, AdamW {s['adamw']:.1f}, the "
+                f"cross-entropy {s['cross_entropy']:.1f}, the rest "
+                f"{rest:.1f} ms ({s['linked']:.1f} ms linked to host ops)  "
+                f"on {card}")
+            for key, us, cnt in costliest(events, 1, 10):
+                log(f"    {us / 1e3:9.3f} ms  x{cnt:<5d} {key}")
+        del state
+        torch.cuda.empty_cache()
+
+    def gate_step(model, params, batch, tol, what, routing=False,
+                  witness=False):
+        """Loss and gradients on the kernels, on the plain versions (plain
+        autograd) and on the control (the kernels without the Function:
+        missing gradients read as zeros), the MoE routing forced to the
+        plain run's; the loss within TRAIN_LOSS_TOL relative and every
+        leaf's gradient within ``tol`` normwise of plain, the control past
+        ``tol``.  ``witness``: plain autograd again on the embedding one
+        ulp up (a perturbation of K16's size on no kernel at all), held
+        against plain leaf by leaf and printed beside the kernels' reading
+        (how far one ulp carries into the gradients; not gated).  Returns
+        the loss's and the worst gradient's relative errors, the
+        control's, and the kernels' launches."""
+        with plain_path(True, ref, **kernels), no_function(), \
+                record_routing(transformer) as routes:
+            pl_loss, pl, _, _ = grads_of(model, params, batch)
+        w_err = None
+        if witness:
+            emb = params["embed"]
+            params["embed"] = torch.nextafter(emb, emb.new_tensor(math.inf))
+            try:
+                with plain_path(True, ref, **kernels), no_function():
+                    w_loss, wg, _, _ = grads_of(model, params, batch)
+            finally:
+                params["embed"] = emb
+            w_err = grad_errors(wg, pl)
+            del wg
+        with force_routing(transformer, routes) if routing else \
+                contextlib.nullcontext():
+            k_loss, kg, counts, k_none = grads_of(model, params, batch)
+        k_err = grad_errors(kg, pl)
+        del kg
+        with force_routing(transformer, routes) if routing else \
+                contextlib.nullcontext(), no_function():
+            _, cg, _, c_none = grads_of(model, params, batch)
+        c_err = grad_errors(cg, pl)
+        del cg
+        rel = abs(float(k_loss) - float(pl_loss)) / abs(float(pl_loss))
+        worst = int(np.argmax(k_err))
+        names = leaf_paths(params)
+        log(f"{what}: loss {float(k_loss):.7g} vs plain {float(pl_loss):.7g}"
+            f" ({rel:.3g} relative), {len(k_err)} gradients normwise max "
+            f"{max(k_err):.3g} (leaf {worst}, {names[worst]}) mean "
+            f"{np.mean(k_err):.3g} (limit {tol}); control (no Function: "
+            f"{c_none} of {len(c_err)} gradients missing) max "
+            f"{max(c_err):.3g}")
+        if w_err is not None:
+            w_rel = abs(float(w_loss) - float(pl_loss)) / abs(float(pl_loss))
+            w_worst = int(np.argmax(w_err))
+            ratio = [k / w if w > 0 else (math.inf if k > 0 else 1.0)
+                     for k, w in zip(k_err, w_err)]
+            log(f"{what}, the witness (plain on the embedding one ulp up vs "
+                f"plain; not gated): loss {w_rel:.3g} relative, gradients "
+                f"normwise max {max(w_err):.3g} (leaf {w_worst}, "
+                f"{names[w_worst]}) mean {np.mean(w_err):.3g}; kernels over "
+                f"witness, leaf by leaf: median {np.median(ratio):.3g}, max "
+                f"{max(ratio):.3g} (leaf {int(np.argmax(ratio))}), "
+                f"{sum(k > w for k, w in zip(k_err, w_err))} of "
+                f"{len(k_err)} leaves above the witness")
+            for i in np.argsort(k_err)[::-1][:6]:
+                log(f"    leaf {int(i):4d} {names[i]:32s} kernels "
+                    f"{k_err[i]:.3g}  witness {w_err[i]:.3g}")
+        return rel, max(k_err), max(c_err), counts
+
+    def qwen2_fp32_gate():
+        """15c: Qwen2-1.5B at full depth and width in float32 on
+        TRAIN_F32_B x TRAIN_T tokens: one loss-and-gradient of the train
+        step on the kernels, one on the plain versions; the loss within
+        TRAIN_LOSS_TOL, every leaf's gradient within TRAIN_GRAD_TOL
+        normwise, the control past it, the one-ulp witness printed beside
+        them; then the same readings in bf16, printed, not gated."""
+        cfg = model_config(registry.get_config)
+        model = registry.build(cfg, device=DEVICE)
+        batch = train_batch(cfg, TRAIN_F32_B, TRAIN_T)
+        torch.cuda.empty_cache()
+        params = model.init_masters(MODEL_SEED)
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            rel, err, c_err, counts = gate_step(
+                model, params, batch, TRAIN_GRAD_TOL,
+                f"15c {cfg.name} float32 at {TRAIN_F32_B} x {TRAIN_T}",
+                witness=True)
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        assert counts == train_counts(cfg), counts
+        assert rel <= TRAIN_LOSS_TOL, f"loss {rel:.3g} > {TRAIN_LOSS_TOL}"
+        assert err <= TRAIN_GRAD_TOL, f"gradients {err:.3g}"
+        if c_err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"the control passes the gate ({c_err:.3g})")
+        log(f"15c: the control fails the gate, as it must ({c_err:.3g} > "
+            f"{TRAIN_GRAD_TOL})")
+        gate_step(model, params, batch, TRAIN_GRAD_TOL,
+                  f"15c {cfg.name} bf16 at {TRAIN_F32_B} x {TRAIN_T} (not "
+                  "gated)")
+        del params
+        torch.cuda.empty_cache()
+
+    def family_steps():
+        """15d: one train step of each family's smoke model on the card in
+        float32, from float32 masters drawn from MODEL_SEED: its loss and
+        gradients, kernels against plain, within the model's forward gate
+        (FP32_LOGIT_TOL, at the forward gate's draw: WIDTH_DRAW_GATES'
+        weight matrices scaled to 1/sqrt(input width), their reading at
+        the reference's draw printed first), the control past it (olmoe's
+        routing forced to plain's); then make_train_step on the kernels,
+        its loss the gate's."""
+        saved = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = torch.float32
+        try:
+            for arch in TRAIN_FAMILIES:
+                cfg = registry.get_config(arch).smoke()
+                model = registry.build(cfg, device=DEVICE)
+                batch = train_batch(cfg, 2, TRAIN_SMOKE_T)
+                params = model.init_masters(MODEL_SEED)
+                tol = FP32_LOGIT_TOL[arch]
+                what = f"15d {arch} ({cfg.family}) smoke float32"
+                if arch in WIDTH_DRAW_GATES:
+                    # chaotic at the reference's draw, as its forward:
+                    # printed there, gated at the forward gate's draw
+                    gate_step(model, params, batch, tol, what + " at the "
+                              "reference's draw (not gated)",
+                              routing=bool(cfg.moe))
+                    for key in model.impl.STACKED:
+                        scale_to_width(params[key], len(params[key]))
+                    what += " at weights scaled to 1/sqrt(input width)"
+                rel, err, c_err, counts = gate_step(
+                    model, params, batch, tol, what, routing=bool(cfg.moe))
+                assert counts == train_counts(cfg), (arch, counts)
+                assert rel <= tol and err <= tol, (arch, rel, err)
+                assert c_err > tol, f"{arch}: the control passes ({c_err})"
+                state = {"params": params,
+                         "opt": train_rt.adamw.init(params)}
+                step = train_rt.make_train_step(model, train_rt.TrainConfig(
+                    warmup_steps=0, total_steps=10))
+                tlib.reset_launches()
+                state, met = step(state, batch)
+                torch.cuda.synchronize()
+                tf_launches[f"train/{arch} smoke"] = dict(tlib.launches)
+                assert math.isfinite(float(met["loss"]))
+                log(f"15d {arch}: make_train_step loss "
+                    f"{float(met['loss']):.7g}, launches "
+                    f"{dict(tlib.launches)}")
+        finally:
+            layers.COMPUTE_DTYPE = saved
+
+    def runtime_on_card():
+        """15e: in subprocesses on the card, (1) ``TrainLoop`` at Qwen2's
+        smoke config with a failure injected at step 6 against an
+        uninterrupted run, under ``torch.use_deterministic_algorithms``
+        (the embedding's backward accumulates with atomics otherwise):
+        every loss and the final state equal bit for bit; (2) the launcher
+        ``python -m repro_torch.launch.train --arch qwen2-1.5b --smoke
+        --steps 8`` into a temporary directory."""
+        import os
+        import tempfile
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--train-resume", tmp], env=env, capture_output=True,
+                text=True, timeout=600)
+            log(out.stdout.strip())
+            assert out.returncode == 0, out.stderr[-3000:]
+            log(f"15e resume: {time.perf_counter() - t0:.1f} s (subprocess)")
+            t0 = time.perf_counter()
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                   "qwen2-1.5b", "--smoke", "--steps", "8", "--ckpt-dir",
+                   str(Path(tmp) / "launch")]
+            out = subprocess.run(cmd, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            log(out.stdout.strip())
+            assert out.returncode == 0, out.stderr[-3000:]
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("{'step'")]
+            assert len(lines) == 6 and "device=cuda" in out.stdout, lines
+            log(f"15e launcher: {' '.join(cmd[1:])}: exit 0 in "
+                f"{time.perf_counter() - t0:.1f} s")
+
+    phase("15a the gradient's Function on the card", functions_on_card)
+    phase("15b Qwen2-1.5B train steps at full width", qwen2_train)
+    phase("15c Qwen2-1.5B float32 gradient gate", qwen2_fp32_gate)
+    phase("15d one train step a family", family_steps)
+    phase("15e the runtime on the card", runtime_on_card)
     torch.cuda.empty_cache()
 
     # 5b. DSP kernel times at each path's shape -----------------------------

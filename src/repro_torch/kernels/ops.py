@@ -1,6 +1,7 @@
 """The public ops: the ten Table II functions with the accelerator
 dispatch table, the transformer's ``rmsnorm`` and ``flash_attention``, and
-the recurrences ``rwkv6_scan`` and ``mamba2_ssd``.
+the recurrences ``rwkv6_scan`` and ``mamba2_ssd``, each of the last four
+differentiable through the plain version's VJP (:class:`_RefVJP`).
 
 Counterpart of the reference's ``kernels/ops.py``.  The ops need no row
 padding: the kernels mask the ragged edge themselves (the reference pads
@@ -130,14 +131,72 @@ def plain_dispatch_table() -> DispatchTable:
 
 
 # ---------------------------------------------------------------------------
+# gradients: each transformer op's kernel forward, its plain version's VJP
+# ---------------------------------------------------------------------------
+def needs_graph(*inputs) -> bool:
+    """Whether a result of ``inputs`` needs a graph: grad mode on and a
+    tensor among them that requires a gradient.  Otherwise the ops call
+    their kernels (and the layers their functions) directly, so that the
+    serving paths keep their launches and their host time."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in inputs)
+
+
+class _RefVJP(torch.autograd.Function):
+    """The counterpart of the reference's ``_make_ref_bwd``: the forward
+    is ``kernel(*inputs)`` (a K15–K18 wrapper, whose output carries no
+    graph), the residuals are the primal inputs, and the backward re-runs
+    ``plain(*inputs)`` (the kernel's plain version in :mod:`.ref`) under
+    autograd and returns its vector-Jacobian product.  So the gradients
+    are the plain version's, while the forward stays on the kernel: the
+    reference has no backward kernel either.  The non-tensor arguments
+    (``eps``, ``causal``, ``scale``, ``q_offset``, ``chunk``) ride in
+    ``kernel`` and ``plain`` and get no gradient.  The backward runs
+    inside ``record_function("ref_vjp:<name>")`` (chip_smoke's time split
+    reads it)."""
+
+    @staticmethod
+    def forward(ctx, name, kernel, plain, *inputs):
+        ctx.name, ctx.plain = name, plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[3:]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad(), \
+                torch.profiler.record_function(f"ref_vjp:{ctx.name}"):
+            out = ctx.plain(*inputs)
+            got = iter(torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], grad,
+                allow_unused=True))
+        return (None, None, None, *(next(got) if n else None for n in need))
+
+
+def _apply(name: str, kernel, plain, *inputs: torch.Tensor) -> torch.Tensor:
+    """``kernel(*inputs)``, behind :class:`_RefVJP` where the result
+    needs a graph."""
+    if needs_graph(*inputs):
+        return _RefVJP.apply(name, kernel, plain, *inputs)
+    return kernel(*inputs)
+
+
+# ---------------------------------------------------------------------------
 # transformer ops (K15, K16)
 # ---------------------------------------------------------------------------
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., D); w: (D,).  The leading dims go to the kernel as rows."""
+    """x: (..., D); w: (D,).  The leading dims go to the kernel as rows;
+    the gradient is the plain version's on those rows (:class:`_RefVJP`)."""
     shape = x.shape
     flat = x.reshape(-1, shape[-1]).contiguous()
-    return _rms.rmsnorm(flat, w.contiguous(), eps).reshape(shape)
+    out = _apply("rmsnorm",
+                 lambda xf, wf: _rms.rmsnorm(xf, wf, eps),
+                 lambda xf, wf: ref.rmsnorm(xf, wf, eps),
+                 flat, w.contiguous())
+    return out.reshape(shape)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -147,7 +206,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Unlike the reference, which sends ``Tq < 8`` to its jnp reference (a
     TPU tiling limit of its kernel), this launches K15 at every shape on
-    the card."""
+    the card.  The gradient is the plain version's on the (B·Hq, T, D)
+    rows after the GQA repeat, whose own backward sums each group
+    (:class:`_RefVJP`)."""
     B, Hq, Tq, D = q.shape
     Hkv = k.shape[1]
     if Hq != Hkv:
@@ -155,11 +216,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     Tk = k.shape[2]
-    out = _attn.flash_attention(
-        q.reshape(B * Hq, Tq, D).contiguous(),
-        k.reshape(B * Hq, Tk, D).contiguous(),
-        v.reshape(B * Hq, Tk, D).contiguous(),
-        causal=causal, scale=scale, q_offset=int(q_offset))
+    q_offset = int(q_offset)
+
+    def kernel(q3, k3, v3):
+        return _attn.flash_attention(q3, k3, v3, causal=causal, scale=scale,
+                                     q_offset=q_offset)
+
+    def plain(q3, k3, v3):
+        return ref.flash_attention(q3[:, None], k3[:, None], v3[:, None],
+                                   causal=causal, scale=scale,
+                                   q_offset=q_offset)[:, 0]
+
+    out = _apply("flash_attention", kernel, plain,
+                 q.reshape(B * Hq, Tq, D).contiguous(),
+                 k.reshape(B * Hq, Tk, D).contiguous(),
+                 v.reshape(B * Hq, Tk, D).contiguous())
     return out.reshape(B, Hq, Tq, D)
 
 
@@ -172,16 +243,20 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, w: (B, T, H, K); v: (B, T, H, V); u: (H, K) → (B, T, H, V).
 
     The heads go to the kernel as rows of (B·H, T, ·), b-major and head
-    minor, with u tiled B times."""
-    B, T, H, _ = r.shape
-    V = v.shape[-1]
+    minor, with u tiled B times.  The gradient is the plain version's on
+    the (B, T, H, ·) inputs and the untiled u (:class:`_RefVJP`)."""
+    def kernel(r, k, v, w, u):
+        B, T, H, _ = r.shape
+        V = v.shape[-1]
 
-    def flat(x):
-        return x.transpose(1, 2).reshape(B * H, T, -1).contiguous()
+        def flat(x):
+            return x.transpose(1, 2).reshape(B * H, T, -1).contiguous()
 
-    o = _rwkv.wkv6(flat(r), flat(k), flat(v), flat(w),
-                   u.tile(B, 1).contiguous(), chunk=chunk)
-    return o.reshape(B, H, T, V).transpose(1, 2)
+        o = _rwkv.wkv6(flat(r), flat(k), flat(v), flat(w),
+                       u.tile(B, 1).contiguous(), chunk=chunk)
+        return o.reshape(B, H, T, V).transpose(1, 2)
+
+    return _apply("rwkv6_scan", kernel, ref.rwkv6_scan, r, k, v, w, u)
 
 
 def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -190,6 +265,11 @@ def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """x: (B, T, H, P); a: (B, T, H); b, c: (B, T, N) → (B, T, H, P).
 
     Straight through to the kernel (a in float32, as the reference's
-    kernel reads it; views made contiguous)."""
-    return _m2.ssd(x.contiguous(), a.float().contiguous(), b.contiguous(),
-                   c.contiguous(), chunk=chunk)
+    kernel reads it, cast before the gradient's boundary; views made
+    contiguous).  The gradient is the plain version's
+    (:class:`_RefVJP`)."""
+    def kernel(x, a, b, c):
+        return _m2.ssd(x, a, b, c, chunk=chunk)
+
+    return _apply("mamba2_ssd", kernel, ref.mamba2_ssd, x.contiguous(),
+                  a.float().contiguous(), b.contiguous(), c.contiguous())

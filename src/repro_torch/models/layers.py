@@ -15,7 +15,11 @@ Departures from the reference, each with its reason:
   ``cast`` calls stay, and are no-ops on such parameters.  The leaves the
   reference reads without ``cast`` (each family module's
   ``FLOAT32_LEAVES``) stay float32, and the arithmetic around them
-  promotes as the reference's does.
+  promotes as the reference's does.  Training keeps the reference's
+  float32 masters (``init_params(..., masters=True)``) and hands them to
+  ``train_loss`` as they are, so there every ``cast`` casts at its use,
+  as in the reference; :func:`cast_params` maps masters to the serving
+  tree.
 * ``sharding.rules.constraint`` has no counterpart on one card and is
   dropped; a :class:`Spec` keeps its logical axes as data.
 * Random draws come from an explicit ``torch.Generator`` on the target
@@ -78,10 +82,21 @@ class Spec:
 
 
 def tree_map(fn, tree):
-    """``fn`` over the leaves of a tree of dicts, in the dicts' order."""
+    """``fn`` over the leaves of a tree of dicts and lists, in their
+    order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in :func:`tree_map`'s
+    order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def leaf_dtype(name: str, float32_leaves=frozenset()) -> torch.dtype:
@@ -92,20 +107,38 @@ def leaf_dtype(name: str, float32_leaves=frozenset()) -> torch.dtype:
 
 
 def tree_map_named(fn, tree, name: str = ""):
-    """``fn(leaf, name)`` over the leaves of a tree of dicts, ``name`` the
-    key the leaf sits under, in the dicts' order."""
+    """``fn(leaf, name)`` over the leaves of a tree of dicts and lists,
+    ``name`` the dict key the leaf (or the list it is in) sits under, in
+    the tree's order."""
     if isinstance(tree, dict):
         return {k: tree_map_named(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_named(fn, v, name) for v in tree]
     return fn(tree, name)
 
 
+def cast_params(masters, float32_leaves=frozenset()):
+    """The float32 master tree in the dtypes of :func:`leaf_dtype` (read
+    at call time): the serving tree that ``init`` and
+    ``convert.params_from_reference`` give.  Differentiable (``Tensor.to``),
+    but training does not go through it: ``train_loss`` takes the masters
+    and each ``cast`` casts at its use, as the reference does, so that the
+    two cotangents of a leaf read twice (zamba2's shared blocks, a tied
+    embedding) sum in float32 on the master, not in the compute dtype."""
+    return tree_map_named(
+        lambda t, name: t.to(leaf_dtype(name, float32_leaves)), masters)
+
+
 def init_params(gen: torch.Generator, template,
-                float32_leaves=frozenset()) -> Any:
+                float32_leaves=frozenset(), masters: bool = False) -> Any:
     """Materialize every Spec of ``template`` on ``gen``'s device, in
     ``COMPUTE_DTYPE`` (``float32_leaves`` in float32), in the template's
-    order."""
+    order; with ``masters``, every leaf in float32 (the same draws,
+    unrounded: the reference's ``init``)."""
     return tree_map_named(
-        lambda s, name: s.materialize(gen, leaf_dtype(name, float32_leaves)),
+        lambda s, name: s.materialize(
+            gen, torch.float32 if masters
+            else leaf_dtype(name, float32_leaves)),
         template)
 
 
@@ -176,12 +209,54 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+def _sigmoid(x):
+    return 1 / (1 + torch.exp(-x))
+
+
+def _softplus(x):
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+class _Sigmoid(torch.autograd.Function):
+    """:func:`sigmoid` with ``logistic``'s JVP, ``g · (s · (1 − s))``:
+    the expansion's own gradient is NaN where ``exp(-x)`` overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+class _Softplus(torch.autograd.Function):
+    """:func:`softplus` with ``logaddexp``'s JVP, ``g · exp(x − out)``
+    (the expansion's gradient is 1 at x = 0, not 1/2)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = _softplus(x)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
 def sigmoid(x):
     """``1 / (1 + exp(-x))``, every op rounded to x's dtype: XLA expands
     ``jax.nn.sigmoid`` (``logistic``) into those ops, each rounded in
     bfloat16 (``torch.sigmoid`` rounds once, and differs in 3 % of the
-    bfloat16 values)."""
-    return 1 / (1 + torch.exp(-x))
+    bfloat16 values).  Its gradient is ``logistic``'s (:class:`_Sigmoid`,
+    only where a graph is built: the serving paths skip the Function's
+    host cost)."""
+    return _Sigmoid.apply(x) if ops.needs_graph(x) else _sigmoid(x)
 
 
 def silu(x):
@@ -192,8 +267,9 @@ def silu(x):
 
 def softplus(x):
     """``max(x, 0) + log1p(exp(-|x|))``, ``jax.nn.softplus``'s formula
-    (``logaddexp(x, 0)``; ``F.softplus`` cuts over to x above 20)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    (``logaddexp(x, 0)``; ``F.softplus`` cuts over to x above 20), with
+    ``logaddexp``'s gradient (:class:`_Softplus`)."""
+    return _Softplus.apply(x) if ops.needs_graph(x) else _softplus(x)
 
 
 def swiglu(x, w_gate, w_up, w_down):

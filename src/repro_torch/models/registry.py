@@ -5,7 +5,9 @@ Port of the reference's ``models/registry.py``.  ``build(cfg)`` returns a
 raises unless the caller passes ``device="cpu"``).  Every family of the
 reference is ported: ``dense``, ``moe`` and ``vlm``
 (:mod:`.transformer`), ``ssm`` (:mod:`.rwkv6`), ``hybrid``
-(:mod:`.zamba2`) and ``audio`` (:mod:`.whisper`).
+(:mod:`.zamba2`) and ``audio`` (:mod:`.whisper`), each with its
+``train_loss`` (:meth:`Model.train_loss`, on the float32 masters of
+:meth:`Model.init_masters`).
 """
 from __future__ import annotations
 
@@ -44,6 +46,25 @@ class Model:
         return L.unstack_params(
             L.init_params(gen, self.template, self.impl.FLOAT32_LEAVES),
             self.impl.STACKED)
+
+    def init_masters(self, seed: int = 0):
+        """float32 master parameters for training (the reference's
+        ``init``): :meth:`init`'s draws unrounded, every leaf float32, the
+        family's ``STACKED`` subtrees split into lists of leaves that own
+        their storage (each takes its own gradient and update)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        stacked = L.init_params(gen, self.template, masters=True)
+        return L.tree_map(torch.clone,
+                          L.unstack_params(stacked, self.impl.STACKED))
+
+    def train_loss(self, params, batch, remat_policy: str = "nothing"):
+        """The family's training loss of ``batch`` (``tokens``,
+        ``labels``; the vlm's ``prefix_embeds``, the audio family's
+        ``frames``), a float32 0-d tensor, each layer under
+        ``remat_policy`` (``"none"``, ``"nothing"`` or ``"dots"``).
+        ``params`` are float32 masters (:meth:`init_masters`), cast at
+        each use as the reference casts them."""
+        return self.impl.train_loss(params, self.cfg, batch, remat_policy)
 
     def param_count(self) -> int:
         return L.param_count(self.template)

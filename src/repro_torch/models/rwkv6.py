@@ -117,16 +117,29 @@ def _shift(x):
     return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def forward(params, cfg, tokens):
-    """tokens: (B, T) → logits (B, T, V), aux 0.0."""
+def forward(params, cfg, tokens, remat_policy: str = "nothing"):
+    """tokens: (B, T) → logits (B, T, V), aux 0.0.  Each layer under
+    ``T.remat(..., remat_policy)``."""
     x = T.embed_tokens(params, tokens)
-    for lp in params["layers"]:
+
+    def layer_fn(lp, x):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         x = x + time_mix(lp["att"], cfg, h, _shift(h))
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + channel_mix(lp["ffn"], h, _shift(h))
+        return x + channel_mix(lp["ffn"], h, _shift(h))
+
+    layer_fn = T.remat(layer_fn, remat_policy)
+    for lp in params["layers"]:
+        x = layer_fn(lp, x)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return T.unembed(params, cfg, x), 0.0
+
+
+def train_loss(params, cfg, batch, remat_policy: str = "nothing"):
+    """The mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``), a float32 0-d tensor; ``params`` the float32 masters."""
+    logits, _ = forward(params, cfg, batch["tokens"], remat_policy)
+    return L.softmax_xent(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,12 @@ calls a layer (:func:`prefix_attention`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from ..kernels import ops
 from ..runtime import flags
@@ -329,19 +331,76 @@ def _embed(params, tokens, prefix_embeds):
     return torch.cat([cast(prefix_embeds), x], dim=1), prefix_embeds.shape[1]
 
 
-def forward(params, cfg, tokens, prefix_embeds: Optional[torch.Tensor] = None):
+def forward(params, cfg, tokens, prefix_embeds: Optional[torch.Tensor] = None,
+            remat_policy: str = "nothing"):
     """tokens: (B, T) → logits (B, T', V), aux (0.0 for the dense family;
     the MoE load-balance loss averaged over the layers).  With
     ``prefix_embeds`` (B, P, D) the sequence is [prefix; tokens], T' = P +
-    T, and attention is prefix-LM."""
+    T, and attention is prefix-LM.  Each layer under ``remat(...,
+    remat_policy)``."""
     x, prefix_len = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def layer_fn(lp, x):
+        return block_apply(lp, cfg, x, positions, prefix_len=prefix_len)
+
+    layer_fn = remat(layer_fn, remat_policy)
     aux = 0.0
     for lp in params["layers"]:
-        x, a = block_apply(lp, cfg, x, positions, prefix_len=prefix_len)
+        x, a = layer_fn(lp, x)
         aux += a
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), aux / max(cfg.n_layers, 1)
+
+
+#: the products whose outputs ``remat(..., "dots")`` saves: the
+#: unbatched matrix products, as ``dots_with_no_batch_dims_saveable``
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, policy: str):
+    """``fn`` under activation checkpointing, the reference's ``remat``:
+    ``"none"`` keeps every activation; ``"nothing"`` keeps only the
+    inputs and recomputes the rest in the backward
+    (``torch.utils.checkpoint``, non-reentrant; the reference's
+    ``nothing_saveable``); ``"dots"`` keeps the outputs of the unbatched
+    matrix products as well (a selective checkpoint, the reference's
+    ``dots_with_no_batch_dims_saveable``).  Any other name is
+    ``"nothing"``, as in the reference.  Only where a graph is built
+    (grad enabled, an input that requires a gradient): the serving paths
+    call ``fn``.  The values do not depend on the policy."""
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not ops.needs_graph(*L.tree_leaves(list(args))):
+            return fn(*args)
+        return _checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def train_loss(params, cfg, batch, remat_policy: str = "nothing"):
+    """The mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``; the vlm's ``prefix_embeds``, whose positions take no
+    loss), plus 0.01 of the MoE load-balance loss, as a float32 0-d
+    tensor.  ``params`` are the float32 masters (each ``cast`` at its
+    use)."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          batch.get("prefix_embeds"), remat_policy)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:          # vlm: loss on text only
+        logits = logits[:, -labels.shape[1]:]
+    return L.softmax_xent(logits, labels) + 0.01 * aux
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):

@@ -15,8 +15,9 @@ four, as in the reference, so cross K/V from Tenc frames fills Tenc rows
 and zeros after them, and ``decode_step``'s cross attention runs
 unmasked over all ``max_len`` rows, the zero rows included, as the
 reference's does.  :func:`fill_cross_cache` writes the cross K/V from
-encoder states (the reference's tests compute it inline).  The family has
-no ``train_loss`` yet (ROADMAP Queue 1 item 5f).
+encoder states (the reference's tests compute it inline).
+:func:`train_loss` runs the decoder's cross-entropy through
+:func:`encode` and :func:`decode_seq`.
 """
 from __future__ import annotations
 
@@ -80,18 +81,24 @@ def _mlp(lp, x):
     return L.gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, remat_policy: str = "nothing"):
     """frames: (B, T, D) stub embeddings → encoder states (B, T, D) in
-    the compute dtype.  K15 once a layer, unmasked."""
+    the compute dtype.  K15 once a layer, unmasked; each layer under
+    ``T.remat(..., remat_policy)``."""
     x = cast(frames) + cast(_sinusoid(frames.shape[1], cfg.d_model,
                                       frames.device))[None]
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params["enc_layers"]:
+
+    def layer_fn(lp, x):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         x = x + L.self_attention(lp["attn"], cfg, h, positions, causal=False,
                                  use_rope=False)
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(lp, h)
+        return x + _mlp(lp, h)
+
+    layer_fn = T.remat(layer_fn, remat_policy)
+    for lp in params["enc_layers"]:
+        x = layer_fn(lp, x)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -114,19 +121,25 @@ def _cross_attention(lp, cfg, x, enc):
     return L.attn_out(lp, o)
 
 
-def decode_seq(params, cfg, tokens, enc):
+def decode_seq(params, cfg, tokens, enc, remat_policy: str = "nothing"):
     """Teacher-forced decoder pass. tokens: (B, T); enc: (B, Te, D) →
     logits (B, T, V).  K15 twice a layer: causal self-attention, then
-    cross attention to ``enc``."""
+    cross attention to ``enc``; each layer under ``T.remat(...,
+    remat_policy)``."""
     x = T.embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params["dec_layers"]:
+
+    def layer_fn(lp, x, enc):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         x = x + L.self_attention(lp["attn"], cfg, h, positions, causal=True)
         h = L.rmsnorm(x, lp["ln_x"], cfg.norm_eps)
         x = x + _cross_attention(lp["xattn"], cfg, h, enc)
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(lp, h)
+        return x + _mlp(lp, h)
+
+    layer_fn = T.remat(layer_fn, remat_policy)
+    for lp in params["dec_layers"]:
+        x = layer_fn(lp, x, enc)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return T.unembed(params, cfg, x)
 
@@ -136,6 +149,16 @@ def forward(params, cfg, tokens, frames):
     audio family, ``launch/dryrun.py`` ``_prefill_logits``): logits (B, T,
     V) of ``decode_seq(tokens, encode(frames))``, and aux 0.0."""
     return decode_seq(params, cfg, tokens, encode(params, cfg, frames)), 0.0
+
+
+def train_loss(params, cfg, batch, remat_policy: str = "nothing"):
+    """The mean next-token cross-entropy of the decoder on ``batch``
+    (``frames``, ``tokens``, ``labels``) through ``encode`` and
+    ``decode_seq``, a float32 0-d tensor; ``params`` the float32
+    masters."""
+    enc = encode(params, cfg, batch["frames"], remat_policy)
+    logits = decode_seq(params, cfg, batch["tokens"], enc, remat_policy)
+    return L.softmax_xent(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -128,25 +128,34 @@ def mamba_apply(lp, cfg, x):
     return x + y @ cast(lp["out_proj"])
 
 
-def _shared_apply(params, cfg, x, gi, positions):
-    """Group ``gi``'s shared attention block, ``gi % n_shared_blocks``, on
-    the sequence path (K16, K15)."""
-    lp = params["shared"][gi % cfg.n_shared_blocks]
-    return T.block_apply(lp, cfg, x, positions)[0]
-
-
-def forward(params, cfg, tokens):
-    """tokens: (B, T) → logits (B, T, V), aux 0.0."""
+def forward(params, cfg, tokens, remat_policy: str = "nothing"):
+    """tokens: (B, T) → logits (B, T, V), aux 0.0.  Each group (its Mamba
+    layers and its shared block) under ``T.remat(..., remat_policy)``, as
+    in the reference; the tail is not."""
     x = T.embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for gi, group in enumerate(params["groups"]):
+
+    def group_fn(group, shared, x):
+        """A group's Mamba layers, then its shared attention block (K16,
+        K15)."""
         for lp in group:
             x = mamba_apply(lp, cfg, x)
-        x = _shared_apply(params, cfg, x, gi, positions)
+        return T.block_apply(shared, cfg, x, positions)[0]
+
+    group_fn = T.remat(group_fn, remat_policy)
+    for gi, group in enumerate(params["groups"]):
+        x = group_fn(group, params["shared"][gi % cfg.n_shared_blocks], x)
     for lp in params.get("tail", ()):
         x = mamba_apply(lp, cfg, x)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return T.unembed(params, cfg, x), 0.0
+
+
+def train_loss(params, cfg, batch, remat_policy: str = "nothing"):
+    """The mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``), a float32 0-d tensor; ``params`` the float32 masters."""
+    logits, _ = forward(params, cfg, batch["tokens"], remat_policy)
+    return L.softmax_xent(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -1541,3 +1541,130 @@ def test_several_cards_match_one(card, devices, slice_steps):
     (b,) = srv.report().per_bucket.values()
     launches = b.slices if slice_steps else b.batches
     assert cuda_run.launches["run"] == devices * launches
+
+
+# ---------------------------------------------------------------------------
+# training: the gradient's Function, one train step a family
+# ---------------------------------------------------------------------------
+def _no_function(name, kernel, plain, *inputs):
+    """``ops._apply`` without the gradient's Function: the op calls its
+    kernel directly (the control: a raw kernel's output has no graph)."""
+    return kernel(*inputs)
+
+
+def _op_grads(fn, inputs, card):
+    """Gradients of ((fn(1.5 x...) + bias) c).sum() with respect to the
+    leaves x and bias, None where the graph does not reach one."""
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    out = fn(*(1.5 * t for t in leaves))
+    bias = torch.zeros((), device=card, requires_grad=True)
+    c = torch.randn(out.shape, device=card, generator=torch.Generator(
+        device=card).manual_seed(1)).to(out.dtype)
+    loss = ((out + bias) * c).float().sum()
+    return torch.autograd.grad(loss, leaves + [bias], allow_unused=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["rmsnorm", "flash_attention", "rwkv6_scan",
+                                "mamba2_ssd"])
+def test_gradient_function_on_the_card_equals_plain_bit_for_bit(
+        card, op, dtype, monkeypatch):
+    """Each op's Function launches its kernel once and gives plain
+    autograd's gradients bit for bit (both the plain version's VJP of the
+    same inputs); the raw kernel without the Function leaves every
+    upstream gradient None."""
+    g = torch.Generator(device=card).manual_seed(3)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=card)
+                * scale).to(dtype)
+    cases = {
+        "rmsnorm": (lambda x, w: ops.rmsnorm(x, w, 1e-6),
+                    lambda x, w: ref.rmsnorm(x, w, 1e-6),
+                    [rn(300, 1536), 1 + 0.2 * rn(1536)], "rmsnorm"),
+        "flash_attention": (
+            lambda q, k, v: ops.flash_attention(q, k, v, q_offset=5),
+            lambda q, k, v: ref.flash_attention(
+                q, k.repeat_interleave(6, 1), v.repeat_interleave(6, 1),
+                q_offset=5),
+            [rn(2, 12, 300, 128), rn(2, 2, 305, 128), rn(2, 2, 305, 128)],
+            "flash_attention"),
+        "rwkv6_scan": (ops.rwkv6_scan, ref.rwkv6_scan,
+                       [rn(2, 70, 4, 16), rn(2, 70, 4, 16), rn(2, 70, 4, 16),
+                        torch.exp(-torch.exp(rn(2, 70, 4, 16, scale=0.5))),
+                        rn(4, 16)], "wkv6"),
+        "mamba2_ssd": (ops.mamba2_ssd, ref.mamba2_ssd,
+                       [rn(2, 70, 16, 16), -torch.exp(rn(2, 70, 16).float()),
+                        rn(2, 70, 16), rn(2, 70, 16)], "ssd"),
+    }
+    fn, plain, inputs, counter = cases[op]
+    lib = dsp.TRANSFORMER_LIB
+    lib.reset_launches()
+    got = _op_grads(fn, inputs, card)
+    assert lib.launches[counter] == 1
+    want = _op_grads(plain, inputs, card)
+    for a, b in zip(got, want):
+        assert a is not None and torch.equal(a, b)
+    monkeypatch.setattr(ops, "_apply", _no_function)
+    ctl = _op_grads(fn, inputs, card)
+    assert all(a is None for a in ctl[:-1]) and ctl[-1] is not None
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "olmoe-1b-7b", "paligemma-3b",
+                                  "rwkv6-3b", "zamba2-7b", "whisper-base"])
+def test_smoke_train_step_on_kernels_matches_plain(card, arch, monkeypatch):
+    """One train step's loss and gradients of each family's smoke model
+    in float32 on the kernels (their gradients through the Function)
+    within chip_smoke's forward gate (FP32_LOGIT_TOL, at its draw) of
+    plain autograd on the plain versions, the MoE routing forced to the
+    plain run's; the
+    kernels without the Function (missing gradients as zeros) must fail
+    it; then ``make_train_step`` takes the step."""
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.models import transformer
+    from repro_torch.runtime import train as train_rt
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    m = registry.build_smoke(arch)
+    params = m.init_masters(0)
+    if arch in chip_smoke.WIDTH_DRAW_GATES:     # as their forward gates
+        for key in m.impl.STACKED:
+            chip_smoke.scale_to_width(params[key], len(params[key]))
+    batch = data_lib.SyntheticLM(data_lib.DataConfig(
+        vocab=m.cfg.vocab, seq_len=64, global_batch=2, seed=0)).batch(0)
+    gen = torch.Generator().manual_seed(0)
+    if m.cfg.prefix_len:
+        batch["prefix_embeds"] = torch.randn(2, m.cfg.prefix_len,
+                                             m.cfg.d_model, generator=gen)
+    if m.cfg.family == "audio":
+        batch["frames"] = torch.randn(2, 64, m.cfg.d_model, generator=gen)
+    batch = data_lib.shard_batch(batch, card)
+    leaves = layers.tree_leaves(params)
+
+    def grads():
+        loss, got = train_rt.loss_and_grads(m, params, batch)
+        return float(loss), [torch.zeros_like(p) if x is None else x
+                             for p, x in zip(leaves, got)]
+
+    with monkeypatch.context() as mp:
+        _swap_plain(mp)
+        mp.setattr(ops, "_apply", _no_function)
+        with chip_smoke.record_routing(transformer) as routes:
+            pl_loss, pl = grads()
+    tol = chip_smoke.FP32_LOGIT_TOL[arch]
+
+    def worst(gs):
+        return max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(gs, pl) if b.abs().max() > 0)
+    with chip_smoke.force_routing(transformer, routes):
+        k_loss, kg = grads()
+    with monkeypatch.context() as mp, \
+            chip_smoke.force_routing(transformer, routes):
+        mp.setattr(ops, "_apply", _no_function)
+        _, cg = grads()
+    assert abs(k_loss - pl_loss) <= tol * abs(pl_loss)
+    assert worst(kg) <= tol, worst(kg)
+    assert worst(cg) > tol
+    state = {"params": params, "opt": train_rt.adamw.init(params)}
+    state, met = train_rt.make_train_step(m, train_rt.TrainConfig(
+        warmup_steps=0, total_steps=10))(state, batch)
+    assert math.isfinite(float(met["loss"])) and int(state["opt"]["step"]) == 1
